@@ -1,0 +1,229 @@
+"""Error detection: the polynomial CRC family as GF(2) affine maps.
+
+Mirrors polar_codes_tpu/models/detectors.py. For each (detector, data
+length) the host derives, from the LFSR recurrence, a generator matrix
+G [tail, D] and constant g0 [tail] with tail = G.data + g0 (mod 2). On the
+device, checksum generation and checking are then GF(2) products mod 2,
+computed in int32 (one masked parity per tail bit), so no float matmul and
+no TF32 setting can touch them.
+
+Ported: Dummy, CRC8, CRC16 (CCITT-FALSE) and the 5G NR CRC6/11/16/24C.
+CRC32 and CMAC are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def crc_msb_first(bits, poly: int, width: int, init: int) -> int:
+    """Non-reflected CRC over a {0,1} bit stream (host reference)."""
+    mask = (1 << width) - 1
+    top = 1 << (width - 1)
+    reg = init & mask
+    for b in np.asarray(bits, dtype=np.uint8):
+        fb = ((reg & top) != 0) ^ int(b)
+        reg = (reg << 1) & mask
+        if fb:
+            reg ^= poly
+    return reg
+
+
+def _int_to_bits(value: int, width: int) -> np.ndarray:
+    """MSB-first bit vector of an integer."""
+    return np.array(
+        [(value >> (width - 1 - i)) & 1 for i in range(width)], dtype=np.uint8
+    )
+
+
+def _cols_to_matrix(cols, width: int) -> np.ndarray:
+    """List of int states -> [width, D] GF(2) matrix (MSB-first rows)."""
+    return np.stack([_int_to_bits(c, width) for c in cols], axis=1).astype(np.uint8)
+
+
+def _parity_rows(x: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+    """[..., D] {0,1} and host rows [T, D] {0,1} -> [..., T] int32 parities
+    of (rows @ x) mod 2, one masked sum per row."""
+    xi = x.to(torch.int32)
+    r = torch.as_tensor(rows.astype(np.int32), device=x.device)
+    cols = [((xi & r[t]).sum(-1) & 1) for t in range(r.shape[0])]
+    return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+class Detector:
+    """Base detector: `bits` checksum value bits; `tail_bits` the bits it
+    occupies at the tail of the info block (whole bytes)."""
+
+    bits: int = 0
+    tail_bits: int = 0
+    name: str = "dummy"
+
+    # ---- host reference (1-D NumPy) -----------------------------------
+
+    def compute_np(self, data_bits: np.ndarray) -> np.ndarray:
+        """Tail-layout checksum bits for a 1-D {0,1} data-bit array."""
+        raise NotImplementedError
+
+    def generate_np(self, block_bits: np.ndarray) -> np.ndarray:
+        out = np.asarray(block_bits, dtype=np.uint8).copy()
+        if self.tail_bits == 0:
+            return out
+        d = out.shape[-1] - self.tail_bits
+        out[d:] = self.compute_np(out[:d])
+        return out
+
+    # ---- GF(2) affine map ---------------------------------------------
+
+    def value_affine(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(M [bits, D], m0 [bits]): checksum value bits = M.data + m0."""
+        raise NotImplementedError
+
+    def _place(self, value: int) -> np.ndarray:
+        """Tail bit layout of a checksum value (linear)."""
+        raise NotImplementedError
+
+    def _place_matrix(self) -> np.ndarray:
+        """[tail_bits, bits] placement of value bits into the tail layout."""
+        P = np.zeros((self.tail_bits, self.bits), dtype=np.uint8)
+        for b in range(self.bits):
+            P[:, b] = self._place(1 << (self.bits - 1 - b))
+        return P
+
+    @functools.lru_cache(maxsize=None)
+    def affine_map(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(G [tail, D], g0 [tail]): tail bits = G.data + g0 (mod 2)."""
+        M, m0 = self.value_affine(data_len)
+        P = self._place_matrix()
+        return (P @ M) % 2, (P @ m0) % 2
+
+    def check_matrix(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(A [tail, D + tail], g0): a block x checks iff A.x + g0 = 0."""
+        G, g0 = self.affine_map(data_len)
+        A = np.concatenate([G, np.eye(self.tail_bits, dtype=np.uint8)], axis=1)
+        return A, g0
+
+    # ---- batched tensor ops -------------------------------------------
+
+    def generate(self, block_bits: torch.Tensor) -> torch.Tensor:
+        """[..., K] {0,1} -> [..., K] with the checksum in the tail."""
+        if self.tail_bits == 0:
+            return block_bits
+        d = block_bits.shape[-1] - self.tail_bits
+        G, g0 = self.affine_map(d)
+        par = _parity_rows(block_bits[..., :d], G)
+        tail = par ^ torch.as_tensor(g0.astype(np.int32), device=block_bits.device)
+        return torch.cat([block_bits[..., :d], tail.to(block_bits.dtype)], dim=-1)
+
+    def check(self, block_bits: torch.Tensor) -> torch.Tensor:
+        """[..., K] {0,1} -> bool [...]."""
+        if self.tail_bits == 0:
+            return torch.ones(block_bits.shape[:-1], dtype=torch.bool,
+                              device=block_bits.device)
+        A, g0 = self.check_matrix(block_bits.shape[-1] - self.tail_bits)
+        syn = _parity_rows(block_bits, A) ^ torch.as_tensor(
+            g0.astype(np.int32), device=block_bits.device)
+        return (syn == 0).all(dim=-1)
+
+    def __hash__(self):  # lru_cache on methods needs a hashable self
+        return hash((type(self).__name__, self.bits, self.tail_bits))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.bits == other.bits
+
+
+class Dummy(Detector):
+    """Always-valid detector."""
+
+    def compute_np(self, data_bits):
+        return np.zeros(0, dtype=np.uint8)
+
+
+class _PolyCrc(Detector):
+    """Non-reflected polynomial CRC with a byte-aligned big-endian tail."""
+
+    poly = 0
+    init = 0
+
+    def compute_np(self, data_bits: np.ndarray) -> np.ndarray:
+        return self._place(crc_msb_first(data_bits, self.poly, self.bits, self.init))
+
+    def _place(self, value: int) -> np.ndarray:
+        out = np.zeros(self.tail_bits, dtype=np.uint8)
+        out[self.tail_bits - self.bits :] = _int_to_bits(value, self.bits)
+        return out
+
+    def value_affine(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One LFSR step is s' = L(s) ^ d*poly with the linear
+        L(s) = (s<<1) ^ (msb(s) ? poly : 0); over D bits
+        crc = L^D(init) + sum_i d_i * L^(D-1-i)(poly)."""
+        w, poly, mask = self.bits, self.poly, (1 << self.bits) - 1
+        top = 1 << (w - 1)
+
+        def L(s: int) -> int:
+            out = (s << 1) & mask
+            if s & top:
+                out ^= poly
+            return out
+
+        cols = [0] * data_len
+        cur = poly & mask
+        for i in range(data_len - 1, -1, -1):
+            cols[i] = cur
+            cur = L(cur)
+        const = self.init & mask
+        for _ in range(data_len):
+            const = L(const)
+        return _cols_to_matrix(cols, w), _int_to_bits(const, w)
+
+
+class CRC8(_PolyCrc):
+    """CRC-8, poly 0x07, init 0."""
+
+    bits, tail_bits, poly, init, name = 8, 8, 0x07, 0, "crc8"
+
+
+class CRC16(_PolyCrc):
+    """CRC-16 CCITT-FALSE: 0x1021, init 0xFFFF."""
+
+    bits, tail_bits, poly, init, name = 16, 16, 0x1021, 0xFFFF, "crc16"
+
+
+class CRC6NR(_PolyCrc):
+    """TS 38.212 gCRC6: 0x21, init 0; one tail byte."""
+
+    bits, tail_bits, poly, init, name = 6, 8, 0x21, 0, "crc6nr"
+
+
+class CRC11NR(_PolyCrc):
+    """TS 38.212 gCRC11: 0x621, init 0; two tail bytes."""
+
+    bits, tail_bits, poly, init, name = 11, 16, 0x621, 0, "crc11nr"
+
+
+class CRC16NR(_PolyCrc):
+    """TS 38.212 gCRC16: 0x1021, init 0."""
+
+    bits, tail_bits, poly, init, name = 16, 16, 0x1021, 0, "crc16nr"
+
+
+class CRC24NRC(_PolyCrc):
+    """TS 38.212 gCRC24C: 0xB2B117, init 0; three tail bytes."""
+
+    bits, tail_bits, poly, init, name = 24, 24, 0xB2B117, 0, "crc24nrc"
+
+
+_BY_NAME: Dict[str, type] = {
+    cls.name: cls
+    for cls in (Dummy, CRC8, CRC16, CRC6NR, CRC11NR, CRC16NR, CRC24NRC)
+}
+
+
+def detector_by_name(name: str) -> Detector:
+    """The detector whose `name` attribute is `name` (e.g. "crc16")."""
+    if name not in _BY_NAME:
+        raise NotImplementedError(f"detector {name!r} is not ported yet")
+    return _BY_NAME[name]()

@@ -1,0 +1,80 @@
+"""Polar encoder: batched systematic / non-systematic butterfly encoding.
+
+The port of polar_codes_tpu/models/encoder.py PolarEncoder: the CRC is
+written into the info tail, the info bits are scattered to the non-frozen
+positions, and the butterfly encoder (kernel K2 on the card,
+ops/butterfly_kernel.py) runs the transform -> re-freeze -> transform
+sequence of systematic encoding. The kernel covers N <= 2048; the matmul
+transform the JAX package uses above that is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..construction import frozen_bit_mask, info_indices
+from ..ops.butterfly_kernel import butterfly_encode
+from .detectors import Detector, Dummy
+
+
+class PolarEncoder:
+    """Batched polar encoder for one (N, frozen set) code. The code's
+    constants live on `device`; inputs must be there too."""
+
+    def __init__(
+        self,
+        block_length: int,
+        frozen_bit_positions: Sequence[int],
+        systematic: bool = True,
+        detector: Optional[Detector] = None,
+        device="cpu",
+    ):
+        n = block_length.bit_length() - 1
+        if (1 << n) != block_length:
+            raise ValueError(f"block length {block_length} is not a power of 2")
+        self.block_length = block_length
+        self.frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
+        self.frozen_mask = frozen_bit_mask(block_length, self.frozen)
+        self.info_pos = info_indices(block_length, self.frozen)
+        self.info_length = int(self.info_pos.size)
+        self.systematic = systematic
+        self.detector = detector if detector is not None else Dummy()
+        self._info_pos_t = torch.as_tensor(self.info_pos, device=device)
+        self._mask_t = torch.as_tensor(self.frozen_mask.astype(np.uint8),
+                                       device=device)
+        self.device = self._info_pos_t.device  # "cuda" resolves to "cuda:0"
+
+    def _check(self, bits: torch.Tensor, length: int) -> None:
+        if bits.shape[-1] != length:
+            raise ValueError(f"expected {length} bits, got {bits.shape[-1]}")
+        if bits.device != self.device:
+            raise ValueError(f"encoder lives on {self.device}, bits on {bits.device}")
+
+    def inject(self, info_bits: torch.Tensor) -> torch.Tensor:
+        """Scatter [..., K] info bits into a [..., N] u-vector (frozen = 0)."""
+        self._check(info_bits, self.info_length)
+        u = torch.zeros(info_bits.shape[:-1] + (self.block_length,),
+                        dtype=info_bits.dtype, device=info_bits.device)
+        u[..., self._info_pos_t] = info_bits
+        return u
+
+    def extract(self, block_bits: torch.Tensor) -> torch.Tensor:
+        """Gather [..., N] -> [..., K] info bits at the non-frozen positions."""
+        self._check(block_bits, self.block_length)
+        return block_bits.index_select(-1, self._info_pos_t)
+
+    def encode(self, info_bits: torch.Tensor, generate_crc: bool = True) -> torch.Tensor:
+        """[..., K] info bits -> [..., N] uint8 codeword bits. With a CRC
+        detector and generate_crc, the last tail_bits of the info block are
+        overwritten with the checksum first."""
+        self._check(info_bits, self.info_length)
+        x = info_bits.to(torch.uint8)
+        if generate_crc and self.detector.tail_bits:
+            x = self.detector.generate(x)
+        lead = x.shape[:-1]
+        u = self.inject(x).reshape(-1, self.block_length).contiguous()
+        code = butterfly_encode(u, self._mask_t, self.systematic)
+        return code.reshape(lead + (self.block_length,))

@@ -1,0 +1,250 @@
+"""CRC-aided successive-cancellation list (SCL) decoder.
+
+The port of polar_codes_tpu/models/scl.py SCLDecoder for the path its
+fast decode takes (`_decode_pallas_fast`): the tree levels up to
+`kernel_span` run in the SCL subtree kernel K1 (ops/scl_kernel_bl.py), the
+few wider levels above run here as torch glue in the same [w, S, B]
+layout (the JAX `xla_node`), and the decision bits travel as one packed
+int32 word per (position, codeword), bit l = path l. The tail then checks
+the CRC on the packed word (one masked XOR-reduction per tail bit, all
+paths at once), picks the best path whose CRC holds (the ML path if none
+does), shifts its codeword out of the word and gathers the info bits.
+
+Path metrics are LLR-based, higher is better; the list widens from one
+path at metric 0 until forks have produced L candidates. Gathers are real
+index gathers, so they are exact on any device.
+
+The batch-first and batch-last XLA paths of the JAX package are not
+ported: the plain version of K1 plus this glue is the port's reference,
+and the JAX package's paths remain the parity reference of the tests.
+L = 1 (Fast-SSC) and L > 32 are later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..construction import info_indices
+from ..ops.butterfly import butterfly_transform
+from ..ops.fg import f_minsum_bits, g_update
+from ..ops.scl_kernel_bl import (
+    MAX_LIST,
+    SubtreeSchedule,
+    build_schedule,
+    packed_bipolar,
+    scl_subtree,
+    take_packed,
+)
+from .detectors import Detector, Dummy
+from .tree import CodeNode, NodeKind, build_tree
+
+_NEG = -1.0e30  # metric of an inactive list slot
+_ACTIVE_THRESHOLD = -1.0e29
+
+SubtreeFn = Callable[[SubtreeSchedule, torch.Tensor, torch.Tensor],
+                     Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def default_kernel_span(list_size: int, block_length: int) -> int:
+    """The JAX package's default subtree span (512 at L <= 8)."""
+    span = max(128, min(512, 4096 // max(list_size, 8)))
+    return min(span, block_length)
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR over dim 1 of a [T, M, B] int32 tensor, as a halving tree."""
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+        half = x.shape[1] // 2
+        x = x[:, :half] ^ x[:, half:]
+    return x[:, 0]
+
+
+class SCLDecoder:
+    """CRC-aided SCL decoder for one (N, frozen set) code.
+
+    subtree_fn is the function that decodes one subtree (default: K1's
+    wrapper, which runs the CUDA kernel on CUDA tensors and the plain
+    version on CPU tensors); pass `scl_subtree_plain` to run the plain
+    version on the card explicitly.
+    """
+
+    def __init__(
+        self,
+        block_length: int,
+        frozen_bit_positions: Sequence[int],
+        list_size: int = 8,
+        systematic: bool = True,
+        detector: Optional[Detector] = None,
+        enum_span: int = 16,
+        max_enum_k: Optional[int] = None,
+        kernel_span: Optional[int] = None,
+        device="cpu",
+        subtree_fn: Optional[SubtreeFn] = None,
+    ):
+        n = block_length.bit_length() - 1
+        if (1 << n) != block_length:
+            raise ValueError(f"block length {block_length} is not a power of 2")
+        if list_size == 1:
+            raise NotImplementedError(
+                "list_size=1 decodes through Fast-SSC, which arrives with the "
+                "Fast-SSC slice of the port")
+        if not 2 <= list_size <= MAX_LIST:
+            raise NotImplementedError(
+                f"list_size={list_size}: the packed bit word holds at most "
+                f"{MAX_LIST} paths")
+        if max_enum_k is None:
+            max_enum_k = 4
+        if enum_span and (enum_span > 32 or max_enum_k > 5):
+            raise NotImplementedError(
+                "ENUM leaves are limited to span <= 32 and k <= 5")
+        self.block_length = block_length
+        self.list_size = int(list_size)
+        self.frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
+        self.info_pos = info_indices(block_length, self.frozen)
+        self.info_length = int(self.info_pos.size)
+        self.systematic = systematic
+        self.detector = detector if detector is not None else Dummy()
+        self.enum_span = enum_span
+        self.max_enum_k = max_enum_k
+        self.kernel_span = (default_kernel_span(self.list_size, block_length)
+                            if kernel_span is None else int(kernel_span))
+        self.subtree_fn = scl_subtree if subtree_fn is None else subtree_fn
+        self.tree: CodeNode = build_tree(
+            block_length, self.frozen, enum_span=enum_span, max_enum_k=max_enum_k)
+        self._schedules = {}
+        self._info_pos_t = torch.as_tensor(self.info_pos, device=device)
+        self.device = self._info_pos_t.device  # "cuda" resolves to "cuda:0"
+        self._syndrome = self._syndrome_consts()
+
+    # ---- constants -------------------------------------------------------
+
+    def _syndrome_consts(self):
+        """For a linear CRC: (index [T, M] of the codeword positions each
+        tail-bit check reads, padded with N, which points at a zero row;
+        g0 [T]). The check A @ info + g0 = 0 lifted to the systematic
+        codeword."""
+        det = self.detector
+        if not det.tail_bits:
+            return None
+        A, g0 = det.check_matrix(self.info_length - det.tail_bits)
+        rows = [self.info_pos[np.flatnonzero(A[t])] for t in range(det.tail_bits)]
+        width = max(len(r) for r in rows)
+        idx = np.full((det.tail_bits, width), self.block_length, np.int64)
+        for t, r in enumerate(rows):
+            idx[t, : len(r)] = r
+        return (torch.as_tensor(idx, device=self.device),
+                [int(v) for v in g0])
+
+    def schedule(self, node: CodeNode, w_in: int) -> SubtreeSchedule:
+        """The cached schedule of the subtree at `node` entered at w_in."""
+        key = (node, w_in)
+        sched = self._schedules.get(key)
+        if sched is None:
+            sched = build_schedule(node, w_in, self.list_size)
+            self._schedules[key] = sched
+        return sched
+
+    def _check_input(self, llr: torch.Tensor) -> torch.Tensor:
+        if llr.shape[-1] != self.block_length:
+            raise ValueError(
+                f"expected {self.block_length} LLRs per block, got {llr.shape[-1]}")
+        if llr.device != self.device:
+            raise ValueError(f"decoder lives on {self.device}, LLRs on {llr.device}")
+        return llr.to(torch.float32).reshape(-1, self.block_length)
+
+    # ---- glue above kernel_span ----------------------------------------------
+
+    def _glue_node(self, node: CodeNode, llr, metrics):
+        """llr [w, S, B], metrics [B, w] -> (word [S, B] i32, perm [B, w'],
+        metrics [B, w']). Subtrees of span <= kernel_span, and leaves longer
+        than it, go to the subtree function whole."""
+        if node.length <= self.kernel_span or node.kind != NodeKind.BRANCH:
+            sched = self.schedule(node, llr.shape[0])
+            return self.subtree_fn(sched, llr.contiguous(), metrics.contiguous())
+        half = node.length // 2
+        a, b = llr[:, :half], llr[:, half:]
+        left, p_left, metrics = self._glue_node(node.left, f_minsum_bits(a, b), metrics)
+        w_mid = metrics.shape[-1]
+        idx = p_left.T.to(torch.int64)[:, None, :].expand(w_mid, llr.shape[1], llr.shape[2])
+        llr_g = torch.gather(llr, 0, idx)
+        a, b = llr_g[:, :half], llr_g[:, half:]
+        right, p_right, metrics = self._glue_node(
+            node.right, g_update(a, b, packed_bipolar(left, w_mid)), metrics)
+        w_out = metrics.shape[-1]
+        left = take_packed(left, p_right.T, w_out)
+        perm = torch.gather(p_left, 1, p_right.to(torch.int64))
+        return torch.cat([left ^ right, right], dim=0), perm, metrics
+
+    def decode_packed(self, llr: torch.Tensor):
+        """llr [B, N] -> (packed codeword word [N, B] i32, metrics [B, L])."""
+        flat = self._check_input(llr)
+        n_batch = flat.shape[0]
+        metrics = torch.zeros((n_batch, 1), dtype=torch.float32, device=flat.device)
+        word, _, metrics = self._glue_node(
+            self.tree, flat.T.contiguous()[None], metrics)
+        width = metrics.shape[-1]
+        if width < self.list_size:  # tiny codes that never reach L paths
+            metrics = torch.cat([metrics, torch.full(
+                (n_batch, self.list_size - width), _NEG, device=flat.device)], dim=-1)
+        return word, metrics
+
+    # ---- public API --------------------------------------------------------
+
+    def decode_paths(self, llr: torch.Tensor):
+        """[..., N] LLRs -> (codewords [..., L, N] uint8, metrics [..., L],
+        active [..., L])."""
+        lead = llr.shape[:-1]
+        word, metrics = self.decode_packed(llr)
+        planes = torch.stack([(word >> l) & 1 for l in range(self.list_size)], 0)
+        codewords = planes.permute(2, 0, 1).to(torch.uint8)
+        codewords = codewords.reshape(lead + (self.list_size, self.block_length))
+        metrics = metrics.reshape(lead + (self.list_size,))
+        return codewords, metrics, metrics > _ACTIVE_THRESHOLD
+
+    def decode(self, llr: torch.Tensor):
+        """[..., N] LLRs -> (info bits [..., K] uint8, codeword [..., N]
+        uint8, detector ok [...] bool): the best path whose CRC holds, or
+        the ML path if none does."""
+        lead = llr.shape[:-1]
+        word, metrics = self.decode_packed(llr)
+        active = metrics > _ACTIVE_THRESHOLD
+        n_list = self.list_size
+        lanes = torch.arange(n_list, device=word.device)
+        if not self.systematic:
+            # info bits live in the u domain: re-encode every path
+            planes = torch.stack([(word >> l) & 1 for l in range(n_list)], 0)
+            u = butterfly_transform(planes.permute(2, 0, 1))
+            info_all = u.index_select(-1, self._info_pos_t)
+            ok_all = self.detector.check(info_all) & active
+        elif self._syndrome is not None:
+            idx, g0 = self._syndrome
+            ext = torch.cat([word, torch.zeros_like(word[:1])], dim=0)
+            parity = _xor_reduce(ext[idx])  # [T, B]; bit l = path l's parity
+            bad = torch.zeros_like(parity[0])
+            for t, g in enumerate(g0):
+                bad = bad | (~parity[t] if g else parity[t])
+            ok_all = (((bad[:, None] >> lanes) & 1) == 0) & active
+        else:
+            ok_all = active
+        if self.detector.tail_bits:
+            any_ok = ok_all.any(dim=-1)
+            best_ok = torch.where(ok_all, metrics, _NEG).argmax(dim=-1)
+            sel = torch.where(any_ok, best_ok, metrics.argmax(dim=-1))
+            detector_ok = any_ok
+        else:
+            sel = metrics.argmax(dim=-1)
+            detector_ok = torch.ones_like(sel, dtype=torch.bool)
+        codeword = ((word >> sel[None, :]) & 1).T.to(torch.uint8)
+        if self.systematic:
+            info = codeword.index_select(1, self._info_pos_t)
+        else:
+            info = torch.gather(info_all, 1, sel[:, None, None].expand(
+                -1, 1, info_all.shape[-1]))[:, 0].to(torch.uint8)
+        return (info.reshape(lead + (self.info_length,)),
+                codeword.reshape(lead + (self.block_length,)),
+                detector_ok.reshape(lead))

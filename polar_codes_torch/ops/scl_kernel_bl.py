@@ -1,0 +1,416 @@
+"""SCL subtree kernel K1 (csrc/scl_subtree.cu), its plain version, and the
+schedule that carries a subtree to the kernel as data.
+
+Counterpart of polar_codes_tpu/ops/scl_kernel_bl.py: one call decodes a
+whole span <= kernel_span subtree for a batch of codewords, in the TPU
+kernel's batch-minor layouts,
+
+    (llr [w_in, span, B] f32, metrics [B, w_in] f32)
+        -> (bits [span, B] i32, perm [B, w_out] i32, metrics [B, w_out] f32)
+
+with bit l of a bits word holding path l's decision (the bitplane form,
+L <= 32) and perm mapping each output slot to the input slot it descends
+from. The TPU kernel is traced per subtree; here `build_schedule` flattens
+the subtree once on the host into a post-order op list (F, G, COMBINE,
+LEAF), and one CUDA kernel per list size runs any schedule.
+
+`scl_subtree` runs `scl_subtree_plain` for tensors on the CPU and the CUDA
+kernel for tensors on the card, never one in place of the other.
+`scl_subtree_plain` is _BlEmitter's bitplane f32 path in torch ops on
+[w, S, B] tensors: it walks the node tree itself and does not read the op
+list, so the two versions check each other. Its sums run sequentially over
+the span, in the kernel's order, so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .fg import f_minsum_bits, g_update
+from ..models.tree import CodeNode, NodeKind
+
+MAX_LIST = 32  # the path axis packs into one int32 word
+MAX_CAND = 32  # candidate slots per path in the kernel (ENUM k <= 5)
+MAX_LEVELS = 16  # tree levels per subtree in the kernel
+LAUNCHES = 0  # kernel launches since the count was last reset
+
+OP_F, OP_G, OP_COMBINE, OP_LEAF = 0, 1, 2, 3
+_KIND_CODE = {
+    NodeKind.RATE0: 0, NodeKind.RATE1: 1, NodeKind.REP: 2,
+    NodeKind.SPC: 3, NodeKind.ENUM: 4,
+}
+
+# SPC flip tables [candidate, weak index] for even/odd parity, whether a
+# candidate pays -m0 under even parity, and which of m1..m3 it pays
+# (the reference's 8-candidate construction; models/scl.py in both packages).
+SPC_FLIPS_EVEN = np.array(
+    [[0, 0, 0, 0], [1, 1, 0, 0], [1, 0, 1, 0], [1, 0, 0, 1],
+     [0, 1, 1, 0], [0, 1, 0, 1], [0, 0, 1, 1], [1, 1, 1, 1]], dtype=bool)
+SPC_FLIPS_ODD = np.array(
+    [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1],
+     [1, 1, 1, 0], [1, 1, 0, 1], [1, 0, 1, 1], [0, 1, 1, 1]], dtype=bool)
+SPC_M0_EVEN = np.array([0, 1, 1, 1, 0, 0, 0, 1], dtype=np.float32)
+SPC_T = np.array(
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1],
+     [1, 1, 0], [1, 0, 1], [0, 1, 1], [1, 1, 1]], dtype=np.float32)
+
+
+def _bitmask(rows: np.ndarray) -> np.ndarray:
+    """[R, K] {0,1} -> [R] int32 with bit k = rows[:, k]."""
+    return (rows.astype(np.int64) << np.arange(rows.shape[1])).sum(1).astype(np.int32)
+
+
+# [even flips | odd flips | m0_even | T], one int per candidate
+SPC_TABLE = np.concatenate([
+    _bitmask(SPC_FLIPS_EVEN), _bitmask(SPC_FLIPS_ODD),
+    SPC_M0_EVEN.astype(np.int32), _bitmask(SPC_T),
+]).astype(np.int32)
+
+
+def enum_table(node: CodeNode) -> np.ndarray:
+    """[2^k, span] bipolar codewords of an ENUM leaf's subcode, in the JAX
+    package's candidate order (SCLDecoder._enum_table)."""
+    span, frozen = node.length, node.frozen
+    info = np.setdiff1d(np.arange(span), frozen)
+    k = info.size
+    u = np.zeros((1 << k, span), dtype=np.uint8)
+    u[:, info] = (np.arange(1 << k)[:, None] >> np.arange(k - 1, -1, -1)) & 1
+    x = u.copy()
+    s = 1
+    while s < span:
+        for i in range(0, span, 2 * s):
+            x[:, i : i + s] ^= x[:, i + s : i + 2 * s]
+        s *= 2
+    return (1.0 - 2.0 * x).astype(np.float32)
+
+
+def n_candidates(node: CodeNode) -> int:
+    """Candidates per path at a forking leaf (0 for RATE0, which keeps w)."""
+    if node.kind == NodeKind.RATE0:
+        return 0
+    if node.kind == NodeKind.RATE1:
+        return 2 if node.length == 1 else 4
+    if node.kind == NodeKind.REP:
+        return 2
+    if node.kind == NodeKind.SPC:
+        return 8
+    return 1 << node.info_count
+
+
+def static_width(node: CodeNode, w: int, list_size: int) -> int:
+    """List width after the subtree: each fork multiplies the width by its
+    candidate count, clamped at L (scl_kernel_bl.py _static_width)."""
+    if node.kind == NodeKind.BRANCH:
+        return static_width(node.right, static_width(node.left, w, list_size),
+                            list_size)
+    n_cand = n_candidates(node)
+    return w if n_cand == 0 else min(w * n_cand, list_size)
+
+
+@dataclass(eq=False)
+class SubtreeSchedule:
+    """One subtree, flattened for the kernel: `ops` [n_ops, 8] int32 rows
+    {op, level, length, offset, kind, aux, ncand, 0} in post-order, and the
+    ENUM leaves' codeword bitmasks (candidate c of the leaf at aux is
+    enum_masks[aux + c]; bit s set where the codeword has a 1)."""
+
+    node: CodeNode
+    w_in: int
+    w_out: int
+    list_size: int
+    ops: np.ndarray
+    levels: int
+    enum_masks: np.ndarray
+    _device_consts: Dict[torch.device, Tuple[torch.Tensor, ...]] = field(
+        default_factory=dict, repr=False)
+
+    @property
+    def span(self) -> int:
+        return self.node.length
+
+    def device_consts(self, device: torch.device):
+        """(ops, enum masks, SPC table) as int32 tensors on `device`."""
+        consts = self._device_consts.get(device)
+        if consts is None:
+            masks = self.enum_masks if self.enum_masks.size else np.zeros(1, np.int32)
+            consts = tuple(torch.as_tensor(a, device=device)
+                           for a in (self.ops, masks, SPC_TABLE))
+            self._device_consts[device] = consts
+        return consts
+
+
+def build_schedule(node: CodeNode, w_in: int, list_size: int) -> SubtreeSchedule:
+    """Flatten the subtree rooted at `node` (entered at width w_in)."""
+    ops, masks = [], []
+    root = node.offset
+    depth = [0]
+
+    def emit(n: CodeNode, level: int):
+        depth[0] = max(depth[0], level + 1)
+        off = n.offset - root
+        if n.kind != NodeKind.BRANCH:
+            aux = 0
+            if n.kind == NodeKind.ENUM:
+                if n.length > 32:
+                    raise NotImplementedError("ENUM leaves longer than 32")
+                aux = len(masks)
+                masks.extend(_bitmask(enum_table(n) < 0))
+            n_cand = n_candidates(n)
+            if n_cand > MAX_CAND:
+                raise NotImplementedError(
+                    f"a leaf with {n_cand} candidates (kernel limit {MAX_CAND})")
+            ops.append([OP_LEAF, level, n.length, off, _KIND_CODE[n.kind], aux,
+                        n_cand, 0])
+            return
+        ops.append([OP_F, level, n.length, off, 0, 0, 0, 0])
+        emit(n.left, level + 1)
+        ops.append([OP_G, level, n.length, off, 0, 0, 0, 0])
+        emit(n.right, level + 1)
+        ops.append([OP_COMBINE, level, n.length, off, 0, 0, 0, 0])
+
+    emit(node, 0)
+    return SubtreeSchedule(
+        node=node, w_in=w_in, w_out=static_width(node, w_in, list_size),
+        list_size=list_size, ops=np.asarray(ops, np.int32).reshape(-1, 8),
+        levels=depth[0], enum_masks=np.asarray(masks, np.int32),
+    )
+
+
+# ---- packed-word helpers (shared by the plain version and the glue) --------
+
+def pack01(b01: torch.Tensor) -> torch.Tensor:
+    """[w, ...] int {0,1} -> packed [...] int32 (plane l = row l)."""
+    acc = b01[0].to(torch.int32)
+    for l in range(1, b01.shape[0]):
+        acc = acc | (b01[l].to(torch.int32) << l)
+    return acc
+
+
+def take_packed(word: torch.Tensor, src: torch.Tensor, w_out: int) -> torch.Tensor:
+    """Path-fork gather on a packed [S, B] word: out plane l = in plane
+    src[l, b]; src is [w_out, B]."""
+    acc = (word >> src[0][None, :]) & 1
+    for l in range(1, w_out):
+        acc = acc | (((word >> src[l][None, :]) & 1) << l)
+    return acc
+
+
+def packed_bipolar(word: torch.Tensor, w: int) -> torch.Tensor:
+    """Packed word -> [w, S, B] bipolar +-1 float32 (g's operand)."""
+    planes = torch.stack([(word >> l) & 1 for l in range(w)], dim=0)
+    return (1 - 2 * planes).to(torch.float32)
+
+
+def take_state(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """[w_in, S, B] gathered along the path axis by src [w_out, B]."""
+    idx = src.to(torch.int64)[:, None, :].expand(src.shape[0], x.shape[1], x.shape[2])
+    return torch.gather(x, 0, idx)
+
+
+def take_vec(v: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """[w_in, B] per-path values gathered by src [w_out, B]."""
+    return torch.gather(v, 0, src.to(torch.int64))
+
+
+# ---- the plain version -----------------------------------------------------
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of [w, S, B] over S, one add at a time from 0, in f32 (the
+    kernel's order)."""
+    acc = torch.zeros_like(x[:, 0])
+    for s in range(x.shape[1]):
+        acc = acc + x[:, s]
+    return acc
+
+
+class _Plain:
+    """_BlEmitter's bitplane f32 path on [w, S, B] tensors. Perms are
+    [w, B] int64 tensors, or None for the identity."""
+
+    def __init__(self, list_size: int):
+        self.n_list = list_size
+
+    def prune(self, metrics, deltas):
+        """metrics [w, B], deltas [C, w, B] -> (metrics' [w', B],
+        src [w', B], cand [w', B]), ordered by (value desc, code l*C + c
+        asc); every candidate survives, in l-major slots, while w*C <= L."""
+        n_cand, width = deltas.shape[0], metrics.shape[0]
+        total = width * n_cand
+        flat = (metrics[None] + deltas).permute(1, 0, 2).reshape(total, -1)
+        codes = torch.arange(total, device=flat.device)[:, None]
+        if total <= self.n_list:
+            idx = codes.expand_as(flat)
+            return flat, idx // n_cand, idx % n_cand
+        cur = flat
+        vals, idxs = [], []
+        for _ in range(self.n_list):
+            v = cur.max(dim=0).values
+            i = torch.where(cur == v[None], codes, total).min(dim=0).values
+            vals.append(v)
+            idxs.append(i)
+            cur = torch.where(codes == i[None], float("-inf"), cur)
+        idx = torch.stack(idxs, 0)
+        return torch.stack(vals, 0), idx // n_cand, idx % n_cand
+
+    @staticmethod
+    def weakest(mag, count):
+        """`count` smallest values of [w, S, B] over S, first index on ties."""
+        span = mag.shape[1]
+        iota = torch.arange(span, device=mag.device)[None, :, None]
+        cur = mag
+        ms, idxs = [], []
+        for _ in range(count):
+            m = cur.min(dim=1).values
+            i = torch.where(cur == m[:, None], iota, span).min(dim=1).values
+            ms.append(m)
+            idxs.append(i)
+            cur = torch.where(iota == i[:, None], float("inf"), cur)
+        return ms, idxs
+
+    def leaf(self, node: CodeNode, llr, metrics):
+        span = llr.shape[1]
+        hard = torch.signbit(llr).to(torch.int32)
+        pos = torch.arange(span, device=llr.device)[None, :, None]
+        if node.kind == NodeKind.RATE0:
+            zeros = torch.zeros(llr.shape[1:], dtype=torch.int32, device=llr.device)
+            return zeros, None, metrics + _seq_sum(torch.clamp(llr, max=0.0))
+        if node.kind == NodeKind.REP:
+            deltas = torch.stack([_seq_sum(torch.clamp(llr, max=0.0)),
+                                  -_seq_sum(torch.clamp(llr, min=0.0))])
+            new_m, src, cand = self.prune(metrics, deltas)
+            word = pack01((cand != 0).to(torch.int32))
+            return word[None].expand(span, -1).contiguous(), src, new_m
+        if node.kind == NodeKind.ENUM:
+            table = torch.as_tensor(enum_table(node), device=llr.device)
+            sum_abs = _seq_sum(llr.abs())
+            scores = torch.zeros((table.shape[0],) + sum_abs.shape,
+                                 device=llr.device)
+            for s in range(span):  # +-x exactly, added in span order
+                scores = scores + table[:, s, None, None] * llr[None, :, s]
+            new_m, src, cand = self.prune(metrics, 0.5 * (scores - sum_abs[None]))
+            neg = (table < 0).to(torch.int32)[cand]  # [w', B, S]
+            return pack01(neg.permute(0, 2, 1)), src, new_m
+        mag = llr.abs()
+        if node.kind == NodeKind.RATE1 and span == 1:
+            m0 = mag[:, 0]
+            new_m, src, cand = self.prune(
+                metrics, torch.stack([torch.zeros_like(m0), -m0]))
+            bits = take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]
+            return pack01(bits), src, new_m
+        if node.kind == NodeKind.RATE1:
+            (m0, m1), (i0, i1) = self.weakest(mag, 2)
+            deltas = torch.stack([torch.zeros_like(m0), -m0, -m1, -m0 - m1])
+            new_m, src, cand = self.prune(metrics, deltas)
+            flip0 = ((cand == 1) | (cand == 3))[:, None] & (pos == take_vec(i0, src)[:, None])
+            flip1 = ((cand == 2) | (cand == 3))[:, None] & (pos == take_vec(i1, src)[:, None])
+            bits = take_state(hard, src) ^ (flip0 | flip1).to(torch.int32)
+            return pack01(bits), src, new_m
+        # SPC
+        ms, idxs = self.weakest(mag, 4)
+        parity_odd = hard.sum(dim=1) % 2 == 1
+        m0 = ms[0]
+        deltas = []
+        for c in range(8):
+            t_cost = torch.zeros_like(m0)
+            for j in range(3):
+                if SPC_T[c, j]:
+                    t_cost = t_cost + ms[1 + j]
+            d_even = -float(SPC_M0_EVEN[c]) * m0 - t_cost
+            d_odd = -m0 - t_cost
+            deltas.append(torch.where(parity_odd, d_odd, d_even))
+        new_m, src, cand = self.prune(metrics, torch.stack(deltas))
+        po = take_vec(parity_odd.to(torch.int64), src) == 1
+        even = torch.as_tensor(SPC_FLIPS_EVEN, device=llr.device)[cand]  # [w', B, 4]
+        odd = torch.as_tensor(SPC_FLIPS_ODD, device=llr.device)[cand]
+        flips = torch.where(po[..., None], odd, even)
+        flip = torch.zeros_like(take_state(hard, src), dtype=torch.bool)
+        for j in range(4):
+            flip = flip | (flips[..., j][:, None] & (pos == take_vec(idxs[j], src)[:, None]))
+        return pack01(take_state(hard, src) ^ flip.to(torch.int32)), src, new_m
+
+    def node(self, node: CodeNode, llr, metrics):
+        """llr [w, S, B], metrics [w, B] -> (word [S, B], perm, metrics)."""
+        if node.kind != NodeKind.BRANCH:
+            return self.leaf(node, llr, metrics)
+        half = node.length // 2
+        a, b = llr[:, :half], llr[:, half:]
+        left, p_left, metrics = self.node(node.left, f_minsum_bits(a, b), metrics)
+        w_mid = metrics.shape[0]
+        if p_left is not None:
+            llr_g = take_state(llr, p_left)
+            a, b = llr_g[:, :half], llr_g[:, half:]
+        right, p_right, metrics = self.node(
+            node.right, g_update(a, b, packed_bipolar(left, w_mid)), metrics)
+        if p_right is not None:
+            left = take_packed(left, p_right, metrics.shape[0])
+        perm = p_right if p_left is None else (
+            p_left if p_right is None else take_vec(p_left, p_right))
+        return torch.cat([left ^ right, right], dim=0), perm, metrics
+
+
+def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
+                      metrics: torch.Tensor):
+    """Plain version of K1, on any device: (llr [w_in, span, B] f32,
+    metrics [B, w_in] f32) -> (bits [span, B] i32, perm [B, w_out] i32,
+    metrics [B, w_out] f32)."""
+    word, perm, met = _Plain(sched.list_size).node(sched.node, llr, metrics.T)
+    if perm is None:
+        perm = torch.arange(met.shape[0], device=llr.device)[:, None].expand_as(met)
+    return (word.to(torch.int32).contiguous(), perm.T.to(torch.int32).contiguous(),
+            met.T.contiguous())
+
+
+def _bind(lib):
+    fn = lib.scl_subtree
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
+    """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (same signature as scl_subtree_plain)."""
+    if llr.device.type == "cpu":
+        return scl_subtree_plain(sched, llr, metrics)
+    if llr.device.type != "cuda" or metrics.device != llr.device:
+        raise ValueError(
+            f"scl_subtree takes CPU or CUDA tensors on one device, got "
+            f"{llr.device} and {metrics.device}")
+    n_batch = llr.shape[-1]
+    if llr.dtype != torch.float32 or metrics.dtype != torch.float32:
+        raise ValueError("scl_subtree takes float32 LLRs and metrics")
+    if llr.shape != (sched.w_in, sched.span, n_batch) or metrics.shape != (n_batch, sched.w_in):
+        raise ValueError(
+            f"scl_subtree expects llr [{sched.w_in}, {sched.span}, B] and metrics "
+            f"[B, {sched.w_in}], got {tuple(llr.shape)} and {tuple(metrics.shape)}")
+    if not (llr.is_contiguous() and metrics.is_contiguous()):
+        raise ValueError("scl_subtree takes contiguous tensors")
+    if sched.list_size not in (2, 4, 8, 16, 32) or sched.levels > MAX_LEVELS:
+        raise NotImplementedError(
+            f"the kernel covers L in (2, 4, 8, 16, 32) and at most {MAX_LEVELS} "
+            f"tree levels, got L={sched.list_size}, {sched.levels} levels")
+    fn = _bind(_build.load("scl_subtree"))
+    ops, masks, spc = sched.device_consts(llr.device)
+    dev = llr.device
+    scratch = torch.empty(max(sched.list_size * sched.span * n_batch, 1),
+                          dtype=torch.float32, device=dev)
+    bits = torch.empty((sched.span, n_batch), dtype=torch.int32, device=dev)
+    perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
+    met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
+    err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
+             llr.data_ptr(), metrics.data_ptr(), scratch.data_ptr(),
+             bits.data_ptr(), perm.data_ptr(), met.data_ptr(), sched.list_size,
+             sched.w_in, sched.w_out, sched.span, n_batch,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"scl_subtree launch failed: CUDA error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return bits, perm, met

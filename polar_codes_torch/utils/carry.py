@@ -1,0 +1,80 @@
+"""Carry the JAX package's code state into the port, and check it.
+
+A polar code has no weights: its parameters are the frozen set, the info
+positions, the decoder tree, the ENUM tables and the CRC's affine map. A
+caller reads those off the JAX objects as numpy arrays and hands them to
+`from_jax_state`, which builds the port's encoder and decoder from the
+frozen set and raises on the first array that the port's own
+construction does not reproduce. So the carry checks that both packages
+compute the same code; it is not a way around the port's construction.
+
+state keys:
+    frozen       int array, the frozen positions
+    info_pos     int array, the info positions
+    list_size    int
+    enum_span    int
+    max_enum_k   int
+    systematic   bool
+    detector     str, the detector's name ("crc16", "dummy", ...)
+    affine_G     [tail, D] uint8, affine_map(D)[0]      (with a CRC)
+    affine_g0    [tail] uint8, affine_map(D)[1]         (with a CRC)
+    leaves       optional [n, 3] int: (kind value index, offset, length)
+                 per leaf in tree order, kind index into NodeKind order
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import numpy as np
+
+from ..models.detectors import detector_by_name
+from ..models.encoder import PolarEncoder
+from ..models.scl import SCLDecoder
+from ..models.tree import NodeKind
+
+State = Dict[str, Union[np.ndarray, int, str, bool]]
+_KINDS = list(NodeKind)
+
+
+def leaf_table(tree) -> np.ndarray:
+    """[n, 3] (kind index, offset, length) of the leaves in tree order."""
+    return np.asarray(
+        [[_KINDS.index(NodeKind(n.kind.value)), n.offset, n.length]
+         for n in tree.leaves()], dtype=np.int64).reshape(-1, 3)
+
+
+def _same(name: str, carried, ours) -> None:
+    carried, ours = np.asarray(carried), np.asarray(ours)
+    if carried.shape != ours.shape or not np.array_equal(carried, ours):
+        raise ValueError(
+            f"carried {name} differs from the port's construction: "
+            f"{carried.tolist()} vs {ours.tolist()}")
+
+
+def from_jax_state(state: State, device="cpu") -> Tuple[PolarEncoder, SCLDecoder]:
+    """Build (PolarEncoder, SCLDecoder) from the carried state; raise
+    ValueError on the first carried array the port does not reproduce."""
+    frozen = np.asarray(state["frozen"], dtype=np.int64)
+    info_pos = np.asarray(state["info_pos"], dtype=np.int64)
+    block_length = frozen.size + info_pos.size
+    detector = detector_by_name(str(state["detector"]))
+    systematic = bool(state["systematic"])
+    enc = PolarEncoder(block_length, frozen, systematic=systematic,
+                       detector=detector, device=device)
+    dec = SCLDecoder(
+        block_length, frozen, list_size=int(state["list_size"]),
+        systematic=systematic, detector=detector,
+        enum_span=int(state["enum_span"]), max_enum_k=int(state["max_enum_k"]),
+        device=device,
+    )
+    _same("info_pos", info_pos, dec.info_pos)
+    _same("encoder info_pos", info_pos, enc.info_pos)
+    _same("frozen", np.sort(frozen), dec.frozen)
+    if detector.tail_bits:
+        G, g0 = detector.affine_map(dec.info_length - detector.tail_bits)
+        _same("affine_G", state["affine_G"], G)
+        _same("affine_g0", state["affine_g0"], g0)
+    if "leaves" in state:
+        _same("leaves", state["leaves"], leaf_table(dec.tree))
+    return enc, dec
