@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its kernels
+"""Drive the PyTorch port's paths on one CUDA card and hold its kernels
 against their plain versions.
 
-The main path: (1024, 512) systematic CA-SCL-8 with CRC16, Bhattacharyya
-construction at a 0 dB design SNR, BPSK over AWGN at Eb/N0 = 2 dB, through
-PolarEncoder.encode (kernel K2, csrc/butterfly_encode.cu) and
-SCLDecoder.decode (kernel K1, csrc/scl_subtree.cu, under the torch glue and
-the packed CRC tail).
+Slice 1's main path: (1024, 512) systematic CA-SCL-8 with CRC16,
+Bhattacharyya construction at a 0 dB design SNR, BPSK over AWGN at
+Eb/N0 = 2 dB, through PolarEncoder.encode (kernel K2,
+csrc/butterfly_encode.cu) and SCLDecoder.decode (kernel K1,
+csrc/scl_subtree.cu, under the torch glue and the packed CRC tail).
+
+Slice 2's path, the simulator's defaults (pcsim -n 1024 -r 0.5 -l 8
+-e crc32 -p 832 -a 10): CRC32, LLRs x10 quantised to int8, and
+AdaptiveDecoder with an int8 Fast-SSC pass (kernel K3,
+csrc/fastssc_subtree.cu) and CA-SCL-8 (K1) on the blocks whose CRC fails;
+beside it the float fast pass (SCLDecoder(list_size=1), K3 in float32)
+and the SCAN decoders (kernels K4 and K5, csrc/scan_sweep.cu).
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; the exit code is 0 only if all held):
   1. the card's name and power limit, torch and CUDA versions
-  2. build both kernels from csrc/ with nvcc
+  2. build every kernel from csrc/ with nvcc
   3. K2 against its plain version on 4096 CRC'd blocks: bit-equal
   4. K1 against its plain version, call by call, on the subtree calls of
      one 1024-block decode: bits and perms equal, metrics within 1e-4
-  5. 16 x 1024 blocks end to end, decoded by the kernels and again by the
+  5. 8 x 1024 blocks end to end, decoded by the kernels and again by the
      plain versions on the card: equal decisions, BLER in [1e-4, 5e-2],
      every CRC failure a wrong block; 64 blocks also equal to a CPU decode
   6. both kernels launched during the phase-5 kernel run
   7. CUDA-event times (median of >= 10 after warm-up), one JSON line each
-  8. {"kernels": [...]}
-  9. {"ok": true, "device": {...}}
+  8. K3 against its plain version: one root call at B = 2048, N = 1024 in
+     float32 and in int8, and N = 2048 decodes (glue above span 1024,
+     state out of each call): bits and state equal
+  9. the pcsim default path, 8 x 2048 blocks, kernels then plain versions:
+     equal decisions, BLER in [1e-4, 5e-2], every CRC failure a wrong
+     block, adaptive != always-SCL-8 only where the fast CRC passed, 64
+     blocks equal to a CPU decode; the float fast pass (L = 1) likewise
+ 10. SCAN, 4 sweeps, and FastSSCAN, CRC32, 4 iterations, at (1024, 512):
+     K4 and K5 (sweep by sweep, betas and memory) bit-equal to their plain
+     versions, equal decisions, BLER < 0.5
+ 11. K1, K3 (float32 and int8), K4 and K5 launched on those paths
+ 12. CUDA-event times of K3, K4, K5 and the adaptive decode
+ 13. {"kernels": [...]}
+ 14. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -33,7 +52,7 @@ import time
 
 DEVICE = "cuda"
 N_LEN, K_LEN, LIST, EBN0_DB = 1024, 512, 8, 2.0
-BATCH, BATCHES, K2_BATCH = 1024, 16, 4096
+BATCH, BATCHES, K2_BATCH = 1024, 8, 4096
 TOL = 1e-4  # metric tolerance: sums taken in another order elsewhere
 REPS = 10
 
@@ -179,7 +198,7 @@ def main():
           "ebn0_db": EBN0_DB})
     if not 1e-4 <= bler <= 5e-2:
         raise AssertionError(f"BLER {bler} outside [1e-4, 5e-2]")
-    cpu = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det)
+    cpu = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det, device="cpu")
     ref = cpu.decode(llrs[0][:64].cpu())
     for a, b in zip(outs[0], ref):
         if not torch.equal(a[:64].cpu(), b):
@@ -223,23 +242,403 @@ def main():
               "w_out": sched.w_out, "batch": BATCH, "ms": kt, "plain_ms": pt,
               "card": card})
 
-    # 8 -------------------------------------------------------------------
+    # 8-12 ----------------------------------------------------------------
+    slice2 = run_slice2(card)
+
+    # 13 ------------------------------------------------------------------
+    k1_bytes = k1_ops = 0
+    for sched, *_ in calls:
+        nb, no = k1_work(sched, BATCH)
+        k1_bytes += nb
+        k1_ops += no
+    k2_bytes = 2 * BATCH * N_LEN + N_LEN  # u and codeword u8, the mask
+    k2_ops = 2 * BATCH * (N_LEN // 2) * (N_LEN.bit_length() - 1)  # two passes of XORs
     emit({"kernels": [
         {"name": "butterfly_encode", "route": "cuda",
          "source": "polar_codes_torch/csrc/butterfly_encode.cu",
          "replaces": "polar_codes_tpu/ops/butterfly_kernel.py:61",
-         "launches": launches["butterfly_encode"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches["butterfly_encode"],
+         "launches_by_path": {"crc16_scl8": launches["butterfly_encode"],
+                              "pcsim_adaptive": slice2["launches"]["butterfly_encode"]},
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         **bound(k2_bytes, k2_ops), "library_ms": None},
         {"name": "scl_subtree", "route": "cuda",
          "source": "polar_codes_torch/csrc/scl_subtree.cu",
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
-         "launches": launches["scl_subtree"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-    ]})
-    # 9 -------------------------------------------------------------------
+         "launches": launches["scl_subtree"],
+         "launches_by_path": {"crc16_scl8": launches["scl_subtree"],
+                              "pcsim_adaptive": slice2["launches"]["scl_subtree"]},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         **bound(k1_bytes, k1_ops), "library_ms": None},
+    ] + slice2["kernels"]})
+    # 14 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+# ---- bounds: the least time the card could take for a call's work --------
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def bound(n_bytes, n_ops):
+    """bound_ms and bound_by of a call that must move n_bytes (each input
+    read once, each output written once) and do n_ops elementwise
+    operations (one per element that each op of the schedule writes; the
+    decoders' f/g/min/add arithmetic is scalar, so it runs at the float32
+    rate outside the tensor cores)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "bytes_ms": t_bytes * 1e3,
+            "operations": n_ops, "operations_ms": t_ops * 1e3}
+
+
+def k1_work(sched, n_batch):
+    """(bytes, operations) of one K1 call: llr [w_in, span, B] f32 and
+    metrics [B, w_in] in; bits [span, B] i32, perm and metrics [B, w_out]
+    out. Operations: w x h per F/G/COMBINE at the list width of that
+    point of the schedule, w x span x candidates per leaf."""
+    n_bytes = 4 * n_batch * (sched.w_in * sched.span + sched.w_in
+                             + sched.span + 2 * sched.w_out)
+    n_ops, w = 0, sched.w_in
+    for op, _, length, _, _, _, ncand, _ in sched.ops.tolist():
+        if op == 3:  # LEAF
+            n_ops += w * length * max(ncand, 1)
+            w = min(w * ncand, sched.list_size) if ncand else w
+        else:
+            n_ops += w * (length // 2)
+    return n_bytes, n_ops * n_batch
+
+
+def k3_work(sched, n_batch, in_bytes, out_bytes):
+    """(bytes, operations) of one K3 call: llr [span, B] in, [span, B] out;
+    one operation per position each op writes."""
+    n_ops = sum(length if op == 4 else length // 2
+                for op, _, length, _, _ in sched.ops.tolist())
+    return sched.span * n_batch * (in_bytes + out_bytes), n_ops * n_batch
+
+
+def scan_work(sched, n_batch, sweeps, step):
+    """(bytes, operations) of a K4 call (sweeps fused, memory on chip) or a
+    K5 call (one sweep, memory [M, B] read and written): llr and beta
+    [N, B] f32. Operations per sweep: 2 per position of F and G, 4 of
+    COMBINE (two f, two adds), 1 per leaf position."""
+    per = {0: 2, 1: 2, 2: 4}
+    n_ops = sum(length if op == 3 else per[op] * (length // 2)
+                for op, _, length, _, _ in sched.ops.tolist())
+    n_bytes = 4 * n_batch * (2 * sched.block_length + (2 * sched.mem_rows if step else 0))
+    return n_bytes, n_ops * n_batch * sweeps
+
+
+def max_err(got, want):
+    """Largest |got - want| over the elements that differ (0 if equal;
+    +inf against a finite value counts as inf)."""
+    got, want = got.double(), want.double()
+    diff = got != want
+    return float((got - want).abs()[diff].max()) if diff.any() else 0.0
+
+
+# ---- slice 2: the pcsim default path, the fast pass, SCAN -----------------
+
+B2, BATCHES2, AMPL, SWEEPS, SEED2 = 2048, 8, 10.0, 4, 20261017
+
+
+def _equal(what, got, want):
+    err = max_err(got, want)
+    if err or got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(
+            f"{what}: kernel differs from its plain version (max |d| {err}, "
+            f"shapes {tuple(got.shape)} {tuple(want.shape)})")
+    return err
+
+
+def _same_decisions(what, got, want):
+    import torch
+
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel and plain decodes differ")
+
+
+def run_slice2(card):
+    """Phases 8-12. Returns {"kernels": [...], "launches": {...}} for the
+    kernels line."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.adaptive import AdaptiveDecoder
+    from polar_codes_torch.models.detectors import CRC32
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.fastssc import FastSSCDecoder
+    from polar_codes_torch.models.scan import FastSScanDecoder, ScanDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import butterfly_kernel, scl_kernel_bl
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED2)
+    det = CRC32()
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    enc = PolarEncoder(N_LEN, frozen, systematic=True, detector=det, device=dev)
+    modem, chan = Bpsk(), Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * K_LEN / N_LEN)
+    payload = B2 * (K_LEN - det.tail_bits)
+
+    def channel(encoder, n_blocks):
+        """(sent info with its CRC, channel LLRs) of n random blocks."""
+        info = torch.randint(0, 2, (n_blocks, encoder.info_length), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        code = encoder.encode(info)
+        return det.generate(info), modem.demodulate(chan.transmit(modem.modulate(code), gen))
+
+    def quantise(llr):
+        """The simulator's int8 LLRs: x10, round half to even, clip."""
+        return torch.clamp(torch.round(llr * AMPL), -127, 127).to(torch.int8)
+
+    def reset_counts():
+        butterfly_kernel.LAUNCHES = 0
+        scl_kernel_bl.LAUNCHES = 0
+        fk.LAUNCHES.update(float32=0, int8=0)
+        sk.LAUNCHES.update(fused=0, step=0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"butterfly_encode": butterfly_kernel.LAUNCHES,
+                "scl_subtree": scl_kernel_bl.LAUNCHES,
+                "fastssc_subtree[float32]": fk.LAUNCHES["float32"],
+                "fastssc_subtree[int8]": fk.LAUNCHES["int8"],
+                "scan_fused": sk.LAUNCHES["fused"], "scan_step": sk.LAUNCHES["step"]}
+
+    # 8 -------------------------------------------------------------------
+    phase("8 K3 fastssc_subtree vs plain")
+    _, llr = channel(enc, B2)
+    fast = FastSSCDecoder(N_LEN, frozen, detector=det, device=dev)
+    root = fast.schedule(fast.tree)
+    k3_in = {"float32": (llr * AMPL).T.contiguous(), "int8": quantise(llr).T.contiguous()}
+    k3_in["int8"][:4, :64] = -128  # outside the quantiser's range: f saturates alike
+    k3_err = {}
+    for name, x in k3_in.items():
+        got = fk.fastssc_subtree(root, x, True)
+        want = fk.fastssc_subtree_plain(root, x, True)
+        torch.cuda.synchronize()
+        k3_err[name] = _equal(f"K3 {name} root call", got, want)
+        print(f"K3 {name}: root call bit-equal on {B2} blocks")
+    frozen2 = frozen_bits(2 * N_LEN, 2 * K_LEN, 0.0, "BB")
+    enc2 = PolarEncoder(2 * N_LEN, frozen2, detector=det, device=dev)
+    _, llr2 = channel(enc2, B2)
+    for name, x2 in (("float32", llr2 * AMPL), ("int8", quantise(llr2))):
+        calls = []
+
+        def record(sched, xs, is_root):
+            out = fk.fastssc_subtree(sched, xs, is_root)
+            calls.append((sched, xs, is_root, out))
+            return out
+
+        dec2 = FastSSCDecoder(2 * N_LEN, frozen2, dtype=x2.dtype, device=dev,
+                              subtree_fn=record)
+        plain2 = FastSSCDecoder(2 * N_LEN, frozen2, dtype=x2.dtype, device=dev,
+                                subtree_fn=fk.fastssc_subtree_plain)
+        cw = dec2.decode_to_codeword(x2)
+        if len(calls) < 2 or any(c[2] for c in calls):
+            raise AssertionError(f"expected >= 2 calls below the glue, got {len(calls)}")
+        for sched, xs, is_root, out in calls:
+            want = fk.fastssc_subtree_plain(sched, xs, is_root)
+            k3_err[name] = max(k3_err[name], _equal(
+                f"K3 {name} state, span {sched.span} at {sched.node.offset}", out, want))
+        _equal(f"K3 {name} N=2048 decode", cw, plain2.decode_to_codeword(x2))
+        print(f"K3 {name}: N=2048, {len(calls)} calls below the glue, state and bits equal")
+
+    # 9 -------------------------------------------------------------------
+    phase("9 pcsim default path: adaptive int8 Fast-SSC -> CA-SCL-8, CRC32")
+    ad = AdaptiveDecoder(N_LEN, frozen, list_size=LIST, detector=det,
+                         fast_dtype=torch.int8, device=dev)
+    ad_plain = AdaptiveDecoder(N_LEN, frozen, list_size=LIST, detector=det,
+                               fast_dtype=torch.int8, device=dev,
+                               fast_subtree_fn=fk.fastssc_subtree_plain,
+                               list_subtree_fn=scl_kernel_bl.scl_subtree_plain)
+    sent, amp, quant, outs, reruns = [], [], [], [], []
+    reset_counts()
+    for _ in range(BATCHES2):
+        info, llr = channel(enc, B2)
+        q = quantise(llr)
+        outs.append(ad.decode(q))
+        reruns.append(ad.rerun_rows[0])
+        sent.append(info)
+        amp.append(llr * AMPL)
+        quant.append(q)
+    launches = counts()
+    wrong_total = fail_total = differ_total = 0
+    for i, q in enumerate(quant):
+        got = outs[i]
+        _same_decisions(f"adaptive batch {i}", got, ad_plain.decode(q))
+        wrong = (got[0] != sent[i]).any(1)
+        if (~got[2] & ~wrong).any():
+            raise AssertionError("a block with a failed CRC decoded right")
+        fast_ok = ad.fast.decode(q)[2]
+        always = ad.list.decode(q.to(torch.float32))
+        differ = ((got[0] != always[0]).any(1) | (got[1] != always[1]).any(1)
+                  | (got[2] != always[2]))
+        if (differ & ~fast_ok).any():
+            raise AssertionError("adaptive differs from always-SCL-8 on a block "
+                                 "whose fast pass failed its CRC")
+        wrong_total += int(wrong.sum())
+        fail_total += int((~got[2]).sum())
+        differ_total += int(differ.sum())
+    n_blocks = B2 * BATCHES2
+    bler = wrong_total / n_blocks
+    emit({"metric": "bler", "path": "pcsim_adaptive", "value": bler, "blocks": n_blocks,
+          "block_errors": wrong_total, "crc_failures": fail_total,
+          "escalated_share": sum(reruns) / n_blocks,
+          "differs_from_always_scl8": differ_total, "ebn0_db": EBN0_DB})
+    if not 1e-4 <= bler <= 5e-2:
+        raise AssertionError(f"adaptive BLER {bler} outside [1e-4, 5e-2]")
+    cpu = AdaptiveDecoder(N_LEN, frozen, list_size=LIST, detector=det,
+                          fast_dtype=torch.int8, device="cpu")
+    for a, b in zip(outs[0], cpu.decode(quant[0][:64].cpu())):
+        if not torch.equal(a[:64].cpu(), b):
+            raise AssertionError("card adaptive decode differs from the CPU decode")
+    print("adaptive: kernel == plain on the card; first 64 == CPU decode")
+
+    sc1 = SCLDecoder(N_LEN, frozen, list_size=1, detector=det, device=dev)
+    sc1_plain = SCLDecoder(N_LEN, frozen, list_size=1, detector=det, device=dev,
+                           subtree_fn=fk.fastssc_subtree_plain)
+    reset_counts()
+    sc1_outs = [sc1.decode(x) for x in amp]
+    launches_l1 = counts()
+    sc1_wrong = 0
+    for i, a in enumerate(amp):
+        _same_decisions(f"SCL L=1 batch {i}", sc1_outs[i], sc1_plain.decode(a))
+        sc1_wrong += int((sc1_outs[i][0] != sent[i]).any(1).sum())
+    emit({"metric": "bler", "path": "fast_pass_l1_float32", "value": sc1_wrong / n_blocks,
+          "blocks": n_blocks, "block_errors": sc1_wrong, "ebn0_db": EBN0_DB})
+
+    # 10 ------------------------------------------------------------------
+    phase("10 SCAN (K4) and FastSSCAN (K5), 4 sweeps")
+    scan = ScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS, device=dev)
+    fss = FastSScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS, device=dev)
+    fss_plain = FastSScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS,
+                                 device=dev, step_fn=sk.scan_step_plain)
+    sched = scan.sched
+    scan_x = scan._flat(amp[0])
+    k4_err = _equal("K4 betas", sk.scan_fused(sched, scan_x, SWEEPS),
+                    sk.scan_fused_plain(sched, scan_x, SWEEPS))
+    mem_k = mem_p = torch.zeros((sched.mem_rows, B2), device=dev)
+    k5_err = 0.0
+    for sweep in range(SWEEPS):
+        beta_k, mem_k = sk.scan_step(sched, scan_x, mem_k)
+        beta_p, mem_p = sk.scan_step_plain(sched, scan_x, mem_p)
+        k5_err = max(k5_err, _equal(f"K5 sweep {sweep} betas", beta_k, beta_p),
+                     _equal(f"K5 sweep {sweep} memory", mem_k, mem_p))
+    print(f"K4 ({SWEEPS} sweeps) and K5 (each sweep, betas and memory) bit-equal, "
+          f"memory on chip: {sk.mem_on_chip(sched)}")
+    # N = 4096: the node memory no longer fits on chip, K4 uses the scratch
+    frozen4 = frozen_bits(4 * N_LEN, 4 * K_LEN, 0.0, "BB")
+    big = ScanDecoder(4 * N_LEN, frozen4, iterations=2, device=dev)
+    x4 = torch.randn((4 * N_LEN, 256), generator=gen, device=dev) * 2.0 + 1.0
+    if sk.mem_on_chip(big.sched):
+        raise AssertionError("expected the N=4096 node memory off chip")
+    k4_err = max(k4_err, _equal("K4 betas, N=4096, memory in device memory",
+                                sk.scan_fused(big.sched, x4, 2),
+                                sk.scan_fused_plain(big.sched, x4, 2)))
+    print("K4 at N=4096 (node memory in device memory) bit-equal")
+    scan_batches = amp[:2]
+    reset_counts()
+    scan_outs = [scan.decode(b) for b in scan_batches]
+    launches_scan = counts()
+    reset_counts()
+    fss_outs = [fss.decode(b) for b in scan_batches]
+    launches_fss = counts()
+    blers = {}
+    for name, outs_ in (("scan4", scan_outs), ("fastsscan4", fss_outs)):
+        wrong = sum(int((o[0] != sent[i]).any(1).sum()) for i, o in enumerate(outs_))
+        blers[name] = wrong / (B2 * len(scan_batches))
+    for i, b in enumerate(scan_batches):
+        _same_decisions(f"FastSSCAN batch {i}", fss_outs[i], fss_plain.decode(b))
+    emit({"metric": "bler", "path": "scan", "value": blers, "blocks": B2 * len(scan_batches),
+          "ebn0_db": EBN0_DB})
+    if not all(v < 0.5 for v in blers.values()):
+        raise AssertionError(f"SCAN BLER not below 0.5: {blers}")
+
+    # 11 ------------------------------------------------------------------
+    phase("11 launch counts, per path")
+    by_path = {"pcsim_adaptive": launches, "fast_pass_l1_float32": launches_l1,
+               "scan4": launches_scan, "fastsscan4": launches_fss}
+    emit({"launches": by_path})
+    need = {"pcsim_adaptive": ("butterfly_encode", "fastssc_subtree[int8]", "scl_subtree"),
+            "fast_pass_l1_float32": ("fastssc_subtree[float32]",),
+            "scan4": ("scan_fused",), "fastsscan4": ("scan_step",)}
+    for path, names in need.items():
+        for name in names:
+            if by_path[path][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} path")
+
+    # 12 ------------------------------------------------------------------
+    phase("12 times (CUDA events, median)")
+    times = {}
+    for name, xin in k3_in.items():
+        kt = time_cuda(lambda: fk.fastssc_subtree(root, xin, True), reps=REPS)
+        pt = time_cuda(lambda: fk.fastssc_subtree_plain(root, xin, True), warmup=1, reps=REPS)
+        times[f"fastssc_subtree[{name}]"] = (kt, pt)
+        emit({"kernel": f"fastssc_subtree[{name}]", "batch": B2, "span": N_LEN,
+              "ms": kt, "plain_ms": pt, "card": card})
+    mem0 = torch.zeros((sched.mem_rows, B2), device=dev)
+    for name, fn, plain in (
+            ("scan_fused", lambda: sk.scan_fused(sched, scan_x, SWEEPS),
+             lambda: sk.scan_fused_plain(sched, scan_x, SWEEPS)),
+            ("scan_step", lambda: sk.scan_step(sched, scan_x, mem0),
+             lambda: sk.scan_step_plain(sched, scan_x, mem0))):
+        kt = time_cuda(fn, reps=REPS)
+        pt = time_cuda(plain, warmup=1, reps=REPS)
+        times[name] = (kt, pt)
+        emit({"kernel": name, "batch": B2, "sweeps": SWEEPS if name == "scan_fused" else 1,
+              "ms": kt, "plain_ms": pt, "card": card})
+    q = quant[0]
+    failed = torch.nonzero(~ad.fast.decode(q)[2]).flatten()
+    sub = q.index_select(0, failed).to(torch.float32)
+    whole_ms = time_cuda(lambda: ad.decode(q), reps=REPS)
+    fast_ms = time_cuda(lambda: ad.fast.decode(q), reps=REPS)
+    rerun_ms = time_cuda(lambda: ad.list.decode(sub), reps=REPS)
+    always_ms = time_cuda(lambda: ad.list.decode(q.to(torch.float32)), reps=REPS)
+    sc1_ms = time_cuda(lambda: sc1.decode(amp[0]), reps=REPS)
+    emit({"metric": "adaptive_decode_payload_throughput", "value": payload / whole_ms / 1e3,
+          "unit": "Mbit/s", "batch": B2, "ms": whole_ms, "fast_pass_ms": fast_ms,
+          "fast_pass_mbps": payload / fast_ms / 1e3, "rerun_rows": int(failed.numel()),
+          "rerun_ms": rerun_ms,
+          "rerun_mbps": failed.numel() * (K_LEN - det.tail_bits) / rerun_ms / 1e3,
+          "always_scl8_ms": always_ms,
+          "always_scl8_mbps": payload / always_ms / 1e3, "card": card})
+    emit({"metric": "fast_pass_l1_float32_payload_throughput",
+          "value": payload / sc1_ms / 1e3, "unit": "Mbit/s", "batch": B2, "ms": sc1_ms,
+          "card": card})
+
+    k3 = [{"name": f"fastssc_subtree[{name}]", "route": "cuda",
+           "source": "polar_codes_torch/csrc/fastssc_subtree.cu",
+           "replaces": "polar_codes_tpu/ops/fastssc_kernel.py:147",
+           "launches": by_path["pcsim_adaptive" if name == "int8" else
+                               "fast_pass_l1_float32"][f"fastssc_subtree[{name}]"],
+           "max_abs_err": k3_err[name], "ms": times[f"fastssc_subtree[{name}]"][0],
+           "plain_ms": times[f"fastssc_subtree[{name}]"][1],
+           **bound(*k3_work(root, B2, 1 if name == "int8" else 4, 1)), "library_ms": None}
+          for name in ("float32", "int8")]
+    scan_k = [
+        {"name": "scan_fused", "route": "cuda", "source": "polar_codes_torch/csrc/scan_sweep.cu",
+         "replaces": "polar_codes_tpu/ops/scan_kernel.py:87",
+         "launches": launches_scan["scan_fused"], "max_abs_err": k4_err,
+         "ms": times["scan_fused"][0], "plain_ms": times["scan_fused"][1],
+         **bound(*scan_work(sched, B2, SWEEPS, False)), "library_ms": None},
+        {"name": "scan_step", "route": "cuda", "source": "polar_codes_torch/csrc/scan_sweep.cu",
+         "replaces": "polar_codes_tpu/ops/scan_kernel.py:139",
+         "launches": launches_fss["scan_step"], "max_abs_err": k5_err,
+         "ms": times["scan_step"][0], "plain_ms": times["scan_step"][1],
+         **bound(*scan_work(sched, B2, 1, True)), "library_ms": None},
+    ]
+    return {"kernels": k3 + scan_k, "launches": launches}
 
 
 def _check_tie(dec, dec_plain, llr, batch_idx, blk):

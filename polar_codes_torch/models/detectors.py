@@ -7,8 +7,8 @@ device, checksum generation and checking are then GF(2) products mod 2,
 computed in int32 (one masked parity per tail bit), so no float matmul and
 no TF32 setting can touch them.
 
-Ported: Dummy, CRC8, CRC16 (CCITT-FALSE) and the 5G NR CRC6/11/16/24C.
-CRC32 and CMAC are not ported yet.
+Ported: Dummy, CRC8, CRC16 (CCITT-FALSE), CRC32 (CRC-32C, reflected,
+little-endian tail) and the 5G NR CRC6/11/16/24C. CMAC is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +30,18 @@ def crc_msb_first(bits, poly: int, width: int, init: int) -> int:
         reg = (reg << 1) & mask
         if fb:
             reg ^= poly
+    return reg
+
+
+def crc32c_bytes(data: bytes, init: int = 0) -> int:
+    """Reflected CRC-32C over bytes, init and xor-out 0 (chained
+    _mm_crc32_u32; host reference)."""
+    poly_ref = 0x82F63B78
+    reg = init & 0xFFFFFFFF
+    for byte in data:
+        reg ^= byte
+        for _ in range(8):
+            reg = (reg >> 1) ^ (poly_ref if reg & 1 else 0)
     return reg
 
 
@@ -216,9 +228,54 @@ class CRC24NRC(_PolyCrc):
     bits, tail_bits, poly, init, name = 24, 24, 0xB2B117, 0, "crc24nrc"
 
 
+class CRC32(Detector):
+    """CRC-32C over little-endian uint32 words, init 0, no xor-out, the
+    checksum stored as a little-endian uint32 at the tail. The word
+    traversal equals the byte-stream reflected CRC-32C, so the data length
+    must be a multiple of 32 bits."""
+
+    bits, tail_bits, name = 32, 32, "crc32"
+    _POLY_REF = 0x82F63B78
+
+    def compute_np(self, data_bits: np.ndarray) -> np.ndarray:
+        data_bits = np.asarray(data_bits, dtype=np.uint8)
+        if len(data_bits) % 32:
+            raise ValueError("CRC32 requires a data length that is a multiple of 32 bits")
+        return self._place(crc32c_bytes(np.packbits(data_bits).tobytes()))
+
+    def _place(self, value: int) -> np.ndarray:
+        """Little-endian byte order, each byte MSB-first in the bit stream."""
+        out = np.zeros(32, dtype=np.uint8)
+        for byte_idx in range(4):
+            byte = (value >> (8 * byte_idx)) & 0xFF
+            out[byte_idx * 8 : (byte_idx + 1) * 8] = _int_to_bits(byte, 8)
+        return out
+
+    def value_affine(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Reflected byte step s' = R8(s ^ byte). Bit j of the MSB-first
+        stream enters byte j // 8 as 1 << (7 - j % 8), so its column is
+        R8^(bytes - j // 8) of that embedding; init 0 gives no constant.
+        The map needs whole bytes (the checksum itself, whole words)."""
+        if data_len % 8:
+            raise ValueError("the CRC32 affine map requires whole bytes")
+        pr = self._POLY_REF
+
+        def r8(s: int) -> int:
+            for _ in range(8):
+                s = (s >> 1) ^ (pr if s & 1 else 0)
+            return s
+
+        cols = [0] * data_len
+        vecs = [r8(1 << (7 - m)) for m in range(8)]  # the last byte
+        for k in range(data_len // 8 - 1, -1, -1):
+            cols[k * 8 : k * 8 + 8] = vecs
+            vecs = [r8(v) for v in vecs]
+        return _cols_to_matrix(cols, 32), np.zeros(32, dtype=np.uint8)
+
+
 _BY_NAME: Dict[str, type] = {
     cls.name: cls
-    for cls in (Dummy, CRC8, CRC16, CRC6NR, CRC11NR, CRC16NR, CRC24NRC)
+    for cls in (Dummy, CRC8, CRC16, CRC32, CRC6NR, CRC11NR, CRC16NR, CRC24NRC)
 }
 
 

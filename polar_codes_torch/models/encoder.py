@@ -17,12 +17,14 @@ import torch
 
 from ..construction import frozen_bit_mask, info_indices
 from ..ops.butterfly_kernel import butterfly_encode
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
 
 
 class PolarEncoder:
     """Batched polar encoder for one (N, frozen set) code. The code's
-    constants live on `device`; inputs must be there too."""
+    constants live on `device` (the card unless the caller asks for the
+    CPU); inputs must be there too."""
 
     def __init__(
         self,
@@ -30,7 +32,7 @@ class PolarEncoder:
         frozen_bit_positions: Sequence[int],
         systematic: bool = True,
         detector: Optional[Detector] = None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ):
         n = block_length.bit_length() - 1
         if (1 << n) != block_length:
@@ -42,10 +44,10 @@ class PolarEncoder:
         self.info_length = int(self.info_pos.size)
         self.systematic = systematic
         self.detector = detector if detector is not None else Dummy()
-        self._info_pos_t = torch.as_tensor(self.info_pos, device=device)
+        self.device = resolve_device(device)
+        self._info_pos_t = torch.as_tensor(self.info_pos, device=self.device)
         self._mask_t = torch.as_tensor(self.frozen_mask.astype(np.uint8),
-                                       device=device)
-        self.device = self._info_pos_t.device  # "cuda" resolves to "cuda:0"
+                                       device=self.device)
 
     def _check(self, bits: torch.Tensor, length: int) -> None:
         if bits.shape[-1] != length:

@@ -14,15 +14,19 @@ Path metrics are LLR-based, higher is better; the list widens from one
 path at metric 0 until forks have produced L candidates. Gathers are real
 index gathers, so they are exact on any device.
 
+L = 1 is plain SC: it decodes through the Fast-SSC decoder (kernel K3,
+models/fastssc.py), as the JAX package does, and recovers the path metric
+in its telescoped codeword form.
+
 The batch-first and batch-last XLA paths of the JAX package are not
 ported: the plain version of K1 plus this glue is the port's reference,
 and the JAX package's paths remain the parity reference of the tests.
-L = 1 (Fast-SSC) and L > 32 are later slices.
+L > 32 is a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +42,10 @@ from ..ops.scl_kernel_bl import (
     scl_subtree,
     take_packed,
 )
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
+from .fastssc import FastSSCDecoder
+from .fastssc import SubtreeFn as FastSubtreeFn
 from .tree import CodeNode, NodeKind, build_tree
 
 _NEG = -1.0e30  # metric of an inactive list slot
@@ -70,7 +77,8 @@ class SCLDecoder:
     subtree_fn is the function that decodes one subtree (default: K1's
     wrapper, which runs the CUDA kernel on CUDA tensors and the plain
     version on CPU tensors); pass `scl_subtree_plain` to run the plain
-    version on the card explicitly.
+    version on the card explicitly. At list_size=1 the decoder is the
+    Fast-SSC decoder, and subtree_fn is K3's (`fastssc_subtree_plain`).
     """
 
     def __init__(
@@ -83,22 +91,20 @@ class SCLDecoder:
         enum_span: int = 16,
         max_enum_k: Optional[int] = None,
         kernel_span: Optional[int] = None,
-        device="cpu",
-        subtree_fn: Optional[SubtreeFn] = None,
+        device=DEFAULT_DEVICE,
+        subtree_fn: Optional[Union[SubtreeFn, FastSubtreeFn]] = None,
     ):
         n = block_length.bit_length() - 1
         if (1 << n) != block_length:
             raise ValueError(f"block length {block_length} is not a power of 2")
-        if list_size == 1:
-            raise NotImplementedError(
-                "list_size=1 decodes through Fast-SSC, which arrives with the "
-                "Fast-SSC slice of the port")
-        if not 2 <= list_size <= MAX_LIST:
+        if not 1 <= list_size <= MAX_LIST:
             raise NotImplementedError(
                 f"list_size={list_size}: the packed bit word holds at most "
                 f"{MAX_LIST} paths")
         if max_enum_k is None:
             max_enum_k = 4
+        if list_size == 1:  # ENUM leaves would be less greedy than SC
+            enum_span = 0
         if enum_span and (enum_span > 32 or max_enum_k > 5):
             raise NotImplementedError(
                 "ENUM leaves are limited to span <= 32 and k <= 5")
@@ -111,14 +117,20 @@ class SCLDecoder:
         self.detector = detector if detector is not None else Dummy()
         self.enum_span = enum_span
         self.max_enum_k = max_enum_k
+        self.device = resolve_device(device)
+        self._sc = None
+        if self.list_size == 1:
+            self._sc = FastSSCDecoder(
+                block_length, self.frozen, systematic=True, kernel_span=kernel_span,
+                device=self.device, subtree_fn=subtree_fn)
+            kernel_span = self._sc.kernel_span
         self.kernel_span = (default_kernel_span(self.list_size, block_length)
                             if kernel_span is None else int(kernel_span))
         self.subtree_fn = scl_subtree if subtree_fn is None else subtree_fn
         self.tree: CodeNode = build_tree(
             block_length, self.frozen, enum_span=enum_span, max_enum_k=max_enum_k)
         self._schedules = {}
-        self._info_pos_t = torch.as_tensor(self.info_pos, device=device)
-        self.device = self._info_pos_t.device  # "cuda" resolves to "cuda:0"
+        self._info_pos_t = torch.as_tensor(self.info_pos, device=self.device)
         self._syndrome = self._syndrome_consts()
 
     # ---- constants -------------------------------------------------------
@@ -195,10 +207,24 @@ class SCLDecoder:
 
     # ---- public API --------------------------------------------------------
 
+    def _decode_sc(self, llr: torch.Tensor):
+        """L = 1: (codeword [..., N] uint8, metric [...]) through Fast-SSC,
+        with the metric 0.5 * (sum(bipolar * llr) - sum(|llr|))."""
+        codeword = self._sc.decode_to_codeword(llr)
+        work = llr.to(torch.float32)
+        bip = 1.0 - 2.0 * codeword.to(torch.float32)
+        metric = 0.5 * ((bip * work).sum(-1) - work.abs().sum(-1))
+        return codeword, metric
+
     def decode_paths(self, llr: torch.Tensor):
         """[..., N] LLRs -> (codewords [..., L, N] uint8, metrics [..., L],
         active [..., L])."""
         lead = llr.shape[:-1]
+        if self._sc is not None:
+            codeword, metric = self._decode_sc(self._check_input(llr).reshape(
+                lead + (self.block_length,)))
+            return (codeword[..., None, :], metric[..., None],
+                    torch.ones(lead + (1,), dtype=torch.bool, device=llr.device))
         word, metrics = self.decode_packed(llr)
         planes = torch.stack([(word >> l) & 1 for l in range(self.list_size)], 0)
         codewords = planes.permute(2, 0, 1).to(torch.uint8)
@@ -211,6 +237,12 @@ class SCLDecoder:
         uint8, detector ok [...] bool): the best path whose CRC holds, or
         the ML path if none does."""
         lead = llr.shape[:-1]
+        if self._sc is not None:
+            self._check_input(llr)
+            codeword = self._sc.decode_to_codeword(llr.to(torch.float32))
+            u = codeword if self.systematic else butterfly_transform(codeword)
+            info = u.index_select(-1, self._info_pos_t)
+            return info, codeword, self.detector.check(info)
         word, metrics = self.decode_packed(llr)
         active = metrics > _ACTIVE_THRESHOLD
         n_list = self.list_size

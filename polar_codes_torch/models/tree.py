@@ -2,8 +2,8 @@
 kinds once, on the host.
 
 A NumPy copy of polar_codes_tpu/models/tree.py. Decoders walk the tree in
-Python; the SCL subtree kernel receives it flattened into a schedule
-(ops/scl_kernel_bl.py).
+Python; the kernels receive it flattened into a schedule
+(ops/scl_kernel_bl.py, ops/fastssc_kernel.py, ops/scan_kernel.py).
 
 Node kinds (Fast-SSC leaf set plus exhaustive-ML ENUM leaves):
   RATE0  all-frozen subcode
@@ -54,29 +54,37 @@ class CodeNode:
         return self.left.leaves() + self.right.leaves()
 
 
+ALL_LEAF_KINDS = frozenset(
+    {NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC})
+
+
 def classify(
     length: int,
     frozen: np.ndarray,
+    allowed=ALL_LEAF_KINDS,
     enum_span: int = 0,
     max_enum_k: int = 0,
 ) -> NodeKind:
-    """Leaf classification; enum_span/max_enum_k turn small mixed-rate
-    subcodes into ENUM leaves. (The JAX package's `allowed` restriction,
-    used by SCAN, is not ported yet.)"""
+    """Leaf classification. `allowed` restricts the leaf kinds that end the
+    recursion (SCAN collapses only RATE0 and RATE1 subtrees);
+    enum_span/max_enum_k turn small mixed-rate subcodes into ENUM leaves."""
     n_frozen = len(frozen)
-    if n_frozen == length:
+    if n_frozen == length and NodeKind.RATE0 in allowed:
         return NodeKind.RATE0
-    if n_frozen == 0:
+    if n_frozen == 0 and NodeKind.RATE1 in allowed:
         return NodeKind.RATE1
+    if length == 1:  # span-1 nodes are rate-0 or rate-1 by definition
+        return NodeKind.RATE0 if n_frozen else NodeKind.RATE1
     if (
         enum_span
         and length <= enum_span
         and 1 <= length - n_frozen <= max_enum_k
     ):
         return NodeKind.ENUM
-    if n_frozen == length - 1 and frozen[-1] == length - 2:
+    if (n_frozen == length - 1 and frozen[-1] == length - 2
+            and NodeKind.REP in allowed):
         return NodeKind.REP
-    if n_frozen == 1 and frozen[0] == 0:
+    if n_frozen == 1 and frozen[0] == 0 and NodeKind.SPC in allowed:
         return NodeKind.SPC
     return NodeKind.BRANCH
 
@@ -85,18 +93,19 @@ def build_tree(
     block_length: int,
     frozen_bit_positions: Sequence[int],
     offset: int = 0,
+    allowed=ALL_LEAF_KINDS,
     enum_span: int = 0,
     max_enum_k: int = 0,
 ) -> CodeNode:
-    """Recursively specialize the code defined by (N, frozen set)."""
+    """Recursively specialize the code defined by (N, frozen set);
+    `allowed`, enum_span and max_enum_k as in classify."""
     frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
-    kind = classify(block_length, frozen, enum_span, max_enum_k)
+    kind = classify(block_length, frozen, allowed, enum_span, max_enum_k)
     node = CodeNode(offset=offset, length=block_length, frozen=frozen, kind=kind)
     if kind == NodeKind.BRANCH:
         half = block_length // 2
-        node.left = build_tree(
-            half, frozen[frozen < half], offset, enum_span, max_enum_k)
-        node.right = build_tree(
-            half, frozen[frozen >= half] - half, offset + half, enum_span,
-            max_enum_k)
+        node.left = build_tree(half, frozen[frozen < half], offset, allowed,
+                               enum_span, max_enum_k)
+        node.right = build_tree(half, frozen[frozen >= half] - half,
+                                offset + half, allowed, enum_span, max_enum_k)
     return node

@@ -1,7 +1,11 @@
-"""SC update rules f and g in float32, as in polar_codes_tpu/ops/fg.py.
+"""SC update rules f and g, as in polar_codes_tpu/ops/fg.py.
 
 Hard decisions travel in bipolar form {+1., -1.}, so g's sign application
-is a multiply. The saturating char forms are not ported yet.
+is a multiply. Two families: float32, and the saturating char family
+(fip_char semantics) on integer-valued LLRs, with g clipped to
+[-127, 127]. The char pair comes as `_i8` (int8 tensors, int16
+arithmetic) and `_sat` (integers held in a float tensor), which give the
+same values on LLRs in [-127, 127].
 """
 
 from __future__ import annotations
@@ -33,3 +37,31 @@ def f_minsum_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def g_update(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -> torch.Tensor:
     """g(a,b,u) = b + (1-2u)*a, with the left bits in bipolar form."""
     return b + left_bipolar * a
+
+
+def f_minsum_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 min-sum f with an int16 intermediate (fip_char F)."""
+    a16, b16 = a.to(torch.int16), b.to(torch.int16)
+    sign = torch.sign(a16) * torch.sign(b16)
+    return (sign * torch.minimum(a16.abs(), b16.abs())).to(torch.int8)
+
+
+def g_update_i8(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -> torch.Tensor:
+    """int8 g, saturated to [-127, 127] (fi_adds_epi8)."""
+    s = b.to(torch.int16) + left_bipolar.to(torch.int16) * a.to(torch.int16)
+    return torch.clamp(s, -127, 127).to(torch.int8)
+
+
+def f_minsum_sat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Char min-sum f on integers held in a float tensor, computed in
+    float32 and returned in a's dtype (value-equal to f_minsum_i8)."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    sign = torch.sign(a32) * torch.sign(b32)
+    return (sign * torch.minimum(a32.abs(), b32.abs())).to(a.dtype)
+
+
+def g_update_sat(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -> torch.Tensor:
+    """Char g on integers held in a float tensor, clipped to [-127, 127]
+    (value-equal to g_update_i8)."""
+    s = b.to(torch.float32) + left_bipolar.to(torch.float32) * a.to(torch.float32)
+    return torch.clamp(s, -127.0, 127.0).to(a.dtype)

@@ -3,23 +3,30 @@
 A polar code has no weights: its parameters are the frozen set, the info
 positions, the decoder tree, the ENUM tables and the CRC's affine map. A
 caller reads those off the JAX objects as numpy arrays and hands them to
-`from_jax_state`, which builds the port's encoder and decoder from the
-frozen set and raises on the first array that the port's own
-construction does not reproduce. So the carry checks that both packages
-compute the same code; it is not a way around the port's construction.
+`from_jax_state`, which builds the port's encoder and the decoder of the
+named family from the frozen set and raises on the first array that the
+port's own construction does not reproduce. So the carry checks that both
+packages compute the same code; it is not a way around the port's
+construction.
 
 state keys:
-    frozen       int array, the frozen positions
-    info_pos     int array, the info positions
-    list_size    int
-    enum_span    int
-    max_enum_k   int
-    systematic   bool
-    detector     str, the detector's name ("crc16", "dummy", ...)
-    affine_G     [tail, D] uint8, affine_map(D)[0]      (with a CRC)
-    affine_g0    [tail] uint8, affine_map(D)[1]         (with a CRC)
-    leaves       optional [n, 3] int: (kind value index, offset, length)
-                 per leaf in tree order, kind index into NodeKind order
+    family        optional str: "scl" (default), "fastssc", "adaptive",
+                  "scan" or "fastsscan"
+    frozen        int array, the frozen positions
+    info_pos      int array, the info positions
+    systematic    bool
+    detector      str, the detector's name ("crc16", "crc32", "dummy", ...)
+    list_size     int                                   (scl, adaptive)
+    enum_span     int, max_enum_k int                   (scl)
+    fast_dtype    optional str, "float32" or "int8"     (fastssc, adaptive)
+    list_schedule optional int sequence                 (adaptive)
+    iterations    optional int                          (scan, fastsscan)
+    affine_G      [tail, D] uint8, affine_map(D)[0]     (with a CRC)
+    affine_g0     [tail] uint8, affine_map(D)[1]        (with a CRC)
+    leaves        optional [n, 3] int: (kind index, offset, length) per
+                  leaf of the decoder's tree (the Fast-SSC tree for
+                  adaptive, the RATE0/RATE1 tree for SCAN), kind index
+                  into NodeKind order
 """
 
 from __future__ import annotations
@@ -27,11 +34,16 @@ from __future__ import annotations
 from typing import Dict, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..models.adaptive import AdaptiveDecoder
 from ..models.detectors import detector_by_name
 from ..models.encoder import PolarEncoder
+from ..models.fastssc import FastSSCDecoder
+from ..models.scan import FastSScanDecoder, ScanDecoder
 from ..models.scl import SCLDecoder
 from ..models.tree import NodeKind
+from .device import DEFAULT_DEVICE
 
 State = Dict[str, Union[np.ndarray, int, str, bool]]
 _KINDS = list(NodeKind)
@@ -52,9 +64,39 @@ def _same(name: str, carried, ours) -> None:
             f"{carried.tolist()} vs {ours.tolist()}")
 
 
-def from_jax_state(state: State, device="cpu") -> Tuple[PolarEncoder, SCLDecoder]:
-    """Build (PolarEncoder, SCLDecoder) from the carried state; raise
-    ValueError on the first carried array the port does not reproduce."""
+_FAST_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+
+
+def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
+             systematic: bool, device):
+    family = str(state.get("family", "scl"))
+    common = dict(systematic=systematic, detector=detector, device=device)
+    fast_dtype = _FAST_DTYPES[str(state.get("fast_dtype", "float32"))]
+    if family == "scl":
+        return SCLDecoder(
+            block_length, frozen, list_size=int(state["list_size"]),
+            enum_span=int(state["enum_span"]), max_enum_k=int(state["max_enum_k"]),
+            **common)
+    if family == "fastssc":
+        return FastSSCDecoder(block_length, frozen, dtype=fast_dtype, **common)
+    if family == "adaptive":
+        schedule = state.get("list_schedule")
+        return AdaptiveDecoder(
+            block_length, frozen, list_size=int(state["list_size"]),
+            fast_dtype=fast_dtype,
+            list_schedule=None if schedule is None else tuple(int(l) for l in schedule),
+            **common)
+    if family in ("scan", "fastsscan"):
+        cls = ScanDecoder if family == "scan" else FastSScanDecoder
+        return cls(block_length, frozen, iterations=int(state.get("iterations", 1)),
+                   **common)
+    raise ValueError(f"unknown decoder family {family!r}")
+
+
+def from_jax_state(state: State, device=DEFAULT_DEVICE) -> Tuple[PolarEncoder, object]:
+    """Build (PolarEncoder, decoder of the state's family) from the carried
+    state; raise ValueError on the first carried array the port does not
+    reproduce."""
     frozen = np.asarray(state["frozen"], dtype=np.int64)
     info_pos = np.asarray(state["info_pos"], dtype=np.int64)
     block_length = frozen.size + info_pos.size
@@ -62,12 +104,7 @@ def from_jax_state(state: State, device="cpu") -> Tuple[PolarEncoder, SCLDecoder
     systematic = bool(state["systematic"])
     enc = PolarEncoder(block_length, frozen, systematic=systematic,
                        detector=detector, device=device)
-    dec = SCLDecoder(
-        block_length, frozen, list_size=int(state["list_size"]),
-        systematic=systematic, detector=detector,
-        enum_span=int(state["enum_span"]), max_enum_k=int(state["max_enum_k"]),
-        device=device,
-    )
+    dec = _decoder(state, block_length, frozen, detector, systematic, device)
     _same("info_pos", info_pos, dec.info_pos)
     _same("encoder info_pos", info_pos, enc.info_pos)
     _same("frozen", np.sort(frozen), dec.frozen)

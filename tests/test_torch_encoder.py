@@ -58,7 +58,8 @@ def test_encode_equals_jax(n, k, systematic, crc):
     tdetector = getattr(tdet, crc)() if crc else None
     jdetector = getattr(jdet, crc)() if crc else None
     info = np.random.default_rng(k).integers(0, 2, (2, 3, k)).astype(np.uint8)
-    enc = PolarEncoder(n, frozen, systematic=systematic, detector=tdetector)
+    enc = PolarEncoder(n, frozen, systematic=systematic, detector=tdetector,
+                       device="cpu")
     jenc = JaxEncoder(n, frozen, systematic=systematic, detector=jdetector)
     got = enc.encode(torch.as_tensor(info))
     assert got.dtype == torch.uint8 and got.shape == (2, 3, n)
@@ -79,17 +80,17 @@ def test_encode_matches_cpp_reference():
         return np.unpackbits(raw).reshape(64, cols)
 
     enc = PolarEncoder(256, frozen_bits(256, 128, 0.0, "BB"), systematic=True,
-                       detector=tdet.CRC8())
+                       detector=tdet.CRC8(), device="cpu")
     got = enc.encode(torch.as_tensor(bits("cc_info.bin", 128))).numpy()
     np.testing.assert_array_equal(got, bits("cc_encoded.bin", 256))
 
 
 def test_encoder_checks_inputs():
-    enc = PolarEncoder(64, frozen_bits(64, 32, 0.0))
+    enc = PolarEncoder(64, frozen_bits(64, 32, 0.0), device="cpu")
     with pytest.raises(ValueError, match="expected 32"):
         enc.encode(torch.zeros(4, 31, dtype=torch.uint8))
     with pytest.raises(ValueError, match="power of 2"):
-        PolarEncoder(48, [0])
+        PolarEncoder(48, [0], device="cpu")
 
 
 def _fake_cuda(*shapes_dtypes):

@@ -51,7 +51,7 @@ def _check_calls(n_len, frozen, list_size, span, batch, seed, **tree):
         return out
 
     dec = SCLDecoder(n_len, frozen, list_size=list_size, kernel_span=span,
-                     subtree_fn=record, **tree)
+                     subtree_fn=record, device="cpu", **tree)
     llr = np.random.default_rng(seed).normal(0, 2, (batch, n_len)).astype(np.float32)
     dec.decode_packed(torch.as_tensor(llr))
     assert len(calls) == len(jcalls) >= 2
@@ -145,7 +145,7 @@ def test_schedule_widths_match_jax():
     n_len = 1024
     frozen = frozen_bits(n_len, 512, 0.0)
     jdec = JaxSCLDecoder(n_len, frozen, list_size=8)
-    dec = SCLDecoder(n_len, frozen, list_size=8)
+    dec = SCLDecoder(n_len, frozen, list_size=8, device="cpu")
     assert dec.kernel_span == 512
     jroot = jdec.tree
     for node, jnode in ((dec.tree.left, jroot.left), (dec.tree.right, jroot.right)):
@@ -174,10 +174,10 @@ def test_take_packed_and_bipolar():
 
 def test_list_size_limits():
     frozen = frozen_bits(64, 32, 0.0)
-    with pytest.raises(NotImplementedError, match="Fast-SSC"):
-        SCLDecoder(64, frozen, list_size=1)
+    sc = SCLDecoder(64, frozen, list_size=1, device="cpu")
+    assert sc.tree.kind.value == "branch" and sc._sc is not None  # L = 1: Fast-SSC
     with pytest.raises(NotImplementedError, match="32"):
-        SCLDecoder(64, frozen, list_size=64)
+        SCLDecoder(64, frozen, list_size=64, device="cpu")
 
 
 def test_subtree_kernel_never_falls_back(monkeypatch):
@@ -185,7 +185,8 @@ def test_subtree_kernel_never_falls_back(monkeypatch):
     plain version. Here there is no card and no nvcc, so it raises."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    dec = SCLDecoder(64, frozen_bits(64, 32, 0.0), list_size=8, kernel_span=32)
+    dec = SCLDecoder(64, frozen_bits(64, 32, 0.0), list_size=8, kernel_span=32,
+                     device="cpu")
     sched = dec.schedule(dec.tree.left, 1)
     with FakeTensorMode():
         llr = torch.empty((1, 32, 16), device="cuda")

@@ -18,14 +18,22 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from polar_codes_tpu.models import detectors as jdet  # noqa: E402
+from polar_codes_tpu.models.adaptive import AdaptiveDecoder as JaxAdaptive  # noqa: E402
 from polar_codes_tpu.models.encoder import PolarEncoder as JaxEncoder  # noqa: E402
+from polar_codes_tpu.models.fastssc import FastSSCDecoder as JaxFastSSC  # noqa: E402
+from polar_codes_tpu.models.scan import FastSScanDecoder as JaxFastSScan  # noqa: E402
+from polar_codes_tpu.models.scan import ScanDecoder as JaxScan  # noqa: E402
 from polar_codes_tpu.models.scl import SCLDecoder as JaxSCLDecoder  # noqa: E402
 
 from polar_codes_torch.construction import frozen_bits  # noqa: E402
 from polar_codes_torch.dsp import bpsk_modulate  # noqa: E402
 from polar_codes_torch.models import detectors as tdet  # noqa: E402
+from polar_codes_torch.models.adaptive import AdaptiveDecoder  # noqa: E402
 from polar_codes_torch.models.encoder import PolarEncoder  # noqa: E402
+from polar_codes_torch.models.fastssc import FastSSCDecoder  # noqa: E402
+from polar_codes_torch.models.scan import FastSScanDecoder, ScanDecoder  # noqa: E402
 from polar_codes_torch.models.scl import SCLDecoder  # noqa: E402
+from polar_codes_torch.ops import _build  # noqa: E402
 from polar_codes_torch.utils.carry import from_jax_state, leaf_table  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,8 +61,8 @@ def _assert_same_decode(dec, jdec, llr):
 
 def _slice(n_len, k_len, batch, ebn0_db, seed):
     frozen = frozen_bits(n_len, k_len, 0.0)
-    enc = PolarEncoder(n_len, frozen, detector=tdet.CRC16())
-    dec = SCLDecoder(n_len, frozen, list_size=8, detector=tdet.CRC16())
+    enc = PolarEncoder(n_len, frozen, detector=tdet.CRC16(), device="cpu")
+    dec = SCLDecoder(n_len, frozen, list_size=8, detector=tdet.CRC16(), device="cpu")
     jenc = JaxEncoder(n_len, frozen, detector=jdet.CRC16())
     jdec = JaxSCLDecoder(n_len, frozen, list_size=8, detector=jdet.CRC16())
     info = np.random.default_rng(seed).integers(0, 2, (batch, k_len)).astype(np.uint8)
@@ -82,7 +90,7 @@ def test_slice_full_width_matches_jax():
 
 def test_decode_paths_match_jax():
     frozen = ALL_KINDS_FROZEN
-    dec = SCLDecoder(64, frozen, list_size=4, enum_span=8, max_enum_k=3)
+    dec = SCLDecoder(64, frozen, list_size=4, enum_span=8, max_enum_k=3, device="cpu")
     jdec = JaxSCLDecoder(64, frozen, list_size=4, enum_span=8, max_enum_k=3)
     llr = np.random.default_rng(9).normal(0, 2, (24, 64)).astype(np.float32)
     cw, m, act = dec.decode_paths(torch.as_tensor(llr))
@@ -97,19 +105,21 @@ def test_leaf_longer_than_kernel_span():
     as one-leaf subtrees (JAX widens to full L there instead); slot order
     may differ inside, decode() outputs may not."""
     dec = SCLDecoder(64, ALL_KINDS_FROZEN, list_size=4, kernel_span=8,
-                     detector=tdet.CRC8())
+                     detector=tdet.CRC8(), device="cpu")
     assert any(leaf.length > 8 for leaf in dec.tree.leaves())
     jdec = JaxSCLDecoder(64, ALL_KINDS_FROZEN, list_size=4, detector=jdet.CRC8())
     llr = np.random.default_rng(5).normal(0.5, 1.5, (32, 64)).astype(np.float32)
     _assert_same_decode(dec, jdec, llr)
-    wide = SCLDecoder(64, ALL_KINDS_FROZEN, list_size=4, detector=tdet.CRC8())
+    wide = SCLDecoder(64, ALL_KINDS_FROZEN, list_size=4, detector=tdet.CRC8(),
+                      device="cpu")
     for a, b in zip(dec.decode(torch.as_tensor(llr)), wide.decode(torch.as_tensor(llr))):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_non_systematic_matches_jax():
     frozen = frozen_bits(64, 40, 0.0)
-    dec = SCLDecoder(64, frozen, list_size=4, systematic=False, detector=tdet.CRC8())
+    dec = SCLDecoder(64, frozen, list_size=4, systematic=False, detector=tdet.CRC8(),
+                     device="cpu")
     jdec = JaxSCLDecoder(64, frozen, list_size=4, systematic=False, detector=jdet.CRC8())
     llr = np.random.default_rng(6).normal(0.8, 1.2, (16, 64)).astype(np.float32)
     _assert_same_decode(dec, jdec, llr)
@@ -121,7 +131,7 @@ def test_ca_scl8_matches_cpp_reference_decisions():
     llr = np.fromfile(os.path.join(DATA, "cc_llr.bin"), dtype=np.float32).reshape(64, 256)
     want = np.unpackbits(np.fromfile(os.path.join(DATA, "cc_scl_out.bin"), np.uint8))
     dec = SCLDecoder(256, frozen_bits(256, 128, 0.0, "BB"), list_size=8,
-                     detector=tdet.CRC8(), enum_span=0)
+                     detector=tdet.CRC8(), enum_span=0, device="cpu")
     got, _, _ = dec.decode(torch.as_tensor(llr))
     np.testing.assert_array_equal(got.numpy(), want.reshape(64, 128))
 
@@ -140,30 +150,107 @@ def _jax_state(jdec):
     return state
 
 
+def _jax_family_state(family, frozen):
+    """The carried state of a JAX decoder of another family, read off it."""
+    det = jdet.CRC32()
+    if family == "fastssc":
+        jdec = JaxFastSSC(128, frozen, detector=det, dtype=jnp.int8)
+        tree, extra = jdec.tree, {"fast_dtype": "int8"}
+    elif family == "adaptive":
+        jdec = JaxAdaptive(128, frozen, fast_dtype=jnp.int8, list_schedule=(2, 8))
+        tree = jdec.fast.tree
+        extra = {"fast_dtype": "int8", "list_size": jdec.list_size,
+                 "list_schedule": list(jdec.list_schedule)}
+        jdec.frozen, jdec.info_pos = jdec.fast.frozen, jdec.fast.info_pos
+    else:
+        cls = JaxScan if family == "scan" else JaxFastSScan
+        jdec = cls(128, frozen, detector=det, iterations=3)
+        tree, extra = jdec.tree, {"iterations": jdec.iterations}
+    G, g0 = det.affine_map(jdec.info_length - det.tail_bits)
+    return dict(family=family, frozen=np.asarray(jdec.frozen),
+                info_pos=np.asarray(jdec.info_pos), systematic=True,
+                detector=det.name, affine_G=G, affine_g0=g0,
+                leaves=leaf_table(tree), **extra)
+
+
+@pytest.mark.parametrize("family,cls", [
+    ("fastssc", FastSSCDecoder), ("adaptive", AdaptiveDecoder),
+    ("scan", ScanDecoder), ("fastsscan", FastSScanDecoder)])
+def test_carry_each_family(family, cls):
+    frozen = frozen_bits(128, 64, 0.0)
+    state = _jax_family_state(family, frozen)
+    enc, dec = from_jax_state(state, device="cpu")
+    assert type(dec) is cls and dec.detector.name == "crc32"
+    np.testing.assert_array_equal(leaf_table(dec.tree), state["leaves"])
+    if family == "adaptive":
+        assert dec.list_schedule == (2, 8) and dec.fast.dtype == torch.int8
+    if family in ("scan", "fastsscan"):
+        assert dec.iterations == 3
+        # the Fast-SSC tree's leaves are not the SCAN tree's
+        fast = _jax_family_state("fastssc", frozen)["leaves"]
+        with pytest.raises(ValueError, match="leaves"):
+            from_jax_state(dict(state, leaves=fast), device="cpu")
+    with pytest.raises(ValueError, match="affine_G"):
+        from_jax_state(dict(state, affine_G=1 - state["affine_G"]), device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda f: PolarEncoder(64, f),
+    lambda f: SCLDecoder(64, f, list_size=8),
+    lambda f: SCLDecoder(64, f, list_size=1),
+    lambda f: FastSSCDecoder(64, f),
+    lambda f: AdaptiveDecoder(64, f, detector=tdet.CRC8()),
+    lambda f: ScanDecoder(64, f),
+    lambda f: FastSScanDecoder(64, f),
+], ids=["encoder", "scl", "scl1", "fastssc", "adaptive", "scan", "fastsscan"])
+def test_entry_points_default_to_the_card(make):
+    """Without device=, every entry point lives on the card; with no card
+    it raises and never drops to the CPU quietly."""
+    if torch.cuda.is_available():
+        assert make(frozen_bits(64, 32, 0.0)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(frozen_bits(64, 32, 0.0))
+
+
+def test_every_kernel_source_carries_its_notes():
+    """Each kernel the build knows has a source that names the TPU kernel
+    it replaces and what bounds it on the card."""
+    assert set(_build.KERNELS) == {
+        "butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep"}
+    for name in _build.KERNELS:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces" in text and "bounds it on an H100" in text, name
+
+
 def test_carry_round_trips_and_catches_tampering():
     frozen = frozen_bits(256, 128, 0.0)
     jdec = JaxSCLDecoder(256, frozen, list_size=8, detector=jdet.CRC16())
     state = _jax_state(jdec)
-    enc, dec = from_jax_state(state)
+    enc, dec = from_jax_state(state, device="cpu")
     assert dec.list_size == 8 and dec.detector.name == "crc16"
     np.testing.assert_array_equal(enc.info_pos, state["info_pos"])
     np.testing.assert_array_equal(leaf_table(dec.tree), state["leaves"])
     tampered = dict(state, frozen=np.where(frozen == frozen[0], 255, frozen))
     with pytest.raises(ValueError, match="info_pos"):
-        from_jax_state(tampered)
+        from_jax_state(tampered, device="cpu")
     bad_crc = dict(state, affine_g0=1 - state["affine_g0"])
     with pytest.raises(ValueError, match="affine_g0"):
-        from_jax_state(bad_crc)
+        from_jax_state(bad_crc, device="cpu")
 
 
 def test_port_imports_without_jax():
-    """The port never imports JAX or the JAX package: import it with both
-    made unimportable."""
+    """The port never imports JAX or the JAX package: import every module
+    of it with both made unimportable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['polar_codes_tpu'] = None\n"
         "import polar_codes_torch.models.scl, polar_codes_torch.models.encoder\n"
+        "import polar_codes_torch.models.fastssc, polar_codes_torch.models.adaptive\n"
+        "import polar_codes_torch.models.scan, polar_codes_torch.ops.fastssc_kernel\n"
+        "import polar_codes_torch.ops.scan_kernel, polar_codes_torch.ops.scl_kernel_bl\n"
+        "import polar_codes_torch.ops.butterfly_kernel, polar_codes_torch.utils.device\n"
         "import polar_codes_torch.dsp, polar_codes_torch.utils.carry\n"
         "import polar_codes_torch.utils.timing, polar_codes_torch.ops._build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'polar_codes_tpu'))\n"
