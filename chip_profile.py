@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the device time goes on the port's slice-2 paths, on one CUDA card.
+"""Where the device time goes on the port's slice-2 and slice-3 paths, on one
+CUDA card.
 
 Traces a few warm calls of each path with torch.profiler (CPU and CUDA
 activities) and prints, per path, one JSON line: host wall time per call
@@ -16,6 +17,18 @@ B = 2048, LLRs x10 (the simulator's defaults):
   scan4       ScanDecoder(4 sweeps).decode (K4)
   fastsscan4  FastSScanDecoder(CRC32, 4 iterations).decode (K5)
 
+and the large-N paths, Bhattacharyya at 0 dB, B = 128:
+  large_sc    (131072, 65536) LargeSCDecoder(chunk=2048).decode at 2 dB (K6)
+  large_scl   (32768, 16384) CRC16 LargeSCLDecoder(L = 8, chunk 256,
+              sub-block 16, bf16 carry).decode at 2 dB (K7, K1)
+For these two it also prints a per-layer split, each layer timed alone with
+CUDA events (median of CALLS) on the inputs it saw in one decode: the
+chunk kernels (every mixed-chunk call), the pure-chunk rules (every pure
+chunk), the final join (SCL: chunk gathers and top butterfly stages; SC:
+the codeword transform), the tail (SCL: CRC-aided selection after
+decode_packed; SC: info extraction), and the outer-stage glue as the rest
+of the decode.
+
     python3 chip_profile.py
 
 Exits non-zero without a CUDA device, or if a window shows no device time.
@@ -29,6 +42,9 @@ import time
 N_LEN, K_LEN, LIST, EBN0_DB, BATCH, AMPL = 1024, 512, 8, 2.0, 2048, 10.0
 CALLS = 10
 TOP = 6
+B_LARGE = 128
+LARGE_SC = (131072, 65536, 2048)  # N, K, chunk
+LARGE_SCL = (32768, 16384, 256)
 
 
 def device_events(prof, torch):
@@ -51,7 +67,7 @@ def busy_us(events):
     return total
 
 
-def profile(name, fn, calls, card, torch):
+def profile(name, fn, calls, card, torch, batch=None):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(2):
@@ -73,7 +89,7 @@ def profile(name, fn, calls, card, torch):
     busy_ms = busy_us(events) / 1e3 / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
-        "path": name, "batch": BATCH, "wall_ms_per_call": wall_ms,
+        "path": name, "batch": batch or BATCH, "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": busy_ms, "busy_share": busy_ms / wall_ms,
         "device_events_per_call": len(events) / calls,
         "top": [{"name": n[:90], "ms_per_call": ms / calls, "per_call": c / calls}
@@ -123,6 +139,83 @@ def main():
                      ("scan4", lambda: scan.decode(llr)),
                      ("fastsscan4", lambda: fss.decode(llr))):
         profile(name, fn, CALLS, card, torch)
+    large_paths(card, torch, dev, gen)
+
+
+def large_paths(card, torch, dev, gen):
+    """Profile the two large-N decodes and split each into its layers."""
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCDecoder, LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.ops.butterfly import butterfly_transform
+    from polar_codes_torch.utils.timing import time_cuda
+
+    def channel(enc):
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * enc.info_length / enc.block_length)
+        info = torch.randint(0, 2, (B_LARGE, enc.info_length), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        return Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+
+    def timed(fn):
+        return time_cuda(fn, reps=CALLS)
+
+    def layers(name, total_ms, parts):
+        print(json.dumps({"path": name, "batch": B_LARGE, "decode_ms": total_ms,
+                          **{k + "_ms": v for k, v in parts.items()},
+                          "outer_glue_ms": total_ms - sum(parts.values()), "card": card}),
+              flush=True)
+
+    n_len, k_len, chunk = LARGE_SC
+    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+    sc = LargeSCDecoder(n_len, frozen, chunk=chunk, device=dev)
+    llr = channel(PolarEncoder(n_len, frozen, device=dev))
+    profile("large_sc", lambda: sc.decode(llr), CALLS, card, torch, B_LARGE)
+    mixed, pure = [], []
+
+    def record_chunk(t, x, _orig=sc._chunk):
+        (mixed if sc.classes[t] == 0 else pure).append((t, x))
+        return _orig(t, x)
+
+    sc._chunk = record_chunk
+    u = sc._decode_u(llr)
+    del sc._chunk
+    u01 = torch.signbit(u).to(torch.uint8)
+    codeword = butterfly_transform(u01)
+    layers("large_sc", timed(lambda: sc.decode(llr)), {
+        "chunk_kernels": sum(timed(lambda c=c: sc._chunk(*c)) for c in mixed),
+        "pure_chunk_rules": sum(timed(lambda c=c: sc._chunk(*c)) for c in pure),
+        "final_join": timed(lambda: butterfly_transform(u01)),
+        "tail": timed(lambda: codeword.index_select(-1, sc._info_pos_t)),
+    })
+
+    n_len, k_len, chunk = LARGE_SCL
+    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+    det = CRC16()
+    scl = LargeSCLDecoder(n_len, frozen, list_size=8, detector=det, chunk=chunk, subblock=16,
+                          carry_dtype=torch.bfloat16, device=dev)
+    llr = channel(PolarEncoder(n_len, frozen, detector=det, device=dev))
+    profile("large_scl", lambda: scl.decode(llr), CALLS, card, torch, B_LARGE)
+    k7_calls, k1_calls, joins = [], [], []
+    scl.chunk_fn = lambda *a: k7_calls.append(a) or lk.masked_scl_chunk(*a)
+    scl.subtree_fn = lambda *a: k1_calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+    scl._join_chunks = lambda *a: joins.append(a) or LargeSCLDecoder._join_chunks(scl, *a)
+    scl.decode(llr)
+    scl.chunk_fn, scl.subtree_fn = lk.masked_scl_chunk, scl_kernel_bl.scl_subtree
+    del scl._join_chunks
+    packed_ms = timed(lambda: scl.decode_packed(llr))
+    total_ms = timed(lambda: scl.decode(llr))
+    layers("large_scl", total_ms, {
+        "chunk_kernels": sum(timed(lambda c=c: lk.masked_scl_chunk(*c)) for c in k7_calls),
+        "pure_chunk_rules": sum(timed(lambda c=c: scl_kernel_bl.scl_subtree(*c))
+                                for c in k1_calls),
+        "final_join": timed(lambda: scl._join_chunks(*joins[0])),
+        "tail": total_ms - packed_ms,
+    })
 
 
 if __name__ == "__main__":

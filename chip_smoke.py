@@ -40,8 +40,29 @@ Phases (each raises on failure; the exit code is 0 only if all held):
      versions, equal decisions, BLER < 0.5
  11. K1, K3 (float32 and int8), K4 and K5 launched on those paths
  12. CUDA-event times of K3, K4, K5 and the adaptive decode
- 13. {"kernels": [...]}
- 14. {"ok": true, "device": {...}}
+
+Slice 3's paths, the large-N decoders at the JAX benchmark grid's extremes,
+Bhattacharyya at 0 dB, BPSK over AWGN, B = 128: (131072, 65536) systematic
+SC through PolarEncoder.encode (the product-form transform above N = 2048)
+and LargeSCDecoder(chunk=2048) (kernel K6, csrc/large_sc_chunk.cu), and
+(32768, 16384) CRC16 CA-SCL-8 through LargeSCLDecoder(chunk=256,
+subblock=16, bf16 stage carry) (kernel K7, csrc/large_scl_chunk.cu, and K1
+for the pure chunks).
+ 13. K6 against its plain version, call by call, on >= 8 mixed-chunk calls
+     spread over one decode: x and u bit-equal
+ 14. K7 likewise, the calls including a chunk with every sub-block class:
+     bits and perms equal, metrics within 1e-4; then K7 at L = 2, 4, 16,
+     32 with and without sub-blocks, and K6 at chunks 64, 1024 and 8192
+ 15. both paths end to end, 4 x 128 blocks each (SCL at 2 dB and at a
+     lower Eb/N0 where blocks fail): BLER, CRC failures (every one a wrong
+     block), decisions equal to a decode by the plain versions on the card
+     (one batch of each), and noiseless N = 131072 round trips exact
+ 16. launch counts of K6, K7 and K1 per decode on those paths: one per
+     mixed (K6, K7) or pure (K1) chunk, as the decoders' classes say
+ 17. CUDA-event times of K6 and K7 per call, each decode per batch, the
+     N = 131072 encode, and the chunk kernels' bounds
+ 18. {"kernels": [...]}, all seven TPU kernels
+ 19. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -245,7 +266,10 @@ def main():
     # 8-12 ----------------------------------------------------------------
     slice2 = run_slice2(card)
 
-    # 13 ------------------------------------------------------------------
+    # 13-17 ---------------------------------------------------------------
+    slice3 = run_slice3(card)
+
+    # 18 ------------------------------------------------------------------
     k1_bytes = k1_ops = 0
     for sched, *_ in calls:
         nb, no = k1_work(sched, BATCH)
@@ -267,11 +291,12 @@ def main():
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
          "launches": launches["scl_subtree"],
          "launches_by_path": {"crc16_scl8": launches["scl_subtree"],
-                              "pcsim_adaptive": slice2["launches"]["scl_subtree"]},
+                              "pcsim_adaptive": slice2["launches"]["scl_subtree"],
+                              "large_scl": slice3["launches"]["scl_subtree"]},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **bound(k1_bytes, k1_ops), "library_ms": None},
-    ] + slice2["kernels"]})
-    # 14 ------------------------------------------------------------------
+    ] + slice2["kernels"] + slice3["kernels"]})
+    # 19 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -639,6 +664,289 @@ def run_slice2(card):
          **bound(*scan_work(sched, B2, 1, True)), "library_ms": None},
     ]
     return {"kernels": k3 + scan_k, "launches": launches}
+
+
+# ---- slice 3: the large-N decoders ----------------------------------------
+
+N_SC, K_SC, CHUNK_SC = 131072, 65536, 2048
+N_SCL, K_SCL, CHUNK_SCL, SUB = 32768, 16384, 256, 16
+B3, BATCHES3, EBN0_SC, EBN0_LOW, SEED3 = 128, 4, 2.0, 0.8, 20261018
+CALLS3 = 8  # chunk calls held against the plain versions, per kernel
+B_SHAPES = 32  # batch of the extra-shape checks
+NEG = -1.0e30  # metric of an inactive list slot
+
+
+def k6_work(m_len, n_batch):
+    """(bytes, operations) of one K6 call: llr [B, M] f32 and the mask in,
+    x and u [B, M] f32 out. Operations per codeword: M per tree level of
+    f/g, M/2 per level of combines, one per leaf."""
+    levels = m_len.bit_length() - 1
+    n_ops = m_len * levels + (m_len // 2) * levels + m_len
+    return 12 * n_batch * m_len + m_len, n_ops * n_batch
+
+
+def k7_work(sched, codes, n_list, n_batch):
+    """(bytes, operations) of one K7 call on this chunk's sub-block classes:
+    llr [B, L, M] f32, mask, metrics [B, L] and class codes in; bits [B, M]
+    i32, perm and metrics [B, L] out. Operations as k1_work counts them:
+    L x h per F/G/COMBINE, L x span x candidates per leaf (2 per bit), the
+    skipped recursion of a pure sub-block not counted."""
+    m_len = int(sched[0][2])
+    n_bytes = n_batch * (4 * n_list * m_len + 12 * n_list + 4 * m_len) + m_len + 4 * len(codes)
+    cand = {1: 1, 2: 4, 3: 2, 4: 8}
+    n_ops, k = 0, 0
+    while k < len(sched):
+        op, _, length, off, skip = (int(v) for v in sched[k])
+        if op == 4:  # SUB
+            code = codes[off // length]
+            if code:
+                n_ops += n_list * length * cand[code]
+                k += skip
+        elif op == 3:  # BIT
+            n_ops += n_list * 2
+        else:
+            n_ops += n_list * (length // 2)
+        k += 1
+    return n_bytes, n_ops * n_batch
+
+
+def run_slice3(card):
+    """Phases 13-17. Returns {"kernels": [...], "launches": {...}}."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import _MIXED, LargeSCDecoder, LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED3)
+    modem = Bpsk()
+
+    def channel(encoder, ebn0_db, n_blocks):
+        """(sent info with its CRC, channel LLRs) of n random blocks."""
+        k_len = encoder.info_length
+        info = torch.randint(0, 2, (n_blocks, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (ebn0_db / 10.0) * k_len / encoder.block_length)
+        llr = modem.demodulate(chan.transmit(modem.modulate(encoder.encode(info)), gen))
+        sent = encoder.detector.generate(info) if encoder.detector.tail_bits else info
+        return sent, llr
+
+    def reset_counts():
+        lk.LAUNCHES.update(sc=0, scl=0)
+        scl_kernel_bl.LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"masked_sc_chunk": lk.LAUNCHES["sc"], "masked_scl_chunk": lk.LAUNCHES["scl"],
+                "scl_subtree": scl_kernel_bl.LAUNCHES}
+
+    def spread(calls, need):
+        """CALLS3 calls spread over the decode, with `need` among them."""
+        picks = {round(i * (len(calls) - 1) / (CALLS3 - 1)) for i in range(CALLS3)}
+        return [calls[i] for i in sorted(picks | set(need))]
+
+    f_sc = frozen_bits(N_SC, K_SC, 0.0, "BB")
+    enc_sc = PolarEncoder(N_SC, f_sc, systematic=True, device=dev)
+    sc = LargeSCDecoder(N_SC, f_sc, chunk=CHUNK_SC, device=dev)
+    sc_plain = LargeSCDecoder(N_SC, f_sc, chunk=CHUNK_SC, device=dev,
+                              chunk_fn=lk.masked_sc_chunk_plain)
+    det = CRC16()
+    f_scl = frozen_bits(N_SCL, K_SCL, 0.0, "BB")
+    enc_scl = PolarEncoder(N_SCL, f_scl, systematic=True, detector=det, device=dev)
+    scl_kw = dict(list_size=LIST, detector=det, chunk=CHUNK_SCL, subblock=SUB,
+                  carry_dtype=torch.bfloat16, device=dev)
+    scl = LargeSCLDecoder(N_SCL, f_scl, **scl_kw)
+    scl_plain = LargeSCLDecoder(N_SCL, f_scl, chunk_fn=lk.masked_scl_chunk_plain,
+                                subtree_fn=scl_kernel_bl.scl_subtree_plain, **scl_kw)
+    mixed_sc = int((sc.classes == _MIXED).sum())
+    mixed_scl = int((scl.classes == _MIXED).sum())
+    pure_scl = scl.n_chunks - mixed_scl
+
+    # 13 ------------------------------------------------------------------
+    phase("13 K6 masked_sc_chunk vs plain, call by call")
+    sent_sc, llr_sc = channel(enc_sc, EBN0_SC, B3)
+    k6_calls = []
+
+    def record6(x, mask):
+        out = lk.masked_sc_chunk(x, mask)
+        k6_calls.append((x, mask, out))
+        return out
+
+    LargeSCDecoder(N_SC, f_sc, chunk=CHUNK_SC, device=dev, chunk_fn=record6).decode(llr_sc)
+    torch.cuda.synchronize()
+    if len(k6_calls) != mixed_sc:
+        raise AssertionError(f"expected {mixed_sc} K6 calls, got {len(k6_calls)}")
+    k6_err = 0.0
+    k6_held = spread(k6_calls, [])
+    for x, mask, (kx, ku) in k6_held:
+        px, pu = lk.masked_sc_chunk_plain(x, mask)
+        k6_err = max(k6_err, _equal("K6 x", kx, px), _equal("K6 u", ku, pu))
+    print(f"K6: {len(k6_held)} of {len(k6_calls)} calls bit-equal (x and u)")
+
+    # 14 ------------------------------------------------------------------
+    phase("14 K7 masked_scl_chunk vs plain, call by call")
+    sent_scl, llr_scl = channel(enc_scl, EBN0_DB, B3)
+    k7_calls = []
+
+    def record7(x, mask, metrics, sub_cls):
+        out = lk.masked_scl_chunk(x, mask, metrics, sub_cls)
+        k7_calls.append((x, mask, metrics, sub_cls, out))
+        return out
+
+    LargeSCLDecoder(N_SCL, f_scl, chunk_fn=record7, **scl_kw).decode(llr_scl)
+    torch.cuda.synchronize()
+    if len(k7_calls) != mixed_scl:
+        raise AssertionError(f"expected {mixed_scl} K7 calls, got {len(k7_calls)}")
+    every = [i for i, c in enumerate(k7_calls) if len(set(c[3].tolist())) == 5]
+    if CHUNK_SCL // SUB >= 5 and not every:
+        raise AssertionError("no K7 call has every sub-block class")
+    k7_held = spread(k7_calls, every[:1])
+    k7_err = 0.0
+    for x, mask, metrics, sub_cls, (bits, perm, met) in k7_held:
+        pb, pp, pm = lk.masked_scl_chunk_plain(x, mask, metrics, sub_cls)
+        _equal("K7 bits", bits, pb)
+        _equal("K7 perm", perm, pp)
+        if not torch.isfinite(met).all():
+            raise AssertionError("K7 metrics not finite")
+        torch.testing.assert_close(met, pm, rtol=TOL, atol=TOL)
+        k7_err = max(k7_err, max_err(met, pm))
+    print(f"K7: {len(k7_held)} of {len(k7_calls)} calls equal (bits, perms; metrics "
+          f"max |d| {k7_err}), {len(every)} calls with every sub-block class")
+    # the shapes the main path does not give: other list sizes, the per-bit
+    # walk without sub-blocks, other chunk spans of K6
+    _, mask7, _, sub7, _ = k7_calls[every[0] if every else 0]
+    for n_list in (2, 4, 16, 32):
+        for sub_cls in (sub7, None):
+            x = torch.randn((B_SHAPES, n_list, CHUNK_SCL), generator=gen, device=dev) + 0.5
+            met = torch.randn((B_SHAPES, n_list), generator=gen, device=dev)
+            met[::2, 1:] = NEG  # half the rows start with one live path
+            met[::2, 0] = 0.0
+            bits, perm, m_out = lk.masked_scl_chunk(x, mask7, met, sub_cls)
+            pb, pp, pm = lk.masked_scl_chunk_plain(x, mask7, met, sub_cls)
+            _equal(f"K7 bits, L={n_list}", bits, pb)
+            _equal(f"K7 perm, L={n_list}", perm, pp)
+            torch.testing.assert_close(m_out, pm, rtol=TOL, atol=TOL)
+            k7_err = max(k7_err, max_err(m_out, pm))
+    for m_len in (64, CHUNK_SC // 2, 4 * CHUNK_SC):
+        x = torch.randn((B_SHAPES, m_len), generator=gen, device=dev) * 2.0 + 0.5
+        mask = (torch.rand(m_len, generator=gen, device=dev) < 0.5).to(torch.uint8)
+        kx, ku = lk.masked_sc_chunk(x, mask)
+        px, pu = lk.masked_sc_chunk_plain(x, mask)
+        k6_err = max(k6_err, _equal(f"K6 x, chunk {m_len}", kx, px),
+                     _equal(f"K6 u, chunk {m_len}", ku, pu))
+    print(f"K7 at L in (2, 4, 16, 32), with and without sub-blocks, and K6 at chunks "
+          f"64, {CHUNK_SC // 2}, {4 * CHUNK_SC}: equal to their plain versions")
+
+    # 15, 16 --------------------------------------------------------------
+    phase("15 large-N paths end to end; 16 launch counts")
+    reset_counts()
+    sc_batches = [(sent_sc, llr_sc)] + [channel(enc_sc, EBN0_SC, B3)
+                                        for _ in range(BATCHES3 - 1)]
+    sc_outs = [sc.decode(llr) for _, llr in sc_batches]
+    launches_sc = counts()
+    sc_wrong = sum(int((o[0] != s_).any(1).sum()) for o, (s_, _) in zip(sc_outs, sc_batches))
+    _same_decisions("large SC batch 0", sc_outs[0], sc_plain.decode(sc_batches[0][1]))
+    clean = 4.0 * modem.modulate(enc_sc.encode(sent_sc))
+    if not torch.equal(sc.decode(clean)[0], sent_sc):
+        raise AssertionError(f"N={N_SC} noiseless round trip lost info bits")
+    emit({"metric": "bler", "path": f"large_sc_n{N_SC}", "value": sc_wrong / (B3 * BATCHES3),
+          "blocks": B3 * BATCHES3, "block_errors": sc_wrong, "ebn0_db": EBN0_SC})
+    reset_counts()
+    scl_res = {}
+    scl_batches = {}
+    for ebn0 in (EBN0_DB, EBN0_LOW):
+        batches = ([(sent_scl, llr_scl)] if ebn0 == EBN0_DB else []) + [
+            channel(enc_scl, ebn0, B3) for _ in range(BATCHES3 - (ebn0 == EBN0_DB))]
+        scl_batches[ebn0] = batches
+        scl_res[ebn0] = [scl.decode(llr) for _, llr in batches]
+    launches_scl = counts()
+    for ebn0, batches in scl_batches.items():
+        outs = scl_res[ebn0]
+        wrong = fails = 0
+        for (s_, _), o in zip(batches, outs):
+            bad = (o[0] != s_).any(1)
+            if (~o[2] & ~bad).any():
+                raise AssertionError("a block with a failed CRC decoded right")
+            wrong += int(bad.sum())
+            fails += int((~o[2]).sum())
+        emit({"metric": "bler", "path": f"large_cascl8_n{N_SCL}", "value": wrong / (B3 * BATCHES3),
+              "blocks": B3 * BATCHES3, "block_errors": wrong, "crc_failures": fails,
+              "ebn0_db": ebn0})
+        if ebn0 == EBN0_LOW and fails == 0:
+            raise AssertionError(f"no CRC failure at {EBN0_LOW} dB: the fallback is not driven")
+        got, want = outs[0], scl_plain.decode(batches[0][1])
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            diff = ((got[0] != want[0]).any(1) | (got[1] != want[1]).any(1) | (got[2] != want[2]))
+            for blk in torch.nonzero(diff).flatten().tolist():
+                _check_tie(scl, scl_plain, batches[0][1][blk : blk + 1], ebn0, blk)
+    clean = 4.0 * modem.modulate(enc_scl.encode(sent_scl))
+    if not torch.equal(scl.decode(clean)[0], sent_scl):
+        raise AssertionError(f"N={N_SCL} noiseless round trip lost info bits")
+    print("large SC and CA-SCL-8: kernel decodes == plain decodes on one batch each; "
+          "noiseless round trips exact")
+    n_sc, n_scl = BATCHES3, 2 * BATCHES3
+    by_path = {"large_sc": launches_sc, "large_scl": launches_scl}
+    emit({"launches": by_path, "decodes": {"large_sc": n_sc, "large_scl": n_scl},
+          "per_decode_expected": {"masked_sc_chunk": mixed_sc, "masked_scl_chunk": mixed_scl,
+                                  "scl_subtree": pure_scl}})
+    for name, count, want in (("masked_sc_chunk", launches_sc["masked_sc_chunk"], n_sc * mixed_sc),
+                              ("masked_scl_chunk", launches_scl["masked_scl_chunk"],
+                               n_scl * mixed_scl),
+                              ("scl_subtree", launches_scl["scl_subtree"], n_scl * pure_scl)):
+        if count != want or count <= 0:
+            raise AssertionError(f"{name}: {count} launches, expected {want}")
+
+    # 17 ------------------------------------------------------------------
+    phase("17 times (CUDA events, median)")
+    k6_ms = [time_cuda(lambda c=c: lk.masked_sc_chunk(c[0], c[1]), reps=REPS) for c in k6_held]
+    x0, m0, _ = k6_held[0]
+    k6_plain_ms = time_cuda(lambda: lk.masked_sc_chunk_plain(x0, m0), warmup=1, reps=REPS)
+    k7_ms = [time_cuda(lambda c=c: lk.masked_scl_chunk(*c[:4]), reps=REPS) for c in k7_held]
+    c7 = k7_held[0]
+    k7_plain_ms = time_cuda(lambda: lk.masked_scl_chunk_plain(*c7[:4]), warmup=1, reps=REPS)
+    sc_ms = time_cuda(lambda: sc.decode(llr_sc), reps=REPS)
+    scl_ms = time_cuda(lambda: scl.decode(llr_scl), reps=REPS)
+    info_sc = sent_sc
+    enc_ms = time_cuda(lambda: enc_sc.encode(info_sc), reps=REPS)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    k6_bytes, k6_ops = k6_work(CHUNK_SC, B3)
+    sched7 = lk.scl_chunk_schedule(CHUNK_SCL, SUB).tolist()
+    k7_work_all = [k7_work(sched7, c[3].tolist(), LIST, B3) for c in k7_held]
+    i7 = k7_ms.index(med(k7_ms))
+    emit({"kernel": "masked_sc_chunk", "batch": B3, "chunk": CHUNK_SC,
+          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, "card": card})
+    emit({"kernel": "masked_scl_chunk", "batch": B3, "chunk": CHUNK_SCL, "list": LIST,
+          "ms_per_call": k7_ms, "plain_ms": k7_plain_ms, "card": card})
+    emit({"metric": "large_sc_decode", "n": N_SC, "batch": B3, "ms": sc_ms,
+          "coded_mbps": B3 * N_SC / sc_ms / 1e3, "info_mbps": B3 * K_SC / sc_ms / 1e3,
+          "k6_ms_per_decode": med(k6_ms) * mixed_sc, "card": card})
+    emit({"metric": "large_cascl8_decode", "n": N_SCL, "batch": B3, "ms": scl_ms,
+          "payload_mbps": B3 * (K_SCL - det.tail_bits) / scl_ms / 1e3,
+          "k7_ms_per_decode": med(k7_ms) * mixed_scl, "card": card})
+    emit({"metric": f"encode_n{N_SC}", "batch": B3, "ms": enc_ms,
+          "coded_mbps": B3 * N_SC / enc_ms / 1e3, "card": card})
+    kernels = [
+        {"name": "masked_sc_chunk", "route": "cuda",
+         "source": "polar_codes_torch/csrc/large_sc_chunk.cu",
+         "replaces": "polar_codes_tpu/ops/large_kernel.py:253",
+         "launches": launches_sc["masked_sc_chunk"], "launches_per_decode": mixed_sc,
+         "max_abs_err": k6_err, "ms": med(k6_ms), "plain_ms": k6_plain_ms,
+         **bound(k6_bytes, k6_ops), "library_ms": None},
+        {"name": "masked_scl_chunk", "route": "cuda",
+         "source": "polar_codes_torch/csrc/large_scl_chunk.cu",
+         "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
+         "launches": launches_scl["masked_scl_chunk"], "launches_per_decode": mixed_scl,
+         "max_abs_err": k7_err, "ms": k7_ms[i7], "plain_ms": k7_plain_ms,
+         **bound(*k7_work_all[i7]), "library_ms": None},
+    ]
+    return {"kernels": kernels, "launches": launches_scl}
 
 
 def _check_tie(dec, dec_plain, llr, batch_idx, blk):

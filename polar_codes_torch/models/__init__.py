@@ -1,1 +1,2 @@
-"""Codes, detectors, encoder and the SCL decoder."""
+"""Codes, detectors, the encoder, and the SC, SCL, Fast-SSC, adaptive,
+SCAN and large-N decoders."""

@@ -4,8 +4,11 @@ The port of polar_codes_tpu/models/encoder.py PolarEncoder: the CRC is
 written into the info tail, the info bits are scattered to the non-frozen
 positions, and the butterfly encoder (kernel K2 on the card,
 ops/butterfly_kernel.py) runs the transform -> re-freeze -> transform
-sequence of systematic encoding. The kernel covers N <= 2048; the matmul
-transform the JAX package uses above that is not ported yet.
+sequence of systematic encoding. The kernel covers N <= 2048; above that
+the encoder takes the JAX package's matmul route (`_encode_mxu`): the
+transform as two dense GF(2) products (ops/butterfly.py
+polar_transform_mxu), the re-freeze as a product with the inverse mask,
+and the transform again in systematic mode.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import numpy as np
 import torch
 
 from ..construction import frozen_bit_mask, info_indices
-from ..ops.butterfly_kernel import butterfly_encode
+from ..ops.butterfly import polar_transform_mxu
+from ..ops.butterfly_kernel import MAX_N, butterfly_encode
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
 
@@ -48,6 +52,7 @@ class PolarEncoder:
         self._info_pos_t = torch.as_tensor(self.info_pos, device=self.device)
         self._mask_t = torch.as_tensor(self.frozen_mask.astype(np.uint8),
                                        device=self.device)
+        self._inv_mask_t = 1.0 - self._mask_t.to(torch.float32)
 
     def _check(self, bits: torch.Tensor, length: int) -> None:
         if bits.shape[-1] != length:
@@ -78,5 +83,15 @@ class PolarEncoder:
             x = self.detector.generate(x)
         lead = x.shape[:-1]
         u = self.inject(x).reshape(-1, self.block_length).contiguous()
+        if self.block_length > MAX_N:
+            return self._encode_mxu(u).reshape(lead + (self.block_length,))
         code = butterfly_encode(u, self._mask_t, self.systematic)
         return code.reshape(lead + (self.block_length,))
+
+    def _encode_mxu(self, u01: torch.Tensor) -> torch.Tensor:
+        """[B, N] u-domain bits -> [B, N] uint8 codeword by the product form
+        of the transform (both passes in systematic mode)."""
+        code = polar_transform_mxu(u01)
+        if self.systematic:
+            code = polar_transform_mxu(code * self._inv_mask_t)  # re-freeze
+        return code.to(torch.uint8)

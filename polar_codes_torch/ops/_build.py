@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep")
+KERNELS = ("butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep",
+           "large_sc_chunk", "large_scl_chunk")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,0 +1,305 @@
+"""Masked chunk kernels of the large-N decoders: K6 (csrc/large_sc_chunk.cu)
+and K7 (csrc/large_scl_chunk.cu), each beside its plain version.
+
+Counterpart of polar_codes_tpu/ops/large_kernel.py. The large-N decoders
+(models/large.py) cut the code tree at the chunk span M and decode every
+mixed chunk with one generic recursion whose frozen mask arrives as data,
+so one kernel serves every chunk of every code:
+
+    K6  masked SC:   (llr [B, M] f32, mask [M] u8)
+                         -> (x [B, M], u [B, M]) bipolar f32
+    K7  masked SCL:  (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32
+                      [, sub_cls [M / sub] i32])
+                         -> (bits [B, M] i32, perm [B, L] i32,
+                             metrics [B, L] f32)
+
+K6 is plain SC with the product-form f (ops/fg.py f_minsum) and a hard
+decision by the sign bit at each span-1 leaf, frozen leaves forced to 0.
+x is the chunk's codeword segment, u its leaf decisions.
+
+K7 is bitwise SCL: every span-1 leaf forks each path into {keep, flip}
+with deltas {0, -|llr|} (a frozen leaf: {min(llr, 0), _NEG}, so the flip
+never survives) and one uniform 2-candidate prune keeps L paths. Inside the
+chunk f is the sign-XOR form (f_minsum_bits), as in the TPU kernel. With
+sub_cls (one class code per sub-block of span sub = M / len(sub_cls), the
+codes of models/large.py _classify_chunks) the recursion stops at span sub
+and a pure sub-block takes the SSCL leaf rule of its class (rate0, rate1
+with 4 candidates, rep, spc with 8); a mixed one goes on bit by bit. The
+decision bits leave packed, one int32 word per (codeword, position) with
+bit l = path l (the word K1 and the SCL glue use, batch-first here because
+the large-N glue is), perm maps each output slot to the input slot it
+descends from. A prune round ranks candidates by (value desc, flat code
+l*C + c asc) and leaves _NEG on the candidate it took, as the TPU kernel's
+iterative extraction does: once only values <= _NEG remain (inactive list
+slots), a taken candidate can be taken again. This shows only in inactive
+slots.
+
+`masked_sc_chunk` and `masked_scl_chunk` run their plain versions for CPU
+tensors and the CUDA kernels for CUDA tensors, never one in place of the
+other. The plain versions recurse over the chunk in torch ops and sum in
+span order, as the kernels do, and the build disables FMA contraction, so
+each pair agrees bit for bit. At an exact zero, torch.sign drops the sign
+of -0.0, and K6's f does the same (the JAX package's sign keeps it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .fg import f_minsum, f_minsum_bits, g_update
+from .scl_kernel_bl import (
+    SPC_TABLE,
+    _Plain,
+    pack01,
+    packed_bipolar,
+    take_packed,
+    take_state,
+    take_vec,
+)
+from ..models.tree import CodeNode, NodeKind
+
+_NEG = -1.0e30  # metric of an inactive list slot (models/scl.py)
+MAX_SC_CHUNK = 8192  # K6 keeps 2M f32 LLRs and 2M bytes of bits on chip
+SCL_LISTS = (2, 4, 8, 16, 32)
+MAX_SCL_SMEM = 200 * 1024  # K7's LLR pyramid and bit words, per codeword
+LAUNCHES: Dict[str, int] = {"sc": 0, "scl": 0}  # since the counts were last reset
+
+# class code (models/large.py _MIXED.._SPC) -> SSCL leaf rule of a sub-block
+_SUB_KINDS = (None, NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)
+
+OP_F, OP_G, OP_COMBINE, OP_BIT, OP_SUB = range(5)
+
+
+def _check_chunk(m_len: int, limit: int, what: str) -> None:
+    if m_len < 2 or m_len > limit or m_len & (m_len - 1):
+        raise NotImplementedError(
+            f"{what} covers power-of-2 chunks in [2, {limit}], got {m_len}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---- K6: masked SC ---------------------------------------------------------
+
+def masked_sc_chunk_plain(llr: torch.Tensor, mask: torch.Tensor):
+    """Plain version of K6 on any device: llr [B, M] f32, mask [M] (nonzero
+    = frozen) -> (x, u) [B, M] bipolar f32."""
+    frozen = mask.cpu().numpy() != 0
+
+    def rec(x, lo):
+        m = x.shape[1]
+        if m == 1:
+            u = torch.ones_like(x) if frozen[lo] else 1.0 - 2.0 * torch.signbit(x).to(x.dtype)
+            return u, u
+        half = m // 2
+        a, b = x[:, :half], x[:, half:]
+        x_l, u_l = rec(f_minsum(a, b), lo)
+        x_r, u_r = rec(g_update(a, b, x_l), lo + half)
+        return torch.cat([x_l * x_r, x_r], dim=1), torch.cat([u_l, u_r], dim=1)
+
+    return rec(llr, 0)
+
+
+def _bind_sc(lib):
+    fn = lib.masked_sc_chunk
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def masked_sc_chunk(llr: torch.Tensor, mask: torch.Tensor):
+    """K6: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (same signature as masked_sc_chunk_plain; the mask is uint8 on
+    the card)."""
+    if llr.device.type == "cpu":
+        return masked_sc_chunk_plain(llr, mask)
+    if llr.device.type != "cuda" or mask.device != llr.device:
+        raise ValueError(
+            f"masked_sc_chunk takes CPU or CUDA tensors on one device, got "
+            f"{llr.device} and {mask.device}")
+    if llr.dtype != torch.float32 or mask.dtype != torch.uint8:
+        raise ValueError("masked_sc_chunk takes float32 LLRs and a uint8 mask")
+    if llr.dim() != 2 or not (llr.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("masked_sc_chunk takes a contiguous [B, M] tensor")
+    n_batch, m_len = llr.shape
+    _check_chunk(m_len, MAX_SC_CHUNK, "the masked SC kernel")
+    if mask.shape != (m_len,):
+        raise ValueError(f"mask must be [{m_len}]")
+    fn = _bind_sc(_build.load("large_sc_chunk"))
+    x = torch.empty_like(llr)
+    u = torch.empty_like(llr)
+    err = fn(llr.data_ptr(), mask.data_ptr(), x.data_ptr(), u.data_ptr(), m_len,
+             n_batch, _stream(llr.device))
+    if err:
+        raise RuntimeError(f"masked_sc_chunk launch failed: CUDA error {err}")
+    LAUNCHES["sc"] += 1
+    return x, u
+
+
+# ---- K7: masked SCL --------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _sub_leaf(kind: NodeKind, span: int) -> CodeNode:
+    """A leaf node of `kind` at `span`: what _Plain.leaf reads."""
+    frozen = {NodeKind.RATE0: np.arange(span), NodeKind.RATE1: np.arange(0),
+              NodeKind.REP: np.arange(span - 1), NodeKind.SPC: np.arange(1)}[kind]
+    return CodeNode(offset=0, length=span, frozen=frozen, kind=kind)
+
+
+def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
+                           metrics: torch.Tensor,
+                           sub_cls: Optional[torch.Tensor] = None):
+    """Plain version of K7 on any device (same signature as
+    masked_scl_chunk). Works in K1's [w, S, B] layout with packed words."""
+    n_list, m_len = llr.shape[1], llr.shape[2]
+    frozen = mask.cpu().numpy() != 0
+    codes = None if sub_cls is None else sub_cls.cpu().numpy().tolist()
+    sub = None if codes is None else m_len // len(codes)
+    plain = _Plain(n_list, drop=_NEG)
+
+    def bit_leaf(x, lo, mets):
+        work = x[:, 0]
+        if frozen[lo]:
+            deltas = torch.stack([torch.clamp(work, max=0.0), torch.full_like(work, _NEG)])
+        else:
+            deltas = torch.stack([torch.zeros_like(work), -work.abs()])
+        new_m, src, cand = plain.prune(mets, deltas)
+        if frozen[lo]:
+            return torch.zeros_like(work[:1], dtype=torch.int32), src, new_m
+        hard = torch.signbit(x).to(torch.int32)
+        return pack01(take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]), src, new_m
+
+    def node(x, lo, mets, dispatch):
+        m = x.shape[1]
+        if m == 1:
+            return bit_leaf(x, lo, mets)
+        if dispatch and m == sub:
+            kind = _SUB_KINDS[codes[lo // sub]]
+            if kind is not None:
+                return plain.leaf(_sub_leaf(kind, sub), x, mets)
+            return node(x, lo, mets, False)
+        half = m // 2
+        a, b = x[:, :half], x[:, half:]
+        left, p_left, mets = node(f_minsum_bits(a, b), lo, mets, dispatch)
+        if p_left is not None:
+            xg = take_state(x, p_left)
+            a, b = xg[:, :half], xg[:, half:]
+        right, p_right, mets = node(g_update(a, b, packed_bipolar(left, n_list)),
+                                    lo + half, mets, dispatch)
+        if p_right is not None:
+            left = take_packed(left, p_right, n_list)
+        perm = p_right if p_left is None else (
+            p_left if p_right is None else take_vec(p_left, p_right))
+        return torch.cat([left ^ right, right], dim=0), perm, mets
+
+    word, perm, met = node(llr.permute(1, 2, 0), 0, metrics.T, sub is not None)
+    if perm is None:
+        perm = torch.arange(n_list, device=llr.device)[:, None].expand_as(met)
+    return (word.T.to(torch.int32).contiguous(), perm.T.to(torch.int32).contiguous(),
+            met.T.contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def scl_chunk_schedule(m_len: int, sub: int) -> np.ndarray:
+    """K7's walk of one chunk (sub = 0: per-bit to span 1): [n_ops, 5] int32
+    rows {op, level, length, offset, skip} in post-order. OP_SUB marks a
+    sub-block: the kernel reads its class and, for a pure one, applies the
+    leaf rule and skips the `skip` rows after it (the sub-block's per-bit
+    recursion, which a mixed sub-block runs)."""
+    ops = []
+
+    def emit(level, length, off, in_sub):
+        if length == 1:
+            ops.append([OP_BIT, level, 1, off, 0])
+            return
+        if sub and length == sub and not in_sub:
+            at = len(ops)
+            ops.append([OP_SUB, level, length, off, 0])
+            emit(level, length, off, True)
+            ops[at][4] = len(ops) - at - 1
+            return
+        half = length // 2
+        ops.append([OP_F, level, length, off, 0])
+        emit(level + 1, half, off, in_sub)
+        ops.append([OP_G, level, length, off, 0])
+        emit(level + 1, half, off + half, in_sub)
+        ops.append([OP_COMBINE, level, length, off, 0])
+
+    emit(0, m_len, 0, False)
+    return np.asarray(ops, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scl_consts(m_len: int, sub: int, dev: torch.device):
+    """(schedule, SPC table, a stand-in for absent class codes) on `dev`."""
+    return (torch.as_tensor(scl_chunk_schedule(m_len, sub), device=dev),
+            torch.as_tensor(SPC_TABLE, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _bind_scl(lib):
+    fn = lib.masked_scl_chunk
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor,
+                     sub_cls: Optional[torch.Tensor] = None):
+    """K7: (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32, sub_cls
+    [M / sub] i32 or None) -> (bits [B, M] i32, perm [B, L] i32, metrics
+    [B, L] f32). The plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if llr.device.type == "cpu":
+        return masked_scl_chunk_plain(llr, mask, metrics, sub_cls)
+    dev = llr.device
+    args = [mask, metrics] + ([] if sub_cls is None else [sub_cls])
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError(
+            f"masked_scl_chunk takes CPU or CUDA tensors on one device, got "
+            f"{[str(t.device) for t in [llr] + args]}")
+    if (llr.dtype != torch.float32 or metrics.dtype != torch.float32
+            or mask.dtype != torch.uint8
+            or (sub_cls is not None and sub_cls.dtype != torch.int32)):
+        raise ValueError("masked_scl_chunk takes float32 LLRs and metrics, a uint8 "
+                         "mask and int32 class codes")
+    if llr.dim() != 3 or not all(t.is_contiguous() for t in [llr] + args):
+        raise ValueError("masked_scl_chunk takes contiguous tensors, llr [B, L, M]")
+    n_batch, n_list, m_len = llr.shape
+    if n_list not in SCL_LISTS:
+        raise NotImplementedError(f"the masked SCL kernel covers L in {SCL_LISTS}")
+    _check_chunk(m_len, 1 << 15, "the masked SCL kernel")
+    if 8 * n_list * m_len + 4 * m_len > MAX_SCL_SMEM:
+        raise NotImplementedError(
+            f"L={n_list}, chunk {m_len}: the LLR pyramid does not fit on chip")
+    if mask.shape != (m_len,) or metrics.shape != (n_batch, n_list):
+        raise ValueError(f"mask must be [{m_len}] and metrics [{n_batch}, {n_list}]")
+    sub = 0
+    if sub_cls is not None:
+        sub = m_len // sub_cls.numel()
+        if sub < 2 or sub * sub_cls.numel() != m_len or sub & (sub - 1):
+            raise ValueError(f"{sub_cls.numel()} class codes do not cut {m_len} "
+                             "into power-of-2 sub-blocks")
+    fn = _bind_scl(_build.load("large_scl_chunk"))
+    ops, spc, none = _scl_consts(m_len, sub, dev)
+    bits = torch.empty((n_batch, m_len), dtype=torch.int32, device=dev)
+    perm = torch.empty((n_batch, n_list), dtype=torch.int32, device=dev)
+    met = torch.empty((n_batch, n_list), dtype=torch.float32, device=dev)
+    err = fn(ops.data_ptr(), ops.shape[0], spc.data_ptr(), llr.data_ptr(),
+             mask.data_ptr(), metrics.data_ptr(),
+             (none if sub_cls is None else sub_cls).data_ptr(), sub,
+             bits.data_ptr(), perm.data_ptr(), met.data_ptr(), n_list, m_len, n_batch,
+             _stream(dev))
+    if err:
+        raise RuntimeError(f"masked_scl_chunk launch failed: CUDA error {err}")
+    LAUNCHES["scl"] += 1
+    return bits, perm, met

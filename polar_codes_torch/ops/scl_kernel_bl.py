@@ -231,10 +231,17 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
 
 class _Plain:
     """_BlEmitter's bitplane f32 path on [w, S, B] tensors. Perms are
-    [w, B] int64 tensors, or None for the identity."""
+    [w, B] int64 tensors, or None for the identity.
 
-    def __init__(self, list_size: int):
+    `drop` is the value a prune round leaves on the candidate it took:
+    -inf takes every candidate once (K1, where no candidate sits at the
+    inactive-slot metric); the masked-SCL chunk kernel K7 keeps the TPU
+    kernel's _NEG, so once only values <= _NEG remain a taken candidate
+    can be taken again (ops/large_kernel.py)."""
+
+    def __init__(self, list_size: int, drop: float = float("-inf")):
         self.n_list = list_size
+        self.drop = drop
 
     def prune(self, metrics, deltas):
         """metrics [w, B], deltas [C, w, B] -> (metrics' [w', B],
@@ -254,7 +261,7 @@ class _Plain:
             i = torch.where(cur == v[None], codes, total).min(dim=0).values
             vals.append(v)
             idxs.append(i)
-            cur = torch.where(codes == i[None], float("-inf"), cur)
+            cur = torch.where(codes == i[None], self.drop, cur)
         idx = torch.stack(idxs, 0)
         return torch.stack(vals, 0), idx // n_cand, idx % n_cand
 

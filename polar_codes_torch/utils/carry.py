@@ -11,16 +11,22 @@ construction.
 
 state keys:
     family        optional str: "scl" (default), "fastssc", "adaptive",
-                  "scan" or "fastsscan"
+                  "scan", "fastsscan", "large_sc" or "large_scl"
     frozen        int array, the frozen positions
     info_pos      int array, the info positions
     systematic    bool
     detector      str, the detector's name ("crc16", "crc32", "dummy", ...)
-    list_size     int                                   (scl, adaptive)
+    list_size     int                             (scl, adaptive, large_scl)
     enum_span     int, max_enum_k int                   (scl)
     fast_dtype    optional str, "float32" or "int8"     (fastssc, adaptive)
     list_schedule optional int sequence                 (adaptive)
     iterations    optional int                          (scan, fastsscan)
+    chunk         int, fast_chunks bool                 (large_sc, large_scl)
+    subblock      optional int (None: no sub-blocks)    (large_scl)
+    carry_dtype   optional str, "float32" or "bfloat16" (large_scl)
+    mask_chunks   optional [T, chunk] bool, classes optional [T] int,
+                  sub_classes optional [T, chunk / subblock] int: the
+                  chunk masks and class codes      (large_sc, large_scl)
     affine_G      [tail, D] uint8, affine_map(D)[0]     (with a CRC)
     affine_g0     [tail] uint8, affine_map(D)[1]        (with a CRC)
     leaves        optional [n, 3] int: (kind index, offset, length) per
@@ -40,6 +46,7 @@ from ..models.adaptive import AdaptiveDecoder
 from ..models.detectors import detector_by_name
 from ..models.encoder import PolarEncoder
 from ..models.fastssc import FastSSCDecoder
+from ..models.large import LargeSCDecoder, LargeSCLDecoder
 from ..models.scan import FastSScanDecoder, ScanDecoder
 from ..models.scl import SCLDecoder
 from ..models.tree import NodeKind
@@ -65,6 +72,7 @@ def _same(name: str, carried, ours) -> None:
 
 
 _FAST_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+_CARRY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
@@ -90,6 +98,17 @@ def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
         cls = ScanDecoder if family == "scan" else FastSScanDecoder
         return cls(block_length, frozen, iterations=int(state.get("iterations", 1)),
                    **common)
+    if family == "large_sc":
+        return LargeSCDecoder(block_length, frozen, chunk=int(state["chunk"]),
+                              fast_chunks=bool(state["fast_chunks"]), **common)
+    if family == "large_scl":
+        sub = state.get("subblock")
+        carry = state.get("carry_dtype")
+        return LargeSCLDecoder(
+            block_length, frozen, list_size=int(state["list_size"]),
+            chunk=int(state["chunk"]), fast_chunks=bool(state["fast_chunks"]),
+            subblock=None if sub is None else int(sub),
+            carry_dtype=None if carry is None else _CARRY_DTYPES[str(carry)], **common)
     raise ValueError(f"unknown decoder family {family!r}")
 
 
@@ -114,4 +133,7 @@ def from_jax_state(state: State, device=DEFAULT_DEVICE) -> Tuple[PolarEncoder, o
         _same("affine_g0", state["affine_g0"], g0)
     if "leaves" in state:
         _same("leaves", state["leaves"], leaf_table(dec.tree))
+    for name in ("mask_chunks", "classes", "sub_classes"):
+        if name in state:
+            _same(name, state[name], getattr(dec, name))
     return enc, dec

@@ -21,9 +21,13 @@ from polar_codes_torch.dsp import Awgn, Bpsk, add_awgn, awgn_sigma  # noqa: E402
 from polar_codes_torch.models import detectors as tdet  # noqa: E402
 from polar_codes_torch.models.encoder import PolarEncoder  # noqa: E402
 from polar_codes_torch.ops import butterfly_kernel  # noqa: E402
+from polar_codes_tpu.ops.butterfly import (  # noqa: E402
+    polar_transform_mxu as jax_transform_mxu,
+)
 from polar_codes_torch.ops.butterfly import (  # noqa: E402
     butterfly_transform,
     butterfly_transform_bipolar,
+    polar_transform_mxu,
 )
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -71,6 +75,36 @@ def test_encode_equals_jax(n, k, systematic, crc):
     if systematic:  # the systematic codeword carries the (CRC'd) info
         sent = tdetector.generate(torch.as_tensor(info)) if crc else torch.as_tensor(info)
         np.testing.assert_array_equal(enc.extract(got).numpy(), sent.numpy())
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_polar_transform_mxu_matches_jax(n):
+    """The product form is bit-equal to the JAX package's and to the
+    stage-by-stage butterfly."""
+    u = np.random.default_rng(n).integers(0, 2, (4, n)).astype(np.uint8)
+    got = polar_transform_mxu(torch.as_tensor(u))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_transform_mxu(jnp.asarray(u))))
+    np.testing.assert_array_equal(got.to(torch.uint8).numpy(),
+                                  butterfly_transform(torch.as_tensor(u)).numpy())
+
+
+@pytest.mark.parametrize("systematic", [True, False])
+def test_encode_above_2048_equals_jax(systematic):
+    """N = 4096 CRC16 takes the product-form route in both packages."""
+    n, k = 4096, 2048
+    frozen = frozen_bits(n, k, 0.0)
+    info = np.random.default_rng(int(systematic)).integers(0, 2, (3, k)).astype(np.uint8)
+    enc = PolarEncoder(n, frozen, systematic=systematic, detector=tdet.CRC16(),
+                       device="cpu")
+    jenc = JaxEncoder(n, frozen, systematic=systematic, detector=jdet.CRC16(),
+                      backend="pallas")
+    got = enc.encode(torch.as_tensor(info))
+    assert got.dtype == torch.uint8 and got.shape == (3, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jenc.encode(jnp.asarray(info))))
+    if systematic:
+        np.testing.assert_array_equal(
+            enc.extract(got).numpy(), tdet.CRC16().generate(torch.as_tensor(info)).numpy())
 
 
 def test_encode_matches_cpp_reference():

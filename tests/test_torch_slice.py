@@ -31,6 +31,7 @@ from polar_codes_torch.models import detectors as tdet  # noqa: E402
 from polar_codes_torch.models.adaptive import AdaptiveDecoder  # noqa: E402
 from polar_codes_torch.models.encoder import PolarEncoder  # noqa: E402
 from polar_codes_torch.models.fastssc import FastSSCDecoder  # noqa: E402
+from polar_codes_torch.models.large import LargeSCDecoder, LargeSCLDecoder  # noqa: E402
 from polar_codes_torch.models.scan import FastSScanDecoder, ScanDecoder  # noqa: E402
 from polar_codes_torch.models.scl import SCLDecoder  # noqa: E402
 from polar_codes_torch.ops import _build  # noqa: E402
@@ -202,7 +203,10 @@ def test_carry_each_family(family, cls):
     lambda f: AdaptiveDecoder(64, f, detector=tdet.CRC8()),
     lambda f: ScanDecoder(64, f),
     lambda f: FastSScanDecoder(64, f),
-], ids=["encoder", "scl", "scl1", "fastssc", "adaptive", "scan", "fastsscan"])
+    lambda f: LargeSCDecoder(64, f, chunk=16),
+    lambda f: LargeSCLDecoder(64, f, chunk=16),
+], ids=["encoder", "scl", "scl1", "fastssc", "adaptive", "scan", "fastsscan",
+        "large_sc", "large_scl"])
 def test_entry_points_default_to_the_card(make):
     """Without device=, every entry point lives on the card; with no card
     it raises and never drops to the CPU quietly."""
@@ -217,7 +221,8 @@ def test_every_kernel_source_carries_its_notes():
     """Each kernel the build knows has a source that names the TPU kernel
     it replaces and what bounds it on the card."""
     assert set(_build.KERNELS) == {
-        "butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep"}
+        "butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep",
+        "large_sc_chunk", "large_scl_chunk"}
     for name in _build.KERNELS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces" in text and "bounds it on an H100" in text, name
