@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the device time goes on the port's slice-2 and slice-3 paths, on one
-CUDA card.
+"""Where the device time goes on the port's slice-2, slice-3 and slice-4
+paths, on one CUDA card.
 
 Traces a few warm calls of each path with torch.profiler (CPU and CUDA
 activities) and prints, per path, one JSON line: host wall time per call
@@ -16,18 +16,27 @@ B = 2048, LLRs x10 (the simulator's defaults):
   rerun_scl8  its list stage on the rows whose fast CRC failed
   scan4       ScanDecoder(4 sweeps).decode (K4)
   fastsscan4  FastSScanDecoder(CRC32, 4 iterations).decode (K5)
+  scl8_int8   pcsim -p 8: SCLDecoder(L = 8, dtype=int8).decode on the int8
+              LLRs (K1 char)
+  scl8_bf16   SCLDecoder(L = 8, CRC16, dtype=bfloat16).decode on the float
+              LLRs (K1 float32 on the widening call, K1 bf16)
 
-and the large-N paths, Bhattacharyya at 0 dB, B = 128:
-  large_sc    (131072, 65536) LargeSCDecoder(chunk=2048).decode at 2 dB (K6)
-  large_scl   (32768, 16384) CRC16 LargeSCLDecoder(L = 8, chunk 256,
-              sub-block 16, bf16 carry).decode at 2 dB (K7, K1)
-For these two it also prints a per-layer split, each layer timed alone with
-CUDA events (median of CALLS) on the inputs it saw in one decode: the
-chunk kernels (every mixed-chunk call), the pure-chunk rules (every pure
-chunk), the final join (SCL: chunk gathers and top butterfly stages; SC:
-the codeword transform), the tail (SCL: CRC-aided selection after
-decode_packed; SC: info extraction), and the outer-stage glue as the rest
-of the decode.
+and the large-N paths, Bhattacharyya at 0 dB, B = 128, 2 dB:
+  large_sc         (131072, 65536) LargeSCDecoder(chunk=2048).decode (K6)
+  large_scl        (32768, 16384) CRC16 LargeSCLDecoder(L = 8, chunk 256,
+                   sub-block 16, bf16 carry).decode (K7, K1)
+  large_sc_int8    the first with dtype=int8 on LLRs x10 quantised to int8
+                   (K6 char on every chunk)
+  large_scl_int8   the second likewise (K7 char on every chunk, no
+                   sub-blocks)
+For the SCL and large-N paths it also prints a per-layer split, each layer
+timed alone with CUDA events (median of CALLS) on the inputs it saw in one
+decode: the kernels (SCL: every K1 call; large-N: every mixed-chunk call),
+the pure-chunk rules (every pure chunk), the final join (large SCL: chunk
+gathers and top butterfly stages; large SC: the codeword transform), the
+tail (SCL: CRC-aided selection after decode_packed; SC: info extraction),
+and the glue above the kernels as the rest of the decode, with the kernel
+launches per decode.
 
     python3 chip_profile.py
 
@@ -139,11 +148,54 @@ def main():
                      ("scan4", lambda: scan.decode(llr)),
                      ("fastsscan4", lambda: fss.decode(llr))):
         profile(name, fn, CALLS, card, torch)
+    scl_paths(card, torch, dev, gen, frozen, quant, llr / AMPL)
     large_paths(card, torch, dev, gen)
 
 
+def kernel_launches():
+    """Launches of every kernel family since the last reset, then reset."""
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl
+
+    counts = {**{f"scl_subtree[{k}]": v for k, v in scl_kernel_bl.LAUNCHES.items()},
+              **{f"chunk[{k}]": v for k, v in lk.LAUNCHES.items()}}
+    for table in (scl_kernel_bl.LAUNCHES, lk.LAUNCHES):
+        table.update(dict.fromkeys(table, 0))
+    return {k: v for k, v in counts.items() if v}
+
+
+def scl_paths(card, torch, dev, gen, frozen, quant, llr):
+    """The pcsim -p 8 decode (int8, CRC32) and the bf16 decode (CRC16) of
+    (1024, 512) CA-SCL-8, each profiled and split into K1 calls, glue and
+    tail."""
+    from polar_codes_torch.models.detectors import CRC16, CRC32
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    for name, det, dtype, x in (("scl8_int8", CRC32(), torch.int8, quant),
+                                ("scl8_bf16", CRC16(), torch.bfloat16, llr)):
+        dec = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det, dtype=dtype, device=dev)
+        profile(name, lambda: dec.decode(x), CALLS, card, torch)
+        calls = []
+        dec.subtree_fn = lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+        kernel_launches()
+        dec.decode(x)
+        launches = kernel_launches()
+        dec.subtree_fn = scl_kernel_bl.scl_subtree
+        total_ms = time_cuda(lambda: dec.decode(x), reps=CALLS)
+        packed_ms = time_cuda(lambda: dec.decode_packed(x), reps=CALLS)
+        k1 = [time_cuda(lambda c=c: scl_kernel_bl.scl_subtree(*c), reps=CALLS) for c in calls]
+        print(json.dumps({"path": name, "batch": BATCH, "decode_ms": total_ms,
+                          "kernels_ms": sum(k1), "k1_calls_ms": k1,
+                          "k1_dtypes": [str(c[1].dtype) for c in calls],
+                          "glue_ms": packed_ms - sum(k1), "tail_ms": total_ms - packed_ms,
+                          "launches_per_decode": launches, "card": card}), flush=True)
+
+
 def large_paths(card, torch, dev, gen):
-    """Profile the two large-N decodes and split each into its layers."""
+    """Profile the large-N decodes, float32 and int8, and split each into
+    its layers."""
     from polar_codes_torch.construction import frozen_bits
     from polar_codes_torch.dsp import Awgn, Bpsk
     from polar_codes_torch.models.detectors import CRC16
@@ -154,68 +206,81 @@ def large_paths(card, torch, dev, gen):
     from polar_codes_torch.ops.butterfly import butterfly_transform
     from polar_codes_torch.utils.timing import time_cuda
 
-    def channel(enc):
+    def channel(enc, dtype):
         chan = Awgn()
         chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * enc.info_length / enc.block_length)
         info = torch.randint(0, 2, (B_LARGE, enc.info_length), generator=gen, device=dev,
                              dtype=torch.uint8)
-        return Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+        llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+        if dtype == torch.int8:  # the simulator's quantiser
+            return torch.clamp(torch.round(llr * AMPL), -127, 127).to(torch.int8)
+        return llr
 
     def timed(fn):
         return time_cuda(fn, reps=CALLS)
 
-    def layers(name, total_ms, parts):
+    def layers(name, total_ms, parts, launches):
         print(json.dumps({"path": name, "batch": B_LARGE, "decode_ms": total_ms,
                           **{k + "_ms": v for k, v in parts.items()},
-                          "outer_glue_ms": total_ms - sum(parts.values()), "card": card}),
+                          "outer_glue_ms": total_ms - sum(parts.values()),
+                          "launches_per_decode": launches, "card": card}),
               flush=True)
 
-    n_len, k_len, chunk = LARGE_SC
-    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
-    sc = LargeSCDecoder(n_len, frozen, chunk=chunk, device=dev)
-    llr = channel(PolarEncoder(n_len, frozen, device=dev))
-    profile("large_sc", lambda: sc.decode(llr), CALLS, card, torch, B_LARGE)
-    mixed, pure = [], []
+    for dtype, suffix in ((torch.float32, ""), (torch.int8, "_int8")):
+        n_len, k_len, chunk = LARGE_SC
+        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+        sc = LargeSCDecoder(n_len, frozen, dtype=dtype, chunk=chunk, device=dev)
+        llr = channel(PolarEncoder(n_len, frozen, device=dev), dtype)
+        profile("large_sc" + suffix, lambda: sc.decode(llr), CALLS, card, torch, B_LARGE)
+        mixed, pure = [], []
 
-    def record_chunk(t, x, _orig=sc._chunk):
-        (mixed if sc.classes[t] == 0 else pure).append((t, x))
-        return _orig(t, x)
+        def record_chunk(t, x, _sc=sc, _orig=sc._chunk):
+            (mixed if _sc.classes[t] == 0 else pure).append((t, x))
+            return _orig(t, x)
 
-    sc._chunk = record_chunk
-    u = sc._decode_u(llr)
-    del sc._chunk
-    u01 = torch.signbit(u).to(torch.uint8)
-    codeword = butterfly_transform(u01)
-    layers("large_sc", timed(lambda: sc.decode(llr)), {
-        "chunk_kernels": sum(timed(lambda c=c: sc._chunk(*c)) for c in mixed),
-        "pure_chunk_rules": sum(timed(lambda c=c: sc._chunk(*c)) for c in pure),
-        "final_join": timed(lambda: butterfly_transform(u01)),
-        "tail": timed(lambda: codeword.index_select(-1, sc._info_pos_t)),
-    })
+        sc._chunk = record_chunk
+        kernel_launches()
+        u = sc._decode_u(sc._check_input(llr))
+        launches = kernel_launches()
+        del sc._chunk
+        u01 = torch.signbit(u).to(torch.uint8)
+        codeword = butterfly_transform(u01)
+        layers("large_sc" + suffix, timed(lambda: sc.decode(llr)), {
+            "chunk_kernels": sum(timed(lambda c=c: sc._chunk(*c)) for c in mixed),
+            "pure_chunk_rules": sum(timed(lambda c=c: sc._chunk(*c)) for c in pure),
+            "final_join": timed(lambda: butterfly_transform(u01)),
+            "tail": timed(lambda: codeword.index_select(-1, sc._info_pos_t)),
+        }, launches)
 
-    n_len, k_len, chunk = LARGE_SCL
-    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
-    det = CRC16()
-    scl = LargeSCLDecoder(n_len, frozen, list_size=8, detector=det, chunk=chunk, subblock=16,
-                          carry_dtype=torch.bfloat16, device=dev)
-    llr = channel(PolarEncoder(n_len, frozen, detector=det, device=dev))
-    profile("large_scl", lambda: scl.decode(llr), CALLS, card, torch, B_LARGE)
-    k7_calls, k1_calls, joins = [], [], []
-    scl.chunk_fn = lambda *a: k7_calls.append(a) or lk.masked_scl_chunk(*a)
-    scl.subtree_fn = lambda *a: k1_calls.append(a) or scl_kernel_bl.scl_subtree(*a)
-    scl._join_chunks = lambda *a: joins.append(a) or LargeSCLDecoder._join_chunks(scl, *a)
-    scl.decode(llr)
-    scl.chunk_fn, scl.subtree_fn = lk.masked_scl_chunk, scl_kernel_bl.scl_subtree
-    del scl._join_chunks
-    packed_ms = timed(lambda: scl.decode_packed(llr))
-    total_ms = timed(lambda: scl.decode(llr))
-    layers("large_scl", total_ms, {
-        "chunk_kernels": sum(timed(lambda c=c: lk.masked_scl_chunk(*c)) for c in k7_calls),
-        "pure_chunk_rules": sum(timed(lambda c=c: scl_kernel_bl.scl_subtree(*c))
-                                for c in k1_calls),
-        "final_join": timed(lambda: scl._join_chunks(*joins[0])),
-        "tail": total_ms - packed_ms,
-    })
+        n_len, k_len, chunk = LARGE_SCL
+        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+        det = CRC16()
+        scl = LargeSCLDecoder(n_len, frozen, list_size=8, detector=det, dtype=dtype,
+                              chunk=chunk, subblock=16, carry_dtype=torch.bfloat16,
+                              device=dev)
+        llr = channel(PolarEncoder(n_len, frozen, detector=det, device=dev), dtype)
+        profile("large_scl" + suffix, lambda: scl.decode(llr), CALLS, card, torch, B_LARGE)
+        k7_calls, k1_calls, joins = [], [], []
+        scl.chunk_fn = lambda *a, **kw: (k7_calls.append((a, kw))
+                                         or lk.masked_scl_chunk(*a, **kw))
+        scl.subtree_fn = lambda *a: k1_calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+        scl._join_chunks = lambda *a, _s=scl: (joins.append(a)
+                                               or LargeSCLDecoder._join_chunks(_s, *a))
+        kernel_launches()
+        scl.decode(llr)
+        launches = kernel_launches()
+        scl.chunk_fn, scl.subtree_fn = lk.masked_scl_chunk, scl_kernel_bl.scl_subtree
+        del scl._join_chunks
+        packed_ms = timed(lambda: scl.decode_packed(llr))
+        total_ms = timed(lambda: scl.decode(llr))
+        layers("large_scl" + suffix, total_ms, {
+            "chunk_kernels": sum(timed(lambda c=c: lk.masked_scl_chunk(*c[0], **c[1]))
+                                 for c in k7_calls),
+            "pure_chunk_rules": sum(timed(lambda c=c: scl_kernel_bl.scl_subtree(*c))
+                                    for c in k1_calls),
+            "final_join": timed(lambda: scl._join_chunks(*joins[0])),
+            "tail": total_ms - packed_ms,
+        }, launches)
 
 
 if __name__ == "__main__":

@@ -61,8 +61,33 @@ for the pure chunks).
      mixed (K6, K7) or pure (K1) chunk, as the decoders' classes say
  17. CUDA-event times of K6 and K7 per call, each decode per batch, the
      N = 131072 encode, and the chunk kernels' bounds
- 18. {"kernels": [...]}, all seven TPU kernels
- 19. {"ok": true, "device": {...}}
+
+Slice 4's paths, the char (int8) and bf16 families: the simulator's
+`pcsim -n 1024 -r 0.5 -l 8 -e crc32 -p 8 -a 10` (CRC32, LLRs x10 quantised
+to int8, SCLDecoder(dtype=int8): K1 char), the same code under
+SCLDecoder(dtype=bfloat16) with CRC16 (K1 float32 on the widening call,
+K1 bf16), and both large-N decoders with dtype=int8 on quantised LLRs
+(K6 char; K7 char with no sub-blocks and no pure chunks).
+ 18. K1 char against its plain version on every subtree call of one int8
+     decode (B = 2048), K1 float32 and bf16 on every call of one bf16
+     decode: bits and perms equal, metrics exactly equal
+ 19. the int8 and bf16 paths, 8 x 2048 blocks each, kernels then plain
+     versions: equal decisions, BLER in [1e-4, 5e-2], every CRC failure a
+     wrong block, 64 blocks equal to a CPU decode
+ 20. K6 char and K7 char against their plain versions on >= 8 calls spread
+     over one full-width int8 decode each: K6 bit-equal, K7 bits and perms
+     equal and metrics exactly equal; K6 (both families), K4 and K5
+     bit-equal on integer LLRs in [-2, 2], where f meets signed zeros
+ 21. both int8 large-N paths end to end, 4 x 128 blocks each at 2 dB:
+     BLER, CRC failures (every one a wrong block), decisions equal to a
+     plain decode of one batch
+ 22. launch counts per decode: K1 char on the int8 path, K1 float32 and
+     bf16 on the bf16 path, K6 char on every chunk of the int8 SC path, K7
+     char on every chunk of the int8 SCL path and K1 none
+ 23. CUDA-event times of each new family per call and each new decode per
+     batch, with bounds
+ 24. {"kernels": [...]}, every family of all seven TPU kernels
+ 25. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -189,7 +214,7 @@ def main():
     phase("5 end to end, kernels then plain versions")
     sent, llrs, outs = [], [], []
     butterfly_kernel.LAUNCHES = 0
-    scl_kernel_bl.LAUNCHES = 0
+    scl_kernel_bl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
     for _ in range(BATCHES):
         info, _, llr = blocks(BATCH)
         sent.append(det.generate(info))
@@ -197,7 +222,7 @@ def main():
         outs.append(dec.decode(llr))
     torch.cuda.synchronize()
     launches = {"butterfly_encode": butterfly_kernel.LAUNCHES,
-                "scl_subtree": scl_kernel_bl.LAUNCHES}  # phase 6 reads these
+                "scl_subtree": scl_kernel_bl.LAUNCHES["float32"]}  # phase 6 reads these
     wrong_total = crc_fail_total = 0
     for i, llr in enumerate(llrs):
         got, want = outs[i], dec_plain.decode(llr)
@@ -269,7 +294,10 @@ def main():
     # 13-17 ---------------------------------------------------------------
     slice3 = run_slice3(card)
 
-    # 18 ------------------------------------------------------------------
+    # 18-23 ---------------------------------------------------------------
+    slice4 = run_slice4(card)
+
+    # 24 ------------------------------------------------------------------
     k1_bytes = k1_ops = 0
     for sched, *_ in calls:
         nb, no = k1_work(sched, BATCH)
@@ -286,17 +314,18 @@ def main():
                               "pcsim_adaptive": slice2["launches"]["butterfly_encode"]},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          **bound(k2_bytes, k2_ops), "library_ms": None},
-        {"name": "scl_subtree", "route": "cuda",
+        {"name": "scl_subtree[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/scl_subtree.cu",
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
          "launches": launches["scl_subtree"],
          "launches_by_path": {"crc16_scl8": launches["scl_subtree"],
                               "pcsim_adaptive": slice2["launches"]["scl_subtree"],
-                              "large_scl": slice3["launches"]["scl_subtree"]},
+                              "large_scl": slice3["launches"]["scl_subtree"],
+                              "scl8_bf16_widening": slice4["launches"]["scl_subtree[float32]"]},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **bound(k1_bytes, k1_ops), "library_ms": None},
-    ] + slice2["kernels"] + slice3["kernels"]})
-    # 19 ------------------------------------------------------------------
+    ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
+    # 25 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -321,13 +350,14 @@ def bound(n_bytes, n_ops):
             "operations": n_ops, "operations_ms": t_ops * 1e3}
 
 
-def k1_work(sched, n_batch):
-    """(bytes, operations) of one K1 call: llr [w_in, span, B] f32 and
-    metrics [B, w_in] in; bits [span, B] i32, perm and metrics [B, w_out]
-    out. Operations: w x h per F/G/COMBINE at the list width of that
-    point of the schedule, w x span x candidates per leaf."""
-    n_bytes = 4 * n_batch * (sched.w_in * sched.span + sched.w_in
-                             + sched.span + 2 * sched.w_out)
+def k1_work(sched, n_batch, llr_bytes=4):
+    """(bytes, operations) of one K1 call: llr [w_in, span, B] (llr_bytes
+    each: 4 for float32, 2 for the int16 char and bf16 states) and metrics
+    [B, w_in] f32 in; bits [span, B] i32, perm and metrics [B, w_out] out.
+    Operations: w x h per F/G/COMBINE at the list width of that point of
+    the schedule, w x span x candidates per leaf."""
+    n_bytes = n_batch * (llr_bytes * sched.w_in * sched.span
+                         + 4 * (sched.w_in + sched.span + 2 * sched.w_out))
     n_ops, w = 0, sched.w_in
     for op, _, length, _, _, _, ncand, _ in sched.ops.tolist():
         if op == 3:  # LEAF
@@ -428,14 +458,14 @@ def run_slice2(card):
 
     def reset_counts():
         butterfly_kernel.LAUNCHES = 0
-        scl_kernel_bl.LAUNCHES = 0
+        scl_kernel_bl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
         fk.LAUNCHES.update(float32=0, int8=0)
         sk.LAUNCHES.update(fused=0, step=0)
 
     def counts():
         torch.cuda.synchronize()
         return {"butterfly_encode": butterfly_kernel.LAUNCHES,
-                "scl_subtree": scl_kernel_bl.LAUNCHES,
+                "scl_subtree": scl_kernel_bl.LAUNCHES["float32"],
                 "fastssc_subtree[float32]": fk.LAUNCHES["float32"],
                 "fastssc_subtree[int8]": fk.LAUNCHES["int8"],
                 "scan_fused": sk.LAUNCHES["fused"], "scan_step": sk.LAUNCHES["step"]}
@@ -676,6 +706,12 @@ B_SHAPES = 32  # batch of the extra-shape checks
 NEG = -1.0e30  # metric of an inactive list slot
 
 
+def spread(calls, need):
+    """CALLS3 calls spread over a decode, with the indices `need` among them."""
+    picks = {round(i * (len(calls) - 1) / (CALLS3 - 1)) for i in range(CALLS3)}
+    return [calls[i] for i in sorted(picks | set(need))]
+
+
 def k6_work(m_len, n_batch):
     """(bytes, operations) of one K6 call: llr [B, M] f32 and the mask in,
     x and u [B, M] f32 out. Operations per codeword: M per tree level of
@@ -740,17 +776,12 @@ def run_slice3(card):
 
     def reset_counts():
         lk.LAUNCHES.update(sc=0, scl=0)
-        scl_kernel_bl.LAUNCHES = 0
+        scl_kernel_bl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
 
     def counts():
         torch.cuda.synchronize()
         return {"masked_sc_chunk": lk.LAUNCHES["sc"], "masked_scl_chunk": lk.LAUNCHES["scl"],
-                "scl_subtree": scl_kernel_bl.LAUNCHES}
-
-    def spread(calls, need):
-        """CALLS3 calls spread over the decode, with `need` among them."""
-        picks = {round(i * (len(calls) - 1) / (CALLS3 - 1)) for i in range(CALLS3)}
-        return [calls[i] for i in sorted(picks | set(need))]
+                "scl_subtree": scl_kernel_bl.LAUNCHES["float32"]}
 
     f_sc = frozen_bits(N_SC, K_SC, 0.0, "BB")
     enc_sc = PolarEncoder(N_SC, f_sc, systematic=True, device=dev)
@@ -774,8 +805,8 @@ def run_slice3(card):
     sent_sc, llr_sc = channel(enc_sc, EBN0_SC, B3)
     k6_calls = []
 
-    def record6(x, mask):
-        out = lk.masked_sc_chunk(x, mask)
+    def record6(x, mask, family):
+        out = lk.masked_sc_chunk(x, mask, family)
         k6_calls.append((x, mask, out))
         return out
 
@@ -795,8 +826,8 @@ def run_slice3(card):
     sent_scl, llr_scl = channel(enc_scl, EBN0_DB, B3)
     k7_calls = []
 
-    def record7(x, mask, metrics, sub_cls):
-        out = lk.masked_scl_chunk(x, mask, metrics, sub_cls)
+    def record7(x, mask, metrics, sub_cls, family):
+        out = lk.masked_scl_chunk(x, mask, metrics, sub_cls, family)
         k7_calls.append((x, mask, metrics, sub_cls, out))
         return out
 
@@ -933,13 +964,13 @@ def run_slice3(card):
     emit({"metric": f"encode_n{N_SC}", "batch": B3, "ms": enc_ms,
           "coded_mbps": B3 * N_SC / enc_ms / 1e3, "card": card})
     kernels = [
-        {"name": "masked_sc_chunk", "route": "cuda",
+        {"name": "masked_sc_chunk[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_sc_chunk.cu",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:253",
          "launches": launches_sc["masked_sc_chunk"], "launches_per_decode": mixed_sc,
          "max_abs_err": k6_err, "ms": med(k6_ms), "plain_ms": k6_plain_ms,
          **bound(k6_bytes, k6_ops), "library_ms": None},
-        {"name": "masked_scl_chunk", "route": "cuda",
+        {"name": "masked_scl_chunk[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_scl_chunk.cu",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
          "launches": launches_scl["masked_scl_chunk"], "launches_per_decode": mixed_scl,
@@ -947,6 +978,319 @@ def run_slice3(card):
          **bound(*k7_work_all[i7]), "library_ms": None},
     ]
     return {"kernels": kernels, "launches": launches_scl}
+
+
+# ---- slice 4: the char (int8) and bf16 families ---------------------------
+
+SEED4 = 20261019
+
+
+def run_slice4(card):
+    """Phases 18-23. Returns {"kernels": [...], "launches": {...}}."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16, CRC32
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import _MIXED, LargeSCDecoder, LargeSCLDecoder
+    from polar_codes_torch.models.scan import ScanDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED4)
+    modem = Bpsk()
+
+    def channel(encoder, n_blocks):
+        """(sent info with its CRC, channel LLRs) of n random blocks at 2 dB."""
+        k_len = encoder.info_length
+        info = torch.randint(0, 2, (n_blocks, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / encoder.block_length)
+        llr = modem.demodulate(chan.transmit(modem.modulate(encoder.encode(info)), gen))
+        det = encoder.detector
+        return (det.generate(info) if det.tail_bits else info), llr
+
+    def quantise(llr):
+        """The simulator's int8 LLRs: x10, round half to even, clip."""
+        return torch.clamp(torch.round(llr * AMPL), -127, 127).to(torch.int8)
+
+    def reset_counts():
+        kbl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
+        lk.LAUNCHES.update(sc=0, scl=0, sc_char=0, scl_char=0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{f"scl_subtree[{k}]": v for k, v in kbl.LAUNCHES.items()},
+                "masked_sc_chunk[float32]": lk.LAUNCHES["sc"],
+                "masked_sc_chunk[char]": lk.LAUNCHES["sc_char"],
+                "masked_scl_chunk[float32]": lk.LAUNCHES["scl"],
+                "masked_scl_chunk[char]": lk.LAUNCHES["scl_char"]}
+
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    paths = {  # name: (detector, decoder dtype, channel LLRs -> decoder input)
+        "pcsim_p8_int8": (CRC32(), torch.int8, quantise),
+        "scl8_bf16": (CRC16(), torch.bfloat16, lambda llr: llr),
+    }
+    encs, decs, plains = {}, {}, {}
+    for name, (det, dtype, _) in paths.items():
+        encs[name] = PolarEncoder(N_LEN, frozen, systematic=True, detector=det, device=dev)
+        kw = dict(list_size=LIST, detector=det, dtype=dtype, device=dev)
+        decs[name] = SCLDecoder(N_LEN, frozen, **kw)
+        plains[name] = SCLDecoder(N_LEN, frozen, subtree_fn=kbl.scl_subtree_plain, **kw)
+
+    # 18 ------------------------------------------------------------------
+    phase("18 K1 char and bf16 vs plain, call by call")
+    k1_calls, k1_err = {}, {"float32": 0.0, "char": 0.0, "bfloat16": 0.0}
+    for name, (det, dtype, prep) in paths.items():
+        calls = []
+
+        def record(sched, x, m):
+            out = kbl.scl_subtree(sched, x, m)
+            calls.append((sched, x, m, out))
+            return out
+
+        SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det, dtype=dtype, device=dev,
+                   subtree_fn=record).decode_packed(prep(channel(encs[name], B2)[1]))
+        torch.cuda.synchronize()
+        for sched, x, m, (bits, perm, met) in calls:
+            fam = kbl.family(x.dtype).name
+            pb, pp, pm = kbl.scl_subtree_plain(sched, x, m)
+            where = f"K1 {fam} call (offset {sched.node.offset}, w {sched.w_in}->{sched.w_out})"
+            _equal(where + " bits", bits, pb)
+            _equal(where + " perm", perm, pp)
+            if not torch.isfinite(met).all() or met.shape != (B2, sched.w_out):
+                raise AssertionError(where + ": metrics not finite or of the wrong shape")
+            k1_err[fam] = max(k1_err[fam], _equal(where + " metrics", met, pm))
+            print(where + ": bits, perms and metrics equal")
+        fams = sorted(kbl.family(c[1].dtype).name for c in calls)
+        want = (["char"] * len(calls) if dtype == torch.int8 else
+                ["bfloat16"] * (len(calls) - 1) + ["float32"])
+        if fams != sorted(want) or len(calls) < 2:
+            raise AssertionError(f"{name}: K1 families {fams}, expected {sorted(want)}")
+        k1_calls[name] = calls
+
+    # 19 ------------------------------------------------------------------
+    phase("19 pcsim -p 8 (int8) and bf16 paths end to end, kernels then plain")
+    launches, first = {}, {}
+    for name, (det, dtype, prep) in paths.items():
+        sent, xs, outs = [], [], []
+        reset_counts()
+        for _ in range(BATCHES2):
+            info, llr = channel(encs[name], B2)
+            xs.append(prep(llr))
+            sent.append(info)
+            outs.append(decs[name].decode(xs[-1]))
+        launches[name] = counts()
+        wrong_total = fail_total = 0
+        for i, x in enumerate(xs):
+            _same_decisions(f"{name} batch {i}", outs[i], plains[name].decode(x))
+            wrong = (outs[i][0] != sent[i]).any(1)
+            if (~outs[i][2] & ~wrong).any():
+                raise AssertionError(f"{name}: a block with a failed CRC decoded right")
+            wrong_total += int(wrong.sum())
+            fail_total += int((~outs[i][2]).sum())
+        n_blocks = B2 * BATCHES2
+        bler = wrong_total / n_blocks
+        emit({"metric": "bler", "path": name, "value": bler, "blocks": n_blocks,
+              "block_errors": wrong_total, "crc_failures": fail_total, "ebn0_db": EBN0_DB})
+        if not 1e-4 <= bler <= 5e-2:
+            raise AssertionError(f"{name}: BLER {bler} outside [1e-4, 5e-2]")
+        cpu = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det, dtype=dtype,
+                         device="cpu")
+        for a, b in zip(outs[0], cpu.decode(xs[0][:64].cpu())):
+            if not torch.equal(a[:64].cpu(), b):
+                raise AssertionError(f"{name}: card decode differs from the CPU decode")
+        first[name] = xs[0]
+        print(f"{name}: kernel decodes == plain decodes on all {BATCHES2} batches; "
+              "first 64 == CPU decode")
+
+    # 20 ------------------------------------------------------------------
+    phase("20 K6 char and K7 char vs plain, call by call")
+    f_sc = frozen_bits(N_SC, K_SC, 0.0, "BB")
+    enc_sc = PolarEncoder(N_SC, f_sc, systematic=True, device=dev)
+    sc_kw = dict(dtype=torch.int8, chunk=CHUNK_SC, device=dev)
+    sc = LargeSCDecoder(N_SC, f_sc, **sc_kw)
+    sc_plain = LargeSCDecoder(N_SC, f_sc, chunk_fn=lk.masked_sc_chunk_plain, **sc_kw)
+    det = CRC16()
+    f_scl = frozen_bits(N_SCL, K_SCL, 0.0, "BB")
+    enc_scl = PolarEncoder(N_SCL, f_scl, systematic=True, detector=det, device=dev)
+    scl_kw = dict(list_size=LIST, detector=det, dtype=torch.int8, chunk=CHUNK_SCL,
+                  subblock=SUB, carry_dtype=torch.bfloat16, device=dev)
+    scl = LargeSCLDecoder(N_SCL, f_scl, **scl_kw)
+    scl_plain = LargeSCLDecoder(N_SCL, f_scl, chunk_fn=lk.masked_scl_chunk_plain,
+                                subtree_fn=kbl.scl_subtree_plain, **scl_kw)
+    if scl.subblock is not None or (scl.classes != _MIXED).any() or (sc.classes != _MIXED).any():
+        raise AssertionError("int8 large-N decoders must run every chunk mixed, no sub-blocks")
+    sent_sc, llr_sc = channel(enc_sc, B3)
+    q_sc = quantise(llr_sc)
+    k6_calls, k7_calls = [], []
+
+    def record6(x, mask, family):
+        out = lk.masked_sc_chunk(x, mask, family)
+        k6_calls.append((x, mask, family, out))
+        return out
+
+    def record7(x, mask, metrics, sub_cls, family):
+        out = lk.masked_scl_chunk(x, mask, metrics, sub_cls, family)
+        k7_calls.append((x, mask, metrics, sub_cls, family, out))
+        return out
+
+    LargeSCDecoder(N_SC, f_sc, chunk_fn=record6, **sc_kw).decode(q_sc)
+    sent_scl, llr_scl = channel(enc_scl, B3)
+    q_scl = quantise(llr_scl)
+    LargeSCLDecoder(N_SCL, f_scl, chunk_fn=record7, **scl_kw).decode(q_scl)
+    torch.cuda.synchronize()
+    if len(k6_calls) != sc.n_chunks or len(k7_calls) != scl.n_chunks:
+        raise AssertionError(f"expected {sc.n_chunks} K6 and {scl.n_chunks} K7 calls, got "
+                             f"{len(k6_calls)} and {len(k7_calls)}")
+    k6_held, k7_held = spread(k6_calls, []), spread(k7_calls, [])
+    k6_err = k7_err = 0.0
+    for x, mask, fam, (kx, ku) in k6_held:
+        px, pu = lk.masked_sc_chunk_plain(x, mask, fam)
+        k6_err = max(k6_err, _equal("K6 char x", kx, px), _equal("K6 char u", ku, pu))
+    for x, mask, met, sub_cls, fam, (bits, perm, m_out) in k7_held:
+        pb, pp, pm = lk.masked_scl_chunk_plain(x, mask, met, sub_cls, fam)
+        _equal("K7 char bits", bits, pb)
+        _equal("K7 char perm", perm, pp)
+        if not torch.isfinite(m_out).all():
+            raise AssertionError("K7 char metrics not finite")
+        k7_err = max(k7_err, _equal("K7 char metrics", m_out, pm))
+    print(f"K6 char: {len(k6_held)} of {len(k6_calls)} calls bit-equal; K7 char: "
+          f"{len(k7_held)} of {len(k7_calls)} calls equal (bits, perms, metrics exactly)")
+    # the signed-zero rule of the product-form f (K6, K4, K5): integer LLRs
+    # in [-2, 2] put zeros into f at every level
+    ints = torch.randint(-2, 3, (B3, CHUNK_SC), generator=gen, device=dev).to(torch.float32)
+    for fam in ("float32", "char"):
+        for got, want in zip(lk.masked_sc_chunk(ints, k6_calls[0][1], fam),
+                             lk.masked_sc_chunk_plain(ints, k6_calls[0][1], fam)):
+            k6_err = max(k6_err, _equal(f"K6 {fam} on zeros", got, want))
+    scan = ScanDecoder(N_LEN, frozen, iterations=2, device=dev)
+    xz = torch.randint(-2, 3, (N_LEN, 256), generator=gen, device=dev).to(torch.float32)
+    mem0 = torch.zeros((scan.sched.mem_rows, 256), device=dev)
+    _equal("K4 betas on zeros", sk.scan_fused(scan.sched, xz, 2),
+           sk.scan_fused_plain(scan.sched, xz, 2))
+    for got, want in zip(sk.scan_step(scan.sched, xz, mem0),
+                         sk.scan_step_plain(scan.sched, xz, mem0)):
+        _equal("K5 betas and memory on zeros", got, want)
+    print("K6 (both families), K4 and K5 bit-equal on LLRs in [-2, 2]")
+
+    # 21, 22 --------------------------------------------------------------
+    phase("21 int8 large-N paths end to end; 22 launch counts")
+    for name, dec, dec_plain, enc, first_batch in (
+            ("large_sc_int8", sc, sc_plain, enc_sc, (sent_sc, q_sc)),
+            ("large_scl_int8", scl, scl_plain, enc_scl, (sent_scl, q_scl))):
+        batches = [first_batch] + [(s_, quantise(l_)) for s_, l_ in
+                                   (channel(enc, B3) for _ in range(BATCHES3 - 1))]
+        reset_counts()
+        outs = [dec.decode(q) for _, q in batches]
+        launches[name] = counts()
+        wrong = fails = 0
+        for (s_, _), o in zip(batches, outs):
+            bad = (o[0] != s_).any(1)
+            if (~o[2] & ~bad).any():
+                raise AssertionError(f"{name}: a block with a failed CRC decoded right")
+            wrong += int(bad.sum())
+            fails += int((~o[2]).sum())
+        _same_decisions(f"{name} batch 0", outs[0], dec_plain.decode(batches[0][1]))
+        bler = wrong / (B3 * BATCHES3)
+        emit({"metric": "bler", "path": name, "value": bler, "blocks": B3 * BATCHES3,
+              "block_errors": wrong, "crc_failures": fails, "ebn0_db": EBN0_DB})
+        # int8 SC decodes at 2 dB; int8 CA-SCL-8 at N = 32768 does not: its
+        # saturating g loses the path metrics' margin (the JAX package's
+        # int8 arm gives the same decisions), so only its CRC flags are held
+        if name == "large_sc_int8" and bler >= 0.5:
+            raise AssertionError(f"{name}: BLER {bler} at {EBN0_DB} dB")
+        print(f"{name}: kernel decode == plain decode on one batch")
+    emit({"launches": launches, "decodes": {"pcsim_p8_int8": BATCHES2, "scl8_bf16": BATCHES2,
+                                            "large_sc_int8": BATCHES3,
+                                            "large_scl_int8": BATCHES3}})
+    n_bf16 = len(k1_calls["scl8_bf16"])
+    want = {  # path: {kernel: launches per decode}; the other counts are 0
+        "pcsim_p8_int8": {"scl_subtree[char]": len(k1_calls["pcsim_p8_int8"])},
+        "scl8_bf16": {"scl_subtree[float32]": 1, "scl_subtree[bfloat16]": n_bf16 - 1},
+        "large_sc_int8": {"masked_sc_chunk[char]": sc.n_chunks},
+        "large_scl_int8": {"masked_scl_chunk[char]": scl.n_chunks},
+    }
+    for name, per in want.items():
+        n_dec = BATCHES2 if name in paths else BATCHES3
+        for kernel, count in launches[name].items():
+            if count != per.get(kernel, 0) * n_dec:
+                raise AssertionError(f"{name}: {kernel} launched {count} times, expected "
+                                     f"{per.get(kernel, 0) * n_dec}")
+
+    # 23 ------------------------------------------------------------------
+    phase("23 times (CUDA events, median)")
+    k1_times = {}
+    for name, calls in k1_calls.items():
+        for sched, x, m, _ in calls:
+            fam = kbl.family(x.dtype).name
+            kt = time_cuda(lambda: kbl.scl_subtree(sched, x, m), reps=REPS)
+            pt = time_cuda(lambda: kbl.scl_subtree_plain(sched, x, m), warmup=1, reps=REPS)
+            nb, no = k1_work(sched, B2, x.element_size())
+            acc = k1_times.setdefault(fam, [0.0, 0.0, 0, 0])
+            if fam != "float32":
+                acc[:] = [acc[0] + kt, acc[1] + pt, acc[2] + nb, acc[3] + no]
+            emit({"kernel": f"scl_subtree[{fam}]", "path": name, "span": sched.span,
+                  "w_in": sched.w_in, "w_out": sched.w_out, "batch": B2, "ms": kt,
+                  "plain_ms": pt, "card": card})
+    k6_ms = [time_cuda(lambda c=c: lk.masked_sc_chunk(*c[:3]), reps=REPS) for c in k6_held]
+    k6_plain_ms = time_cuda(lambda: lk.masked_sc_chunk_plain(*k6_held[0][:3]), warmup=1,
+                            reps=REPS)
+    k7_ms = [time_cuda(lambda c=c: lk.masked_scl_chunk(*c[:5]), reps=REPS) for c in k7_held]
+    k7_plain_ms = time_cuda(lambda: lk.masked_scl_chunk_plain(*k7_held[0][:5]), warmup=1,
+                            reps=REPS)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    emit({"kernel": "masked_sc_chunk[char]", "batch": B3, "chunk": CHUNK_SC,
+          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, "card": card})
+    emit({"kernel": "masked_scl_chunk[char]", "batch": B3, "chunk": CHUNK_SCL, "list": LIST,
+          "ms_per_call": k7_ms, "plain_ms": k7_plain_ms, "card": card})
+    for name, (path_det, _, _) in paths.items():
+        ms = time_cuda(lambda: decs[name].decode(first[name]), reps=REPS)
+        emit({"metric": f"{name}_decode", "batch": B2, "ms": ms,
+              "payload_mbps": B2 * (K_LEN - path_det.tail_bits) / ms / 1e3,
+              "k1_ms_per_decode": sum(time_cuda(lambda c=c: kbl.scl_subtree(*c[:3]), reps=REPS)
+                                      for c in k1_calls[name]), "card": card})
+    sc_ms = time_cuda(lambda: sc.decode(q_sc), reps=REPS)
+    scl_ms = time_cuda(lambda: scl.decode(q_scl), reps=REPS)
+    emit({"metric": "large_sc_int8_decode", "n": N_SC, "batch": B3, "ms": sc_ms,
+          "info_mbps": B3 * K_SC / sc_ms / 1e3, "k6_ms_per_decode": med(k6_ms) * sc.n_chunks,
+          "card": card})
+    emit({"metric": "large_scl_int8_decode", "n": N_SCL, "batch": B3, "ms": scl_ms,
+          "payload_mbps": B3 * (K_SCL - det.tail_bits) / scl_ms / 1e3,
+          "k7_ms_per_decode": med(k7_ms) * scl.n_chunks, "card": card})
+
+    i7 = k7_ms.index(med(k7_ms))
+    sched7 = lk.scl_chunk_schedule(CHUNK_SCL, 0).tolist()
+    kernels = [
+        {"name": f"scl_subtree[{fam}]", "route": "cuda",
+         "source": "polar_codes_torch/csrc/scl_subtree.cu",
+         "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
+         "launches": launches[path][f"scl_subtree[{fam}]"],
+         "launches_per_decode": want[path][f"scl_subtree[{fam}]"],
+         "max_abs_err": k1_err[fam], "ms": k1_times[fam][0], "plain_ms": k1_times[fam][1],
+         **bound(k1_times[fam][2], k1_times[fam][3]), "library_ms": None}
+        for fam, path in (("char", "pcsim_p8_int8"), ("bfloat16", "scl8_bf16"))]
+    kernels += [
+        {"name": "masked_sc_chunk[char]", "route": "cuda",
+         "source": "polar_codes_torch/csrc/large_sc_chunk.cu",
+         "replaces": "polar_codes_tpu/ops/large_kernel.py:253",
+         "launches": launches["large_sc_int8"]["masked_sc_chunk[char]"],
+         "launches_per_decode": sc.n_chunks, "max_abs_err": k6_err, "ms": med(k6_ms),
+         "plain_ms": k6_plain_ms, **bound(*k6_work(CHUNK_SC, B3)), "library_ms": None},
+        {"name": "masked_scl_chunk[char]", "route": "cuda",
+         "source": "polar_codes_torch/csrc/large_scl_chunk.cu",
+         "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
+         "launches": launches["large_scl_int8"]["masked_scl_chunk[char]"],
+         "launches_per_decode": scl.n_chunks, "max_abs_err": k7_err, "ms": k7_ms[i7],
+         "plain_ms": k7_plain_ms, **bound(*k7_work(sched7, [], LIST, B3)), "library_ms": None},
+    ]
+    return {"kernels": kernels, "launches": launches["scl8_bf16"]}
 
 
 def _check_tie(dec, dec_plain, llr, batch_idx, blk):

@@ -2,15 +2,21 @@
 // frozen mask arrives as data, for a batch of codewords.
 //
 // Replaces: polar_codes_tpu/ops/large_kernel.py,
-// build_masked_sc_chunk_kernel.kernel (float32 family), the chunk decode of
-// LargeSCDecoder: the f/g recursion down to span-1 leaves, a hard decision
-// by the sign bit at each leaf (frozen leaves forced to 0) and the partial
+// build_masked_sc_chunk_kernel.kernel (its float32 and int8 families), the
+// chunk decode of LargeSCDecoder: the f/g recursion down to span-1 leaves, a
+// hard decision at each leaf (frozen leaves forced to 0) and the partial
 // sums combined on the way back up.
 //
 // Interface (batch-first, as the large-N glue holds its buffers):
-//   llr [B, M] f32, mask [M] u8 (1 = frozen)
+//   llr [B, M] f32, mask [M] u8 (1 = frozen), family (0 float32, 1 char)
 //     -> x [B, M] bipolar f32 (the chunk's codeword segment),
 //        u [B, M] bipolar f32 (the leaf decisions)
+// Two families, instantiations of one template:
+//   float32: g = b +- a, decisions by the sign bit (-0.0 decides 1);
+//   char:    integer-valued LLRs in f32 (the fip_char values of the TPU
+//            kernel's int8 mode), g clipped to [-127, 127], decisions
+//            llr < 0 (0 decides 0). f is not clipped: an input of -128
+//            gives |f| = 128, which f32 holds exactly.
 //
 // Walk: the chunk's tree is full, so no schedule is passed. Leaves are
 // taken in pairs (the span-2 nodes at level D-1, D = log2 M); before pair
@@ -33,13 +39,14 @@
 // the lowest levels in registers and shuffles is later work.
 //
 // Numerics: f is the product form sign(a) * sign(b) * min(|a|, |b|) with
-// torch.sign's rule (sign(+-0) = +0), in the order of the plain torch
-// version (ops/large_kernel.py); g is b +- a; the build disables FMA
-// contraction. Kernel and plain version agree bit for bit.
+// jnp.sign's rule (sign(+-0) = +-0), in the order of the plain torch
+// version (ops/large_kernel.py); the build disables FMA contraction.
+// Kernel and plain version agree bit for bit.
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int masked_sc_chunk(const float *llr, const uint8_t *mask, float *x,
-//                       float *u, int chunk, int batch, cudaStream_t stream)
+//                       float *u, int chunk, int batch, int family,
+//                       cudaStream_t stream)
 // Returns the cudaGetLastError() of the launch (or of the shared-memory
 // attribute call), or -1 for a chunk the kernel does not take.
 
@@ -50,8 +57,9 @@ namespace {
 
 constexpr int kMaxChunk = 8192;
 
+// sign with jnp.sign's rule at zero: sgn(+-0) = +-0
 __device__ __forceinline__ float sgn(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
 __device__ __forceinline__ float f_prod(float a, float b) {
@@ -62,11 +70,24 @@ __device__ __forceinline__ int sign_bit(float x) {
   return static_cast<int>(__float_as_uint(x) >> 31);
 }
 
+struct FloatFamily {
+  __device__ static float g(float a, float b, int bit) { return bit ? b - a : b + a; }
+  __device__ static int hard(float x) { return sign_bit(x); }
+};
+
+struct CharFamily {
+  __device__ static float g(float a, float b, int bit) {
+    return fminf(fmaxf(bit ? b - a : b + a, -127.f), 127.f);
+  }
+  __device__ static int hard(float x) { return x < 0.f; }
+};
+
 // Offset of level d's buffer (span M >> d): level 0 is the input.
 __device__ __forceinline__ int level_at(int d, int m) {
   return d == 0 ? 0 : 2 * m - (m >> (d - 1));
 }
 
+template <class Fam>
 __global__ void __launch_bounds__(32)
 masked_sc_chunk_kernel(const float* __restrict__ llr,
                        const uint8_t* __restrict__ mask, float* __restrict__ x_out,
@@ -95,7 +116,7 @@ masked_sc_chunk_kernel(const float* __restrict__ llr,
         const uint8_t* left = W + (node - 1) * span;  // the left sibling's x
         for (int i = lane; i < span; i += 32) {
           const float a = P[i], b = P[i + span];
-          Y[i] = left[i] ? b - a : b + a;
+          Y[i] = Fam::g(a, b, left[i]);
         }
       } else {
         for (int i = lane; i < span; i += 32) Y[i] = f_prod(P[i], P[i + span]);
@@ -106,8 +127,8 @@ masked_sc_chunk_kernel(const float* __restrict__ llr,
       const float* Y = X + level_at(top, m);
       const int k = 2 * p;
       const float a = Y[0], b = Y[1];
-      const int u0 = mask[k] ? 0 : sign_bit(f_prod(a, b));
-      const int u1 = mask[k + 1] ? 0 : sign_bit(u0 ? b - a : b + a);
+      const int u0 = mask[k] ? 0 : Fam::hard(f_prod(a, b));
+      const int u1 = mask[k + 1] ? 0 : Fam::hard(Fam::g(a, b, u0));
       U[k] = u0;
       U[k + 1] = u1;
       W[k] = u0 ^ u1;
@@ -130,21 +151,34 @@ masked_sc_chunk_kernel(const float* __restrict__ llr,
   }
 }
 
-}  // namespace
-
-extern "C" int masked_sc_chunk(const void* llr, const void* mask, void* x, void* u,
-                               int chunk, int batch, void* stream) {
-  if (chunk < 2 || chunk > kMaxChunk || (chunk & (chunk - 1))) return -1;
-  if (batch <= 0) return 0;
+template <class Fam>
+int launch(const float* llr, const uint8_t* mask, float* x, float* u, int chunk,
+           int batch, cudaStream_t stream) {
   int levels = 0;
   while ((1 << levels) < chunk) ++levels;  // D = log2 M
   const size_t smem = (size_t)2 * chunk * sizeof(float) + 2 * chunk;
+  auto kernel = masked_sc_chunk_kernel<Fam>;
   cudaError_t err = cudaFuncSetAttribute(
-      masked_sc_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  masked_sc_chunk_kernel<<<batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(llr), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(x), static_cast<float*>(u), chunk, levels);
+  kernel<<<batch, 32, smem, stream>>>(llr, mask, x, u, chunk, levels);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int masked_sc_chunk(const void* llr, const void* mask, void* x, void* u,
+                               int chunk, int batch, int family, void* stream) {
+  if (chunk < 2 || chunk > kMaxChunk || (chunk & (chunk - 1))) return -1;
+  if (batch <= 0) return 0;
+  auto in = static_cast<const float*>(llr);
+  auto mk = static_cast<const uint8_t*>(mask);
+  auto xo = static_cast<float*>(x);
+  auto uo = static_cast<float*>(u);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case 0: return launch<FloatFamily>(in, mk, xo, uo, chunk, batch, st);
+    case 1: return launch<CharFamily>(in, mk, xo, uo, chunk, batch, st);
+    default: return -1;
+  }
 }

@@ -3,7 +3,8 @@
 // data, for a batch of codewords.
 //
 // Replaces: polar_codes_tpu/ops/large_kernel.py,
-// build_masked_scl_chunk_kernel.kernel (float32 family), the mixed-chunk
+// build_masked_scl_chunk_kernel.kernel (its float32 and int8 families), the
+// mixed-chunk
 // decode of LargeSCLDecoder: the f/g recursion with path-fork gathers and
 // perm composition, a {keep, flip} fork and a top-L prune at every span-1
 // leaf (a frozen leaf pays min(llr, 0) and its flip is killed with _NEG),
@@ -13,7 +14,8 @@
 //
 // Interface (batch-first, as the large-N glue holds its buffers):
 //   llr [B, L, M] f32, mask [M] u8 (1 = frozen), metrics [B, L] f32,
-//   sub_cls [M / sub] i32 (sub = 0: no sub-block dispatch)
+//   sub_cls [M / sub] i32 (sub = 0: no sub-block dispatch),
+//   family (0 float32, 1 char)
 //     -> bits [B, M] i32 (bit l of a word = path l's codeword bit),
 //        perm [B, L] i32 (output slot -> input slot), metrics [B, L] f32
 //
@@ -40,9 +42,16 @@
 // packed bit words and the perms of the open node at each level live in
 // shared memory, so device memory is read and written once per call.
 //
-// Numerics as the plain torch version (ops/large_kernel.py) and K1: f is
-// the sign-XOR min-sum on the raw bits, hard decisions read the sign bit
-// (-0.0 decides 1), leaf sums run sequentially over the span in f32, the
+// Two families, instantiations of one template (the TPU kernel's int8
+// flag): float32, and char, integer-valued LLRs in f32 with g clipped to
+// [-127, 127] and hard decisions llr < 0 (0 decides 0) in the bit leaves,
+// the rate-1/SPC sub-block rules and the SPC parity. In both, f is the
+// sign-XOR min-sum on the raw bits, which on integers is the char family's
+// product form, unclipped.
+//
+// Numerics as the plain torch version (ops/large_kernel.py) and K1: float32
+// hard decisions read the sign bit (-0.0 decides 1), leaf sums run
+// sequentially over the span in f32 (exact on char integers), the
 // build disables FMA contraction, and a prune round takes the candidate of
 // largest value and, among equals, smallest flat code l*C + c, then leaves
 // _NEG on it (the TPU kernel's rule: a taken candidate can be taken again
@@ -54,10 +63,10 @@
 //                        const float *llr, const uint8_t *mask,
 //                        const float *met, const int *sub_cls, int sub,
 //                        int *bits, int *perm, float *met_out,
-//                        int list_size, int chunk, int batch,
+//                        int list_size, int chunk, int batch, int family,
 //                        cudaStream_t stream)
 // Returns the cudaGetLastError() of the launch (or of the shared-memory
-// attribute call), or -1 for an unsupported list size or chunk.
+// attribute call), or -1 for an unsupported list size, chunk or family.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -83,6 +92,18 @@ __device__ __forceinline__ float f_bits(float a, float b) {
 __device__ __forceinline__ int sign_bit(float x) {
   return static_cast<int>(__float_as_uint(x) >> 31);
 }
+
+struct FloatFamily {
+  __device__ static float g(float a, float b, int bit) { return bit ? b - a : b + a; }
+  __device__ static int hard(float x) { return sign_bit(x); }
+};
+
+struct CharFamily {
+  __device__ static float g(float a, float b, int bit) {
+    return fminf(fmaxf(bit ? b - a : b + a, -127.f), 127.f);
+  }
+  __device__ static int hard(float x) { return x < 0.f; }
+};
 
 // Offset of level d's buffer ([L][M >> d]): level 0 is the call's input.
 template <int L>
@@ -183,7 +204,7 @@ __device__ void adopt(Shared<L>& s, int d, int lane) {
 }
 
 // Warp 0: a span-1 mask leaf at level d, position off.
-template <int L>
+template <int L, class Fam>
 __device__ void bit_leaf(Shared<L>& s, const float* Xd, int* W, int off, int frozen,
                          int lane) {
   if (lane < L) {
@@ -197,13 +218,13 @@ __device__ void bit_leaf(Shared<L>& s, const float* Xd, int* W, int off, int fro
     int word = 0;
     if (!frozen)
       for (int j = 0; j < L; ++j)
-        word |= (sign_bit(Xd[s.src[j]]) ^ (s.cand[j] == 1)) << j;
+        word |= (Fam::hard(Xd[s.src[j]]) ^ (s.cand[j] == 1)) << j;
     W[off] = word;
   }
 }
 
 // Warp 0: the SSCL leaf rule of a pure sub-block at level d.
-template <int L>
+template <int L, class Fam>
 __device__ void sub_leaf(Shared<L>& s, const int* spc_tab, const float* X, int* W,
                          int d, int len, int off, int cls, int lane) {
   if (cls == C_RATE0) {
@@ -244,7 +265,7 @@ __device__ void sub_leaf(Shared<L>& s, const int* spc_tab, const float* X, int* 
     if (lane < L) {
       weakest<L>(s, X, lane, len, 4);
       int neg = 0;
-      for (int i = 0; i < len; ++i) neg += sign_bit(X[lane * len + i]);
+      for (int i = 0; i < len; ++i) neg += Fam::hard(X[lane * len + i]);
       s.par[lane] = neg & 1;
       const float m0 = s.ms[lane];
       for (int c = 0; c < 8; ++c) {
@@ -268,13 +289,13 @@ __device__ void sub_leaf(Shared<L>& s, const int* spc_tab, const float* X, int* 
       if (cls == C_REP) {
         bit = c != 0;
       } else if (cls == C_RATE1) {
-        bit = sign_bit(X[l * len + i]) ^ (((c == 1 || c == 3) && i == s.is[l]) ||
+        bit = Fam::hard(X[l * len + i]) ^ (((c == 1 || c == 3) && i == s.is[l]) ||
                                           ((c == 2 || c == 3) && i == s.is[L + l]));
       } else {
         const int fm = spc_tab[(s.par[l] ? 8 : 0) + c];
         int f = 0;
         for (int j4 = 0; j4 < 4; ++j4) f |= ((fm >> j4) & 1) && i == s.is[j4 * L + l];
-        bit = sign_bit(X[l * len + i]) ^ f;
+        bit = Fam::hard(X[l * len + i]) ^ f;
       }
       word |= bit << j;
     }
@@ -284,7 +305,7 @@ __device__ void sub_leaf(Shared<L>& s, const int* spc_tab, const float* X, int* 
   adopt<L>(s, d, lane);
 }
 
-template <int L>
+template <int L, class Fam>
 __global__ void __launch_bounds__(kThreads)
 masked_scl_chunk_kernel(const int* __restrict__ ops, int n_ops,
                         const int* __restrict__ spc_tab, const float* __restrict__ llr,
@@ -325,7 +346,7 @@ masked_scl_chunk_kernel(const int* __restrict__ ops, int n_ops,
           const int l = t / h, i = t - l * h;
           const int p = s.P[d + 1][l];  // left child's perm: slot -> parent slot
           const float a = Xd[p * len + i], bb = Xd[p * len + i + h];
-          Y[t] = ((W[off + i] >> l) & 1) ? bb - a : bb + a;
+          Y[t] = Fam::g(a, bb, (W[off + i] >> l) & 1);
         }
         if (tid < L) s.P[d][tid] = s.P[d + 1][tid];
       }
@@ -345,14 +366,14 @@ masked_scl_chunk_kernel(const int* __restrict__ ops, int n_ops,
       }
     } else if (code == OP_BIT) {
       if (warp0) {
-        bit_leaf<L>(s, Xd, W, off, mask[off], lane);
+        bit_leaf<L, Fam>(s, Xd, W, off, mask[off], lane);
         __syncwarp();
         adopt<L>(s, d, lane);
       }
     } else {  // OP_SUB
       const int cls = sub_cls[off / sub];
       if (cls != C_MIXED) {
-        if (warp0) sub_leaf<L>(s, spc_tab, Xd, W, d, len, off, cls, lane);
+        if (warp0) sub_leaf<L, Fam>(s, spc_tab, Xd, W, d, len, off, cls, lane);
         k += op[4];  // skip the per-bit recursion of this sub-block
       }
     }
@@ -366,12 +387,12 @@ masked_scl_chunk_kernel(const int* __restrict__ ops, int n_ops,
   }
 }
 
-template <int L>
+template <int L, class Fam>
 int launch(const int* ops, int n_ops, const int* spc_tab, const float* llr,
            const uint8_t* mask, const float* met, const int* sub_cls, int sub, int* bits,
            int* perm, float* met_out, int m, int batch, cudaStream_t stream) {
   const size_t smem = (size_t)2 * L * m * sizeof(float) + (size_t)m * sizeof(int);
-  auto kernel = masked_scl_chunk_kernel<L>;
+  auto kernel = masked_scl_chunk_kernel<L, Fam>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -380,13 +401,28 @@ int launch(const int* ops, int n_ops, const int* spc_tab, const float* llr,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Fam>
+int dispatch(const int* ops, int n_ops, const int* spc_tab, const float* llr,
+             const uint8_t* mask, const float* met, const int* sub_cls, int sub, int* bits,
+             int* perm, float* met_out, int list_size, int m, int batch,
+             cudaStream_t stream) {
+  switch (list_size) {
+    case 2: return launch<2, Fam>(ops, n_ops, spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, batch, stream);
+    case 4: return launch<4, Fam>(ops, n_ops, spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, batch, stream);
+    case 8: return launch<8, Fam>(ops, n_ops, spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, batch, stream);
+    case 16: return launch<16, Fam>(ops, n_ops, spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, batch, stream);
+    case 32: return launch<32, Fam>(ops, n_ops, spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, batch, stream);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" int masked_scl_chunk(const void* ops, int n_ops, const void* spc_tab,
                                 const void* llr, const void* mask, const void* met,
                                 const void* sub_cls, int sub, void* bits, void* perm,
                                 void* met_out, int list_size, int chunk, int batch,
-                                void* stream) {
+                                int family, void* stream) {
   if (chunk < 2 || chunk > (1 << (kMaxLevels - 1)) || (chunk & (chunk - 1))) return -1;
   if (batch <= 0) return 0;
   auto o = static_cast<const int*>(ops);
@@ -399,12 +435,9 @@ extern "C" int masked_scl_chunk(const void* ops, int n_ops, const void* spc_tab,
   auto pr = static_cast<int*>(perm);
   auto mo = static_cast<float*>(met_out);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (list_size) {
-    case 2: return launch<2>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, chunk, batch, st);
-    case 4: return launch<4>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, chunk, batch, st);
-    case 8: return launch<8>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, chunk, batch, st);
-    case 16: return launch<16>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, chunk, batch, st);
-    case 32: return launch<32>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, chunk, batch, st);
+  switch (family) {
+    case 0: return dispatch<FloatFamily>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, list_size, chunk, batch, st);
+    case 1: return dispatch<CharFamily>(o, n_ops, sp, x, mk, mi, sc, sub, bt, pr, mo, list_size, chunk, batch, st);
     default: return -1;
   }
 }

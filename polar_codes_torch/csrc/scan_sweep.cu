@@ -13,8 +13,9 @@
 //   alpha_l = f(a, b + m); beta_l = sweep(left)
 //   alpha_r = b + f(a, beta_l); beta_r = sweep(right); m' = beta_r
 //   beta = [f(beta_l, b + beta_r), beta_r + f(beta_l, a)]
-// with f the product-form min-sum sign(x)sign(y)min(|x|,|y|) (0 at
-// zeros), rate-0 leaves beta = +inf and rate-1 leaves beta = 0.
+// with f the product-form min-sum sign(x)sign(y)min(|x|,|y|) (at a zero
+// input, a zero with the XOR of the inputs' sign bits, as jnp.sign gives),
+// rate-0 leaves beta = +inf and rate-1 leaves beta = 0.
 //
 // Interface, in the TPU kernels' batch-minor layouts:
 //   fused:  llr [N, B] f32, sweeps -> beta [N, B] f32
@@ -67,8 +68,9 @@ constexpr int kMaxN = 4096;
 constexpr int kOpWords = 5;
 enum { OP_F = 0, OP_G = 1, OP_COMBINE = 2, OP_LEAF = 3 };
 
+// sign with jnp.sign's rule at zero: sgn(+-0) = +-0
 __device__ __forceinline__ float sgn(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
 // product-form min-sum: (sign(x) * sign(y)) * min(|x|, |y|)

@@ -27,9 +27,17 @@ gathered through it only when it is read (a g refresh or a climb). The
 chunk segments are gathered once at the end, through the composition of
 the later chunk perms, and the top log2(T) butterfly stages join them.
 
+dtype=torch.int8 is the reference's fip_char family, as in the JAX
+package: integer-valued LLRs in float32 (LargeSC takes them unclipped,
+LargeSCL clips them to [-127, 127]), the saturating pair f_minsum_sat /
+g_update_sat in the outer stages and the char family of the chunk kernels
+inside, decisions llr < 0. Every chunk is then mixed (the closed forms and
+the sub-block rules would sum without the staged saturation), so an int8
+decode runs only the chunk kernels K6 or K7.
+
 The JAX constructors' `backend` and `unroll` arguments only shape the JAX
-program; the port has no counterpart. LargeSCLDecoder(schedule="tree")
-and the int8 (fip_char) families are not ported yet (ROADMAP Queue 2).
+program; the port has no counterpart. LargeSCLDecoder(schedule="tree") is
+not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import torch
 
 from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform, butterfly_transform_bipolar
-from ..ops.fg import f_minsum, g_update
+from ..ops.fg import f_minsum, f_minsum_sat, g_update, g_update_sat
 from ..ops.large_kernel import (
     _SUB_KINDS,
     SCL_LISTS,
@@ -102,7 +110,12 @@ class _Chunked:
     classes, and their copies on the device."""
 
     def _setup(self, block_length, frozen_bit_positions, systematic, detector,
-               chunk, fast_chunks, device):
+               dtype, chunk, fast_chunks, device):
+        if dtype not in (torch.float32, torch.int8):
+            raise ValueError(f"{type(self).__name__} takes float32 or int8 LLRs, got {dtype}")
+        self.dtype = dtype
+        self.family = "char" if dtype == torch.int8 else "float32"
+        self._fg = (f_minsum_sat, g_update_sat) if dtype == torch.int8 else (f_minsum, g_update)
         n = _check_pow2(block_length, "block length")
         chunk = min(chunk, block_length)
         self.block_length = block_length
@@ -117,7 +130,9 @@ class _Chunked:
         self.detector = detector if detector is not None else Dummy()
         self.device = resolve_device(device)
         self.mask_chunks = _frozen_mask_chunks(block_length, self.frozen, chunk)
-        self.classes = (_classify_chunks(self.mask_chunks) if self.fast_chunks
+        # int8: every chunk mixed, to keep the staged saturation
+        self.classes = (_classify_chunks(self.mask_chunks)
+                        if self.fast_chunks and self.family == "float32"
                         else np.full(self.n_chunks, _MIXED, np.int32))
         self._masks_t = torch.as_tensor(self.mask_chunks.astype(np.uint8),
                                         device=self.device)
@@ -132,21 +147,13 @@ class _Chunked:
         return llr.to(torch.float32).reshape(-1, self.block_length)
 
 
-def _check_float32(dtype, name: str) -> None:
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            f"{name}(dtype=int8): the char family of the chunk kernels is not "
-            "ported yet (ROADMAP Queue 2)")
-    if dtype != torch.float32:
-        raise ValueError(f"{name} supports float32 LLRs")
-
-
 class LargeSCDecoder(_Chunked):
     """Successive-cancellation decoder for large N, chunk by chunk.
 
     chunk_fn decodes one mixed chunk (default: K6's wrapper, which runs the
     CUDA kernel on CUDA tensors and the plain version on CPU tensors); pass
-    `masked_sc_chunk_plain` to run the plain version on the card."""
+    `masked_sc_chunk_plain` to run the plain version on the card. It is
+    called as chunk_fn(llr, mask, family=...)."""
 
     def __init__(
         self,
@@ -160,9 +167,8 @@ class LargeSCDecoder(_Chunked):
         device=DEFAULT_DEVICE,
         chunk_fn: Optional[ScChunkFn] = None,
     ):
-        _check_float32(dtype, "LargeSCDecoder")
-        self._setup(block_length, frozen_bit_positions, systematic, detector, chunk,
-                    fast_chunks, device)
+        self._setup(block_length, frozen_bit_positions, systematic, detector, dtype,
+                    chunk, fast_chunks, device)
         self.chunk_fn = masked_sc_chunk if chunk_fn is None else chunk_fn
 
     # ---- pure-chunk closed forms (Fast-SSC leaf rules at chunk span) -----
@@ -175,7 +181,7 @@ class LargeSCDecoder(_Chunked):
         """Chunk t: llr [B, M] -> (x, u) [B, M] bipolar."""
         cls = int(self.classes[t])
         if cls == _MIXED:
-            return self.chunk_fn(llr.contiguous(), self._masks_t[t])
+            return self.chunk_fn(llr.contiguous(), self._masks_t[t], family=self.family)
         if cls == _RATE0:
             ones = torch.ones_like(llr)
             return ones, ones
@@ -200,7 +206,8 @@ class LargeSCDecoder(_Chunked):
         """[B, N] channel LLRs -> u-hat bipolar [B, N]."""
         n_len, n_outer = self.block_length, self.outer_stages
         if self.n_chunks == 1:
-            return self.chunk_fn(flat.contiguous(), self._masks_t[0])[1]
+            return self.chunk_fn(flat.contiguous(), self._masks_t[0], family=self.family)[1]
+        f_fn, g_fn = self._fg
         llrs = [None] * n_outer
         bits = [None] * n_outer
         u_chunks = []
@@ -210,8 +217,8 @@ class LargeSCDecoder(_Chunked):
                 if t % (1 << (n_outer - s)) == 0:
                     span = n_len >> s
                     a, b = prev[:, :span], prev[:, span:]
-                    llrs[s - 1] = (g_update(a, b, bits[s - 1]) if (t >> (n_outer - s)) & 1
-                                   else f_minsum(a, b))
+                    llrs[s - 1] = (g_fn(a, b, bits[s - 1]) if (t >> (n_outer - s)) & 1
+                                   else f_fn(a, b))
                 prev = llrs[s - 1]
             x, u = self._chunk(t, prev)
             u_chunks.append(u)
@@ -276,14 +283,15 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
     Mixed chunks run exact per-bit forks (2 candidates per bit); with
     `fast_chunks` pure chunks take the SSCL leaf rules, and `subblock`
     (default 16, with fast_chunks) extends that dispatch into the mixed
-    chunks at the sub-block span. `carry_dtype` (None = float32, or
+    chunks at the sub-block span; int8 turns both off. `carry_dtype` (None = float32, or
     torch.bfloat16) is the storage of the outer-stage LLRs; f and g compute
     in float32 and round on store. decode (inherited from SCLDecoder)
     returns the best path whose CRC holds, or the ML path if none does.
 
-    chunk_fn decodes one mixed chunk (default: K7's wrapper) and subtree_fn
-    one pure chunk (default: K1's wrapper); pass `masked_scl_chunk_plain`
-    and `scl_subtree_plain` to run the plain versions on the card."""
+    chunk_fn decodes one mixed chunk (default: K7's wrapper; called as
+    chunk_fn(llr, mask, metrics, sub_cls, family=...)) and subtree_fn one
+    pure chunk (default: K1's wrapper); pass `masked_scl_chunk_plain` and
+    `scl_subtree_plain` to run the plain versions on the card."""
 
     def __init__(
         self,
@@ -303,25 +311,28 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         subtree_fn: Optional[SclSubtreeFn] = None,
     ):
         if schedule not in (None, "scan"):
+            if schedule == "tree" and dtype == torch.int8:
+                raise ValueError("schedule='tree' does not support dtype=int8; use "
+                                 "schedule='scan' (the int8-qualified path)")
             if schedule == "tree":
                 raise NotImplementedError(
                     "LargeSCLDecoder(schedule='tree') is not ported yet (ROADMAP "
-                    "Queue 2); the scan schedule is the port's")
+                    "Queue 1); the scan schedule is the port's")
             raise ValueError(f"unknown schedule {schedule}")
-        _check_float32(dtype, "LargeSCLDecoder")
         if list_size not in SCL_LISTS:
             raise NotImplementedError(
                 f"list_size={list_size}: the chunk kernels cover L in {SCL_LISTS}")
         if carry_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError("carry_dtype is None, torch.float32 or torch.bfloat16")
         # deliberately not SCLDecoder.__init__: it builds the unrolled tree
-        self._setup(block_length, frozen_bit_positions, systematic, detector, chunk,
-                    fast_chunks, device)
+        self._setup(block_length, frozen_bit_positions, systematic, detector, dtype,
+                    chunk, fast_chunks, device)
         self.list_size = int(list_size)
         self.carry_dtype = carry_dtype
         self._sc = None
         self.tree = None
-        if subblock and self.fast_chunks and subblock < self.chunk:
+        if (subblock and self.fast_chunks and self.family == "float32"
+                and subblock < self.chunk):
             _check_pow2(subblock, "subblock")
             self.subblock = int(subblock)
             self.sub_classes = np.stack([
@@ -348,7 +359,7 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         if cls == _MIXED:
             sub = None if self._subs_t is None else self._subs_t[t]
             word, perm, metrics = self.chunk_fn(llr.contiguous(), self._masks_t[t],
-                                                metrics, sub)
+                                                metrics, sub, family=self.family)
             return word, perm.to(torch.int64), metrics
         word, perm, metrics = self.subtree_fn(
             self._leaf_scheds[cls], llr.permute(1, 2, 0).contiguous(), metrics)
@@ -359,6 +370,9 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
     def decode_packed(self, llr: torch.Tensor):
         """llr [B, N] -> (packed codeword word [N, B] i32, metrics [B, L])."""
         flat = self._check_input(llr)
+        if self.family == "char":
+            flat = flat.clamp(-127.0, 127.0)
+        f_fn, g_fn = self._fg
         n_batch, n_list = flat.shape[0], self.list_size
         n_len, n_outer = self.block_length, self.outer_stages
         cdt = self.carry_dtype or torch.float32
@@ -383,10 +397,10 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
                         par = chan if s == 1 else _take_paths(llrs[s - 2], lag_l[s - 2])
                         par = par.to(torch.float32)
                         left = _planes(bits[s - 1], lag_b[s - 1]).to(torch.float32)
-                        cur = g_update(par[..., :span], par[..., span:], 1.0 - 2.0 * left)
+                        cur = g_fn(par[..., :span], par[..., span:], 1.0 - 2.0 * left)
                     else:  # f: the parent was refreshed at this step
                         work = prev.to(torch.float32)
-                        cur = f_minsum(work[..., :span], work[..., span:])
+                        cur = f_fn(work[..., :span], work[..., span:])
                     llrs[s - 1] = cur.to(cdt)
                     lag_l[s - 1] = ident
                 prev = llrs[s - 1]

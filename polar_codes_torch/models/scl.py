@@ -14,9 +14,20 @@ Path metrics are LLR-based, higher is better; the list widens from one
 path at metric 0 until forks have produced L candidates. Gathers are real
 index gathers, so they are exact on any device.
 
+Three families, as in the JAX package (`dtype`):
+  float32  — f on the raw bits, decisions by the sign bit;
+  int8     — the reference's SclFipChar: LLRs cast to int8 and held as
+             int16 integers, saturating f/g (f_minsum_sat/g_update_sat),
+             decisions llr < 0; metrics stay float32 and exact;
+  bfloat16 — the channel LLRs rounded to bf16 on entry, bf16 state with f
+             and g computed in float32 and rounded on store. A subtree call
+             that widens the list (w_in < w_out) runs in float32 state, as
+             the JAX package's widening kernels do; the others run bf16.
+K1 runs each family as its own instantiation (ops/scl_kernel_bl.py).
+
 L = 1 is plain SC: it decodes through the Fast-SSC decoder (kernel K3,
-models/fastssc.py), as the JAX package does, and recovers the path metric
-in its telescoped codeword form.
+models/fastssc.py, float32 or int8), as the JAX package does, and recovers
+the path metric in its telescoped codeword form.
 
 The batch-first and batch-last XLA paths of the JAX package are not
 ported: the plain version of K1 plus this glue is the port's reference,
@@ -33,11 +44,11 @@ import torch
 
 from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform
-from ..ops.fg import f_minsum_bits, g_update
 from ..ops.scl_kernel_bl import (
     MAX_LIST,
     SubtreeSchedule,
     build_schedule,
+    family,
     packed_bipolar,
     scl_subtree,
     take_packed,
@@ -50,6 +61,9 @@ from .tree import CodeNode, NodeKind, build_tree
 
 _NEG = -1.0e30  # metric of an inactive list slot
 _ACTIVE_THRESHOLD = -1.0e29
+# the decoder's dtype -> the dtype of the LLR state its glue and K1 hold
+_STATE_DTYPES = {torch.float32: torch.float32, torch.int8: torch.int16,
+                torch.bfloat16: torch.bfloat16}
 
 SubtreeFn = Callable[[SubtreeSchedule, torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -79,6 +93,9 @@ class SCLDecoder:
     version on CPU tensors); pass `scl_subtree_plain` to run the plain
     version on the card explicitly. At list_size=1 the decoder is the
     Fast-SSC decoder, and subtree_fn is K3's (`fastssc_subtree_plain`).
+    dtype is torch.float32, torch.int8 or torch.bfloat16 (the module
+    docstring says what each does); list_size=1 takes float32 or int8,
+    the families of K3.
     """
 
     def __init__(
@@ -88,6 +105,7 @@ class SCLDecoder:
         list_size: int = 8,
         systematic: bool = True,
         detector: Optional[Detector] = None,
+        dtype: torch.dtype = torch.float32,
         enum_span: int = 16,
         max_enum_k: Optional[int] = None,
         kernel_span: Optional[int] = None,
@@ -101,6 +119,11 @@ class SCLDecoder:
             raise NotImplementedError(
                 f"list_size={list_size}: the packed bit word holds at most "
                 f"{MAX_LIST} paths")
+        if dtype not in _STATE_DTYPES:
+            raise ValueError(f"SCLDecoder takes float32, int8 or bfloat16 LLRs, got {dtype}")
+        if list_size == 1 and dtype == torch.bfloat16:
+            raise ValueError("list_size=1 decodes through Fast-SSC, whose kernel K3 "
+                             "has float32 and int8 families only")
         if max_enum_k is None:
             max_enum_k = 4
         if list_size == 1:  # ENUM leaves would be less greedy than SC
@@ -115,14 +138,16 @@ class SCLDecoder:
         self.info_length = int(self.info_pos.size)
         self.systematic = systematic
         self.detector = detector if detector is not None else Dummy()
+        self.dtype = dtype
+        self.state_dtype = _STATE_DTYPES[dtype]
         self.enum_span = enum_span
         self.max_enum_k = max_enum_k
         self.device = resolve_device(device)
         self._sc = None
         if self.list_size == 1:
             self._sc = FastSSCDecoder(
-                block_length, self.frozen, systematic=True, kernel_span=kernel_span,
-                device=self.device, subtree_fn=subtree_fn)
+                block_length, self.frozen, systematic=True, dtype=dtype,
+                kernel_span=kernel_span, device=self.device, subtree_fn=subtree_fn)
             kernel_span = self._sc.kernel_span
         self.kernel_span = (default_kernel_span(self.list_size, block_length)
                             if kernel_span is None else int(kernel_span))
@@ -162,31 +187,37 @@ class SCLDecoder:
         return sched
 
     def _check_input(self, llr: torch.Tensor) -> torch.Tensor:
+        """[..., N] LLRs -> [B, N] in the state dtype: float32, bf16-rounded,
+        or cast to int8 (as jnp.asarray(llr, int8) casts) and held in int16."""
         if llr.shape[-1] != self.block_length:
             raise ValueError(
                 f"expected {self.block_length} LLRs per block, got {llr.shape[-1]}")
         if llr.device != self.device:
             raise ValueError(f"decoder lives on {self.device}, LLRs on {llr.device}")
-        return llr.to(torch.float32).reshape(-1, self.block_length)
+        return llr.to(self.dtype).to(self.state_dtype).reshape(-1, self.block_length)
 
     # ---- glue above kernel_span ----------------------------------------------
 
     def _glue_node(self, node: CodeNode, llr, metrics):
         """llr [w, S, B], metrics [B, w] -> (word [S, B] i32, perm [B, w'],
         metrics [B, w']). Subtrees of span <= kernel_span, and leaves longer
-        than it, go to the subtree function whole."""
+        than it, go to the subtree function whole; a bf16 call that widens
+        the list goes in float32."""
         if node.length <= self.kernel_span or node.kind != NodeKind.BRANCH:
             sched = self.schedule(node, llr.shape[0])
+            if sched.w_out != sched.w_in and llr.dtype == torch.bfloat16:
+                llr = llr.to(torch.float32)
             return self.subtree_fn(sched, llr.contiguous(), metrics.contiguous())
+        fam = family(llr.dtype)
         half = node.length // 2
         a, b = llr[:, :half], llr[:, half:]
-        left, p_left, metrics = self._glue_node(node.left, f_minsum_bits(a, b), metrics)
+        left, p_left, metrics = self._glue_node(node.left, fam.f(a, b), metrics)
         w_mid = metrics.shape[-1]
         idx = p_left.T.to(torch.int64)[:, None, :].expand(w_mid, llr.shape[1], llr.shape[2])
         llr_g = torch.gather(llr, 0, idx)
         a, b = llr_g[:, :half], llr_g[:, half:]
         right, p_right, metrics = self._glue_node(
-            node.right, g_update(a, b, packed_bipolar(left, w_mid)), metrics)
+            node.right, fam.g(a, b, packed_bipolar(left, w_mid)), metrics)
         w_out = metrics.shape[-1]
         left = take_packed(left, p_right.T, w_out)
         perm = torch.gather(p_left, 1, p_right.to(torch.int64))
@@ -211,7 +242,7 @@ class SCLDecoder:
         """L = 1: (codeword [..., N] uint8, metric [...]) through Fast-SSC,
         with the metric 0.5 * (sum(bipolar * llr) - sum(|llr|))."""
         codeword = self._sc.decode_to_codeword(llr)
-        work = llr.to(torch.float32)
+        work = llr.to(torch.float32)  # llr in the state dtype
         bip = 1.0 - 2.0 * codeword.to(torch.float32)
         metric = 0.5 * ((bip * work).sum(-1) - work.abs().sum(-1))
         return codeword, metric
@@ -238,8 +269,7 @@ class SCLDecoder:
         the ML path if none does."""
         lead = llr.shape[:-1]
         if self._sc is not None:
-            self._check_input(llr)
-            codeword = self._sc.decode_to_codeword(llr.to(torch.float32))
+            codeword = self._sc.decode_to_codeword(self._check_input(llr).reshape(llr.shape))
             u = codeword if self.systematic else butterfly_transform(codeword)
             info = u.index_select(-1, self._info_pos_t)
             return info, codeword, self.detector.check(info)

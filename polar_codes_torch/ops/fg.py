@@ -16,17 +16,23 @@ _SIGN = -2147483648  # the float32 sign bit as an int32
 _MAG = 0x7FFFFFFF
 
 
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) with jnp.sign's rule at zero: sign(+-0) = +-0 (torch.sign
+    maps -0.0 to +0.0)."""
+    return torch.where(x == 0, x, torch.sign(x))
+
+
 def f_minsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """f(a,b) = sign(a)sign(b) * min(|a|,|b|); 0 where either input is 0."""
-    return torch.sign(a) * torch.sign(b) * torch.minimum(a.abs(), b.abs())
+    """f(a,b) = sign(a)sign(b) * min(|a|,|b|). Where an input is 0 the
+    result is a zero whose sign bit is the XOR of the inputs' sign bits,
+    as in the JAX package; on finite inputs this is f_minsum_bits bit for
+    bit."""
+    return _sign(a) * _sign(b) * torch.minimum(a.abs(), b.abs())
 
 
 def f_minsum_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """min-sum f on the raw float32 bits: sign-XOR + magnitude-min.
-
-    Equal to f_minsum except at exact zeros, where it keeps the XOR of the
-    sign bits (so -0.0 and +0.0 differ) instead of returning 0. SCL uses
-    this form."""
+    """min-sum f on the raw float32 bits: sign-XOR + magnitude-min. SCL
+    uses this form."""
     ai = a.contiguous().view(torch.int32)
     bi = b.contiguous().view(torch.int32)
     sign = (ai ^ bi) & _SIGN
@@ -55,9 +61,7 @@ def g_update_i8(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) ->
 def f_minsum_sat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Char min-sum f on integers held in a float tensor, computed in
     float32 and returned in a's dtype (value-equal to f_minsum_i8)."""
-    a32, b32 = a.to(torch.float32), b.to(torch.float32)
-    sign = torch.sign(a32) * torch.sign(b32)
-    return (sign * torch.minimum(a32.abs(), b32.abs())).to(a.dtype)
+    return f_minsum(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
 
 
 def g_update_sat(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -> torch.Tensor:

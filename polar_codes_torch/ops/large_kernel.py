@@ -13,9 +13,16 @@ so one kernel serves every chunk of every code:
                          -> (bits [B, M] i32, perm [B, L] i32,
                              metrics [B, L] f32)
 
-K6 is plain SC with the product-form f (ops/fg.py f_minsum) and a hard
-decision by the sign bit at each span-1 leaf, frozen leaves forced to 0.
-x is the chunk's codeword segment, u its leaf decisions.
+each in two families, named by `family` (the TPU kernels' int8 flag):
+"float32", and "char", the int8 decoders' integer-valued LLRs in the same
+float32 interface, with g clipped to [-127, 127] (g_update_sat) and hard
+decisions llr < 0, so 0 decides bit 0. f is never clipped: an input of
+-128 gives |f| = 128, which float32 holds.
+
+K6 is plain SC with the product-form f (ops/fg.py f_minsum, which keeps
+the JAX package's signed zeros) and a hard decision at each span-1 leaf
+(float32: the sign bit, so -0.0 decides 1), frozen leaves forced to 0. x is
+the chunk's codeword segment, u its leaf decisions.
 
 K7 is bitwise SCL: every span-1 leaf forks each path into {keep, flip}
 with deltas {0, -|llr|} (a frozen leaf: {min(llr, 0), _NEG}, so the flip
@@ -38,8 +45,7 @@ slots.
 tensors and the CUDA kernels for CUDA tensors, never one in place of the
 other. The plain versions recurse over the chunk in torch ops and sum in
 span order, as the kernels do, and the build disables FMA contraction, so
-each pair agrees bit for bit. At an exact zero, torch.sign drops the sign
-of -0.0, and K6's f does the same (the JAX package's sign keeps it).
+each pair agrees bit for bit.
 """
 
 from __future__ import annotations
@@ -52,9 +58,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .fg import f_minsum, f_minsum_bits, g_update
+from .fg import f_minsum, f_minsum_sat
 from .scl_kernel_bl import (
     SPC_TABLE,
+    _Char,
+    _Float,
     _Plain,
     pack01,
     packed_bipolar,
@@ -68,7 +76,13 @@ _NEG = -1.0e30  # metric of an inactive list slot (models/scl.py)
 MAX_SC_CHUNK = 8192  # K6 keeps 2M f32 LLRs and 2M bytes of bits on chip
 SCL_LISTS = (2, 4, 8, 16, 32)
 MAX_SCL_SMEM = 200 * 1024  # K7's LLR pyramid and bit words, per codeword
-LAUNCHES: Dict[str, int] = {"sc": 0, "scl": 0}  # since the counts were last reset
+# kernel launches since the counts were last reset: "sc"/"scl" the float32
+# family, "sc_char"/"scl_char" the char family
+LAUNCHES: Dict[str, int] = {"sc": 0, "scl": 0, "sc_char": 0, "scl_char": 0}
+# the chunk kernels' families: K1's rule sets on float32 state (their
+# codes are the kernels' family codes too); K6's f is the product form
+_FAMILIES = {"float32": _Float, "char": _Char}
+_SC_F = {"float32": f_minsum, "char": f_minsum_sat}
 
 # class code (models/large.py _MIXED.._SPC) -> SSCL leaf rule of a sub-block
 _SUB_KINDS = (None, NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)
@@ -86,22 +100,30 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _check_family(family: str) -> None:
+    if family not in _FAMILIES:
+        raise ValueError(f"the chunk kernels' families are float32 and char, got {family!r}")
+
+
 # ---- K6: masked SC ---------------------------------------------------------
 
-def masked_sc_chunk_plain(llr: torch.Tensor, mask: torch.Tensor):
+def masked_sc_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
+                          family: str = "float32"):
     """Plain version of K6 on any device: llr [B, M] f32, mask [M] (nonzero
     = frozen) -> (x, u) [B, M] bipolar f32."""
+    _check_family(family)
     frozen = mask.cpu().numpy() != 0
+    f_fn, g_fn, hard = _SC_F[family], _FAMILIES[family].g, _FAMILIES[family].hard
 
     def rec(x, lo):
         m = x.shape[1]
         if m == 1:
-            u = torch.ones_like(x) if frozen[lo] else 1.0 - 2.0 * torch.signbit(x).to(x.dtype)
+            u = torch.ones_like(x) if frozen[lo] else 1.0 - 2.0 * hard(x).to(x.dtype)
             return u, u
         half = m // 2
         a, b = x[:, :half], x[:, half:]
-        x_l, u_l = rec(f_minsum(a, b), lo)
-        x_r, u_r = rec(g_update(a, b, x_l), lo + half)
+        x_l, u_l = rec(f_fn(a, b), lo)
+        x_r, u_r = rec(g_fn(a, b, x_l), lo + half)
         return torch.cat([x_l * x_r, x_r], dim=1), torch.cat([u_l, u_r], dim=1)
 
     return rec(llr, 0)
@@ -109,17 +131,18 @@ def masked_sc_chunk_plain(llr: torch.Tensor, mask: torch.Tensor):
 
 def _bind_sc(lib):
     fn = lib.masked_sc_chunk
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def masked_sc_chunk(llr: torch.Tensor, mask: torch.Tensor):
-    """K6: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (same signature as masked_sc_chunk_plain; the mask is uint8 on
-    the card)."""
+def masked_sc_chunk(llr: torch.Tensor, mask: torch.Tensor, family: str = "float32"):
+    """K6: the plain version for CPU tensors, the CUDA kernel of `family`
+    for CUDA tensors (same signature as masked_sc_chunk_plain; the mask is
+    uint8 on the card)."""
+    _check_family(family)
     if llr.device.type == "cpu":
-        return masked_sc_chunk_plain(llr, mask)
+        return masked_sc_chunk_plain(llr, mask, family)
     if llr.device.type != "cuda" or mask.device != llr.device:
         raise ValueError(
             f"masked_sc_chunk takes CPU or CUDA tensors on one device, got "
@@ -136,10 +159,10 @@ def masked_sc_chunk(llr: torch.Tensor, mask: torch.Tensor):
     x = torch.empty_like(llr)
     u = torch.empty_like(llr)
     err = fn(llr.data_ptr(), mask.data_ptr(), x.data_ptr(), u.data_ptr(), m_len,
-             n_batch, _stream(llr.device))
+             n_batch, _FAMILIES[family].code, _stream(llr.device))
     if err:
         raise RuntimeError(f"masked_sc_chunk launch failed: CUDA error {err}")
-    LAUNCHES["sc"] += 1
+    LAUNCHES["sc" if family == "float32" else "sc_char"] += 1
     return x, u
 
 
@@ -155,14 +178,19 @@ def _sub_leaf(kind: NodeKind, span: int) -> CodeNode:
 
 def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
                            metrics: torch.Tensor,
-                           sub_cls: Optional[torch.Tensor] = None):
+                           sub_cls: Optional[torch.Tensor] = None,
+                           family: str = "float32"):
     """Plain version of K7 on any device (same signature as
-    masked_scl_chunk). Works in K1's [w, S, B] layout with packed words."""
+    masked_scl_chunk). Works in K1's [w, S, B] layout with packed words,
+    with K1's rules of the family on float32 state; f is the sign-XOR form
+    in both families (on integers it is the char family's product form)."""
+    _check_family(family)
     n_list, m_len = llr.shape[1], llr.shape[2]
     frozen = mask.cpu().numpy() != 0
     codes = None if sub_cls is None else sub_cls.cpu().numpy().tolist()
     sub = None if codes is None else m_len // len(codes)
-    plain = _Plain(n_list, drop=_NEG)
+    fam = _FAMILIES[family]
+    plain = _Plain(n_list, drop=_NEG, fam=fam)
 
     def bit_leaf(x, lo, mets):
         work = x[:, 0]
@@ -173,7 +201,7 @@ def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
         new_m, src, cand = plain.prune(mets, deltas)
         if frozen[lo]:
             return torch.zeros_like(work[:1], dtype=torch.int32), src, new_m
-        hard = torch.signbit(x).to(torch.int32)
+        hard = fam.hard(x).to(torch.int32)
         return pack01(take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]), src, new_m
 
     def node(x, lo, mets, dispatch):
@@ -187,11 +215,11 @@ def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
             return node(x, lo, mets, False)
         half = m // 2
         a, b = x[:, :half], x[:, half:]
-        left, p_left, mets = node(f_minsum_bits(a, b), lo, mets, dispatch)
+        left, p_left, mets = node(_Float.f(a, b), lo, mets, dispatch)
         if p_left is not None:
             xg = take_state(x, p_left)
             a, b = xg[:, :half], xg[:, half:]
-        right, p_right, mets = node(g_update(a, b, packed_bipolar(left, n_list)),
+        right, p_right, mets = node(fam.g(a, b, packed_bipolar(left, n_list)),
                                     lo + half, mets, dispatch)
         if p_right is not None:
             left = take_packed(left, p_right, n_list)
@@ -247,20 +275,21 @@ def _scl_consts(m_len: int, sub: int, dev: torch.device):
 def _bind_scl(lib):
     fn = lib.masked_scl_chunk
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor,
-                     sub_cls: Optional[torch.Tensor] = None):
+                     sub_cls: Optional[torch.Tensor] = None, family: str = "float32"):
     """K7: (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32, sub_cls
     [M / sub] i32 or None) -> (bits [B, M] i32, perm [B, L] i32, metrics
-    [B, L] f32). The plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+    [B, L] f32). The plain version for CPU tensors, the CUDA kernel of
+    `family` for CUDA tensors."""
+    _check_family(family)
     if llr.device.type == "cpu":
-        return masked_scl_chunk_plain(llr, mask, metrics, sub_cls)
+        return masked_scl_chunk_plain(llr, mask, metrics, sub_cls, family)
     dev = llr.device
     args = [mask, metrics] + ([] if sub_cls is None else [sub_cls])
     if dev.type != "cuda" or any(t.device != dev for t in args):
@@ -298,8 +327,8 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
              mask.data_ptr(), metrics.data_ptr(),
              (none if sub_cls is None else sub_cls).data_ptr(), sub,
              bits.data_ptr(), perm.data_ptr(), met.data_ptr(), n_list, m_len, n_batch,
-             _stream(dev))
+             _FAMILIES[family].code, _stream(dev))
     if err:
         raise RuntimeError(f"masked_scl_chunk launch failed: CUDA error {err}")
-    LAUNCHES["scl"] += 1
+    LAUNCHES["scl" if family == "float32" else "scl_char"] += 1
     return bits, perm, met

@@ -5,18 +5,30 @@ Counterpart of polar_codes_tpu/ops/scl_kernel_bl.py: one call decodes a
 whole span <= kernel_span subtree for a batch of codewords, in the TPU
 kernel's batch-minor layouts,
 
-    (llr [w_in, span, B] f32, metrics [B, w_in] f32)
+    (llr [w_in, span, B], metrics [B, w_in] f32)
         -> (bits [span, B] i32, perm [B, w_out] i32, metrics [B, w_out] f32)
 
 with bit l of a bits word holding path l's decision (the bitplane form,
 L <= 32) and perm mapping each output slot to the input slot it descends
 from. The TPU kernel is traced per subtree; here `build_schedule` flattens
 the subtree once on the host into a post-order op list (F, G, COMBINE,
-LEAF), and one CUDA kernel per list size runs any schedule.
+LEAF), and one CUDA kernel per list size and family runs any schedule.
+
+Three arithmetic families, chosen by the dtype of the LLR state (the
+three branches of the JAX _BlEmitter):
+  float32   f on the raw bits, g = b +- a, decisions by the sign bit;
+  char      int16 state holding the int8 decoder's integer LLRs (the TPU
+            kernel holds them in bf16): f in product form, unclipped, so an
+            input of -128 gives |f| = 128; g clipped to [-127, 127];
+            decisions llr < 0, so 0 decides bit 0;
+  bfloat16  bf16 state: f and g computed in float32 and rounded once on
+            store; decisions by the sign bit.
+Leaves read the state as float32 in every family, and metric sums
+accumulate in float32.
 
 `scl_subtree` runs `scl_subtree_plain` for tensors on the CPU and the CUDA
 kernel for tensors on the card, never one in place of the other.
-`scl_subtree_plain` is _BlEmitter's bitplane f32 path in torch ops on
+`scl_subtree_plain` is _BlEmitter's bitplane path in torch ops on
 [w, S, B] tensors: it walks the node tree itself and does not read the op
 list, so the two versions check each other. Its sums run sequentially over
 the span, in the kernel's order, so the two agree bit for bit.
@@ -32,13 +44,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .fg import f_minsum_bits, g_update
+from .fg import f_minsum, f_minsum_bits, f_minsum_sat, g_update, g_update_sat
 from ..models.tree import CodeNode, NodeKind
 
 MAX_LIST = 32  # the path axis packs into one int32 word
 MAX_CAND = 32  # candidate slots per path in the kernel (ENUM k <= 5)
 MAX_LEVELS = 16  # tree levels per subtree in the kernel
-LAUNCHES = 0  # kernel launches since the count was last reset
+# kernel launches per family since the counts were last reset
+LAUNCHES = {"float32": 0, "char": 0, "bfloat16": 0}
 
 OP_F, OP_G, OP_COMBINE, OP_LEAF = 0, 1, 2, 3
 _KIND_CODE = {
@@ -218,6 +231,50 @@ def take_vec(v: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 0, src.to(torch.int64))
 
 
+# ---- the arithmetic families -----------------------------------------------
+
+class _Float:
+    name, code = "float32", 0
+    f = staticmethod(f_minsum_bits)
+    g = staticmethod(g_update)
+    hard = staticmethod(torch.signbit)
+
+
+class _Char:
+    name, code = "char", 1
+    f = staticmethod(f_minsum_sat)
+    g = staticmethod(g_update_sat)
+
+    @staticmethod
+    def hard(x):
+        return x < 0
+
+
+class _Bf16:
+    name, code = "bfloat16", 2
+    hard = staticmethod(torch.signbit)
+
+    @staticmethod
+    def f(a, b):
+        return f_minsum(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
+
+    @staticmethod
+    def g(a, b, left_bipolar):
+        return g_update(a, b, left_bipolar.to(a.dtype))
+
+
+FAMILIES = {torch.float32: _Float, torch.int16: _Char, torch.bfloat16: _Bf16}
+
+
+def family(dtype: torch.dtype):
+    """The arithmetic family of an LLR state dtype (float32, int16 for the
+    char family, bfloat16)."""
+    fam = FAMILIES.get(dtype)
+    if fam is None:
+        raise ValueError(f"K1 takes float32, int16 (char) or bfloat16 LLRs, got {dtype}")
+    return fam
+
+
 # ---- the plain version -----------------------------------------------------
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -230,8 +287,8 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Plain:
-    """_BlEmitter's bitplane f32 path on [w, S, B] tensors. Perms are
-    [w, B] int64 tensors, or None for the identity.
+    """_BlEmitter's bitplane path on [w, S, B] tensors, in the arithmetic
+    family `fam`. Perms are [w, B] int64 tensors, or None for the identity.
 
     `drop` is the value a prune round leaves on the candidate it took:
     -inf takes every candidate once (K1, where no candidate sits at the
@@ -239,9 +296,10 @@ class _Plain:
     kernel's _NEG, so once only values <= _NEG remain a taken candidate
     can be taken again (ops/large_kernel.py)."""
 
-    def __init__(self, list_size: int, drop: float = float("-inf")):
+    def __init__(self, list_size: int, drop: float = float("-inf"), fam=_Float):
         self.n_list = list_size
         self.drop = drop
+        self.fam = fam
 
     def prune(self, metrics, deltas):
         """metrics [w, B], deltas [C, w, B] -> (metrics' [w', B],
@@ -281,8 +339,9 @@ class _Plain:
         return ms, idxs
 
     def leaf(self, node: CodeNode, llr, metrics):
+        llr = llr.to(torch.float32)  # leaves compute in float32 in every family
         span = llr.shape[1]
-        hard = torch.signbit(llr).to(torch.int32)
+        hard = self.fam.hard(llr).to(torch.int32)
         pos = torch.arange(span, device=llr.device)[None, :, None]
         if node.kind == NodeKind.RATE0:
             zeros = torch.zeros(llr.shape[1:], dtype=torch.int32, device=llr.device)
@@ -347,13 +406,13 @@ class _Plain:
             return self.leaf(node, llr, metrics)
         half = node.length // 2
         a, b = llr[:, :half], llr[:, half:]
-        left, p_left, metrics = self.node(node.left, f_minsum_bits(a, b), metrics)
+        left, p_left, metrics = self.node(node.left, self.fam.f(a, b), metrics)
         w_mid = metrics.shape[0]
         if p_left is not None:
             llr_g = take_state(llr, p_left)
             a, b = llr_g[:, :half], llr_g[:, half:]
         right, p_right, metrics = self.node(
-            node.right, g_update(a, b, packed_bipolar(left, w_mid)), metrics)
+            node.right, self.fam.g(a, b, packed_bipolar(left, w_mid)), metrics)
         if p_right is not None:
             left = take_packed(left, p_right, metrics.shape[0])
         perm = p_right if p_left is None else (
@@ -363,10 +422,11 @@ class _Plain:
 
 def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
                       metrics: torch.Tensor):
-    """Plain version of K1, on any device: (llr [w_in, span, B] f32,
-    metrics [B, w_in] f32) -> (bits [span, B] i32, perm [B, w_out] i32,
-    metrics [B, w_out] f32)."""
-    word, perm, met = _Plain(sched.list_size).node(sched.node, llr, metrics.T)
+    """Plain version of K1, on any device: (llr [w_in, span, B] float32,
+    int16 or bfloat16, which picks the family; metrics [B, w_in] f32) ->
+    (bits [span, B] i32, perm [B, w_out] i32, metrics [B, w_out] f32)."""
+    plain = _Plain(sched.list_size, fam=family(llr.dtype))
+    word, perm, met = plain.node(sched.node, llr, metrics.T)
     if perm is None:
         perm = torch.arange(met.shape[0], device=llr.device)[:, None].expand_as(met)
     return (word.to(torch.int32).contiguous(), perm.T.to(torch.int32).contiguous(),
@@ -376,14 +436,14 @@ def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
 def _bind(lib):
     fn = lib.scl_subtree
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
-    """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (same signature as scl_subtree_plain)."""
+    """K1: the plain version for CPU tensors, the CUDA kernel of the LLRs'
+    family for CUDA tensors (same signature as scl_subtree_plain)."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -391,8 +451,10 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
             f"scl_subtree takes CPU or CUDA tensors on one device, got "
             f"{llr.device} and {metrics.device}")
     n_batch = llr.shape[-1]
-    if llr.dtype != torch.float32 or metrics.dtype != torch.float32:
-        raise ValueError("scl_subtree takes float32 LLRs and metrics")
+    fam = FAMILIES.get(llr.dtype)
+    if fam is None or metrics.dtype != torch.float32:
+        raise ValueError("scl_subtree takes float32, int16 (char) or bfloat16 LLRs "
+                         f"and float32 metrics, got {llr.dtype} and {metrics.dtype}")
     if llr.shape != (sched.w_in, sched.span, n_batch) or metrics.shape != (n_batch, sched.w_in):
         raise ValueError(
             f"scl_subtree expects llr [{sched.w_in}, {sched.span}, B] and metrics "
@@ -407,17 +469,16 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     ops, masks, spc = sched.device_consts(llr.device)
     dev = llr.device
     scratch = torch.empty(max(sched.list_size * sched.span * n_batch, 1),
-                          dtype=torch.float32, device=dev)
+                          dtype=llr.dtype, device=dev)
     bits = torch.empty((sched.span, n_batch), dtype=torch.int32, device=dev)
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
     err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
              llr.data_ptr(), metrics.data_ptr(), scratch.data_ptr(),
              bits.data_ptr(), perm.data_ptr(), met.data_ptr(), sched.list_size,
-             sched.w_in, sched.w_out, sched.span, n_batch,
+             sched.w_in, sched.w_out, sched.span, n_batch, fam.code,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"scl_subtree launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES[fam.name] += 1
     return bits, perm, met

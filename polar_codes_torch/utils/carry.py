@@ -18,6 +18,9 @@ state keys:
     detector      str, the detector's name ("crc16", "crc32", "dummy", ...)
     list_size     int                             (scl, adaptive, large_scl)
     enum_span     int, max_enum_k int                   (scl)
+    dtype         optional str, "float32" (default), "int8" or "bfloat16":
+                  the decoder's LLR family      (scl; large_sc and
+                  large_scl take float32 or int8)
     fast_dtype    optional str, "float32" or "int8"     (fastssc, adaptive)
     list_schedule optional int sequence                 (adaptive)
     iterations    optional int                          (scan, fastsscan)
@@ -73,6 +76,7 @@ def _same(name: str, carried, ours) -> None:
 
 _FAST_DTYPES = {"float32": torch.float32, "int8": torch.int8}
 _CARRY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "int8": torch.int8, "bfloat16": torch.bfloat16}
 
 
 def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
@@ -80,9 +84,10 @@ def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
     family = str(state.get("family", "scl"))
     common = dict(systematic=systematic, detector=detector, device=device)
     fast_dtype = _FAST_DTYPES[str(state.get("fast_dtype", "float32"))]
+    dtype = _DTYPES[str(state.get("dtype", "float32"))]
     if family == "scl":
         return SCLDecoder(
-            block_length, frozen, list_size=int(state["list_size"]),
+            block_length, frozen, list_size=int(state["list_size"]), dtype=dtype,
             enum_span=int(state["enum_span"]), max_enum_k=int(state["max_enum_k"]),
             **common)
     if family == "fastssc":
@@ -99,13 +104,13 @@ def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
         return cls(block_length, frozen, iterations=int(state.get("iterations", 1)),
                    **common)
     if family == "large_sc":
-        return LargeSCDecoder(block_length, frozen, chunk=int(state["chunk"]),
+        return LargeSCDecoder(block_length, frozen, dtype=dtype, chunk=int(state["chunk"]),
                               fast_chunks=bool(state["fast_chunks"]), **common)
     if family == "large_scl":
         sub = state.get("subblock")
         carry = state.get("carry_dtype")
         return LargeSCLDecoder(
-            block_length, frozen, list_size=int(state["list_size"]),
+            block_length, frozen, list_size=int(state["list_size"]), dtype=dtype,
             chunk=int(state["chunk"]), fast_chunks=bool(state["fast_chunks"]),
             subblock=None if sub is None else int(sub),
             carry_dtype=None if carry is None else _CARRY_DTYPES[str(carry)], **common)

@@ -3,9 +3,8 @@
 its kernels in interpret mode, plus the host data, the carry and the
 wrappers' dispatch.
 
-The JAX reference is the Pallas arm, not the XLA one: the XLA chunk body
-uses the product-form f where K7 uses the sign-XOR form, and at exact zeros
-the two are different functions. The JAX decoders run with unroll=1, which
+The JAX reference is the Pallas arm, whose kernels the port's chunk
+kernels replace. The JAX decoders run with unroll=1, which
 does not change the result (tests/test_large.py
 test_unroll_invariance_many_chunks) and keeps their compile short.
 
@@ -309,12 +308,18 @@ def test_chunk_kernels_never_fall_back(monkeypatch):
 
 
 def test_unported_arms_raise():
+    """schedule="tree" is the one arm left to port; with int8 it raises
+    ValueError, as in the JAX package, which qualifies int8 on the scan
+    schedule only."""
     frozen = frozen_bits(1024, 512, 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        large.LargeSCDecoder(1024, frozen, dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        large.LargeSCLDecoder(1024, frozen, dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="tree"):
         large.LargeSCLDecoder(1024, frozen, schedule="tree", device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        large.LargeSCLDecoder(1024, frozen, schedule="tree", dtype=torch.int8,
+                              device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        jlarge.LargeSCLDecoder(1024, frozen, schedule="tree", dtype=jnp.int8)
+    with pytest.raises(ValueError, match="float32 or int8"):
+        large.LargeSCDecoder(1024, frozen, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError, match="power of 2"):
         large.LargeSCDecoder(1024, frozen, chunk=100, device="cpu")

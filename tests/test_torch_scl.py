@@ -194,7 +194,7 @@ def test_subtree_kernel_never_falls_back(monkeypatch):
         met = torch.empty((16, 1), device="cuda")
     called = []
     monkeypatch.setattr(kbl, "scl_subtree_plain", lambda *a: called.append(a))
-    before = kbl.LAUNCHES
+    before = dict(kbl.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
         kbl.scl_subtree(sched, llr, met)
     with pytest.raises(ValueError, match="expects llr"):
