@@ -52,7 +52,11 @@ for the pure chunks).
      spread over one decode: x and u bit-equal
  14. K7 likewise, the calls including a chunk with every sub-block class:
      bits and perms equal, metrics within 1e-4; then K7 at L = 2, 4, 16,
-     32 with and without sub-blocks, and K6 at chunks 64, 1024 and 8192
+     32 with and without sub-blocks, and K6 at chunks 64, 1024 and 8192;
+     then the branches of the redesigned kernels: K6 on masks with rate-0 runs
+     at every span, all-frozen and all-free chunks (64, 2048, 8192), K7 at
+     L = 2..32 with and without sub-blocks on integer LLRs in [-2, 2]
+     (ties, signed zeros), half the rows with one live path
  15. both paths end to end, 4 x 128 blocks each (SCL at 2 dB and at a
      lower Eb/N0 where blocks fail): BLER, CRC failures (every one a wrong
      block), decisions equal to a decode by the plain versions on the card
@@ -77,7 +81,8 @@ K1 bf16), and both large-N decoders with dtype=int8 on quantised LLRs
  20. K6 char and K7 char against their plain versions on >= 8 calls spread
      over one full-width int8 decode each: K6 bit-equal, K7 bits and perms
      equal and metrics exactly equal; K6 (both families), K4 and K5
-     bit-equal on integer LLRs in [-2, 2], where f meets signed zeros
+     bit-equal on integer LLRs in [-2, 2], where f meets signed zeros;
+     the char families on phase 14's rate-0 masks and ties
  21. both int8 large-N paths end to end, 4 x 128 blocks each at 2 dB:
      BLER, CRC failures (every one a wrong block), decisions equal to a
      plain decode of one batch
@@ -746,6 +751,93 @@ def k7_work(sched, codes, n_list, n_batch):
     return n_bytes, n_ops * n_batch
 
 
+def rate0_mask(m_len, gen, dev):
+    """A random mask with all-frozen (rate-0) runs at every aligned span
+    from 2 to M/2, which K6 skips whole."""
+    import torch
+
+    mask = (torch.rand(m_len, generator=gen, device=dev) < 0.5).to(torch.uint8)
+    span = 2
+    while span <= m_len // 2:
+        n_nodes = m_len // span
+        pick = torch.randperm(n_nodes, generator=gen, device=dev)[: max(1, n_nodes // 16)]
+        mask.view(n_nodes, span)[pick] = 1
+        span *= 2
+    return mask
+
+
+def rate0_shares(calls):
+    """Per K6 call (llr, mask, ...): the share of the chunk's leaves inside
+    all-frozen aligned nodes of span 32 (K6 skips them with no f/g and no
+    register leaf) and of span 2 (every rate-0 subtree it skips at some
+    level)."""
+    def share(mask, span):
+        return float(mask.reshape(-1, span).bool().all(1).float().mean())
+
+    return {"rate0_leaf_share_span32": [share(c[1], 32) for c in calls],
+            "rate0_leaf_share_span2": [share(c[1], 2) for c in calls]}
+
+
+def check_k6_masks(family, gen, dev):
+    """K6 of `family` against its plain version at chunks 64, 2048 and
+    8192, on a mask with rate-0 runs at every span, an all-frozen and an
+    all-free chunk. Returns the largest |difference| (0)."""
+    import torch
+
+    from polar_codes_torch.ops import large_kernel as lk
+
+    err = 0.0
+    for m_len in (64, CHUNK_SC, 4 * CHUNK_SC):
+        x = torch.randn((B_SHAPES, m_len), generator=gen, device=dev) * 2.0 + 0.5
+        if family == "char":
+            x = torch.clamp(torch.round(x * AMPL), -127, 127)
+        masks = {"rate-0 runs": rate0_mask(m_len, gen, dev),
+                 "all frozen": torch.ones(m_len, dtype=torch.uint8, device=dev),
+                 "all free": torch.zeros(m_len, dtype=torch.uint8, device=dev)}
+        for name, mask in masks.items():
+            for got, want in zip(lk.masked_sc_chunk(x, mask, family),
+                                 lk.masked_sc_chunk_plain(x, mask, family)):
+                err = max(err, _equal(f"K6 {family}, chunk {m_len}, {name}", got, want))
+    return err
+
+
+def check_k7_ties(family, mask, sub_cls, gen, dev):
+    """K7 of `family` against its plain version at L = 2..32, with and
+    without sub-blocks, on integer LLRs in [-2, 2] (ties, signed zeros)
+    and integer metrics, half the rows with one live path and the others
+    with 0 to L - 1 at random slots. Returns the largest metric
+    |difference|."""
+    import torch
+
+    from polar_codes_torch.ops import large_kernel as lk
+
+    err = 0.0
+    m_len = mask.numel()
+    for n_list in lk.SCL_LISTS:
+        for cls in (sub_cls, None):
+            x = torch.randint(-2, 3, (B_SHAPES, n_list, m_len), generator=gen,
+                              device=dev).to(torch.float32)
+            met = torch.randint(-3, 1, (B_SHAPES, n_list), generator=gen,
+                                device=dev).to(torch.float32)
+            met[::2, 1:] = NEG  # half the rows start with one live path
+            met[::2, 0] = 0.0
+            # the other half: 0 to L - 1 live paths at random slots
+            n_live = torch.randint(0, n_list, (B_SHAPES, 1), generator=gen, device=dev)
+            slot = torch.rand((B_SHAPES, n_list), generator=gen, device=dev).argsort(1)
+            met[1::2] = torch.where((slot >= n_live)[1::2], NEG, met[1::2])
+            where = f"K7 {family} on ties, L={n_list}, sub-blocks {cls is not None}"
+            bits, perm, m_out = lk.masked_scl_chunk(x, mask, met, cls, family)
+            pb, pp, pm = lk.masked_scl_chunk_plain(x, mask, met, cls, family)
+            _equal(where + " bits", bits, pb)
+            _equal(where + " perm", perm, pp)
+            if family == "char":
+                err = max(err, _equal(where + " metrics", m_out, pm))
+            else:
+                torch.testing.assert_close(m_out, pm, rtol=TOL, atol=TOL)
+                err = max(err, max_err(m_out, pm))
+    return err
+
+
 def run_slice3(card):
     """Phases 13-17. Returns {"kernels": [...], "launches": {...}}."""
     import torch
@@ -874,6 +966,12 @@ def run_slice3(card):
                      _equal(f"K6 u, chunk {m_len}", ku, pu))
     print(f"K7 at L in (2, 4, 16, 32), with and without sub-blocks, and K6 at chunks "
           f"64, {CHUNK_SC // 2}, {4 * CHUNK_SC}: equal to their plain versions")
+    # the redesign's branches: K6's rate-0 skips, K7's rank prune on ties
+    # and its re-take rule on rows with one live path
+    k6_err = max(k6_err, check_k6_masks("float32", gen, dev))
+    k7_err = max(k7_err, check_k7_ties("float32", mask7, sub7, gen, dev))
+    print("K6 float32 on rate-0 runs, all-frozen and all-free chunks; K7 float32 on "
+          "integer LLRs at L in (2, 4, 8, 16, 32): equal to their plain versions")
 
     # 15, 16 --------------------------------------------------------------
     phase("15 large-N paths end to end; 16 launch counts")
@@ -952,7 +1050,7 @@ def run_slice3(card):
     k7_work_all = [k7_work(sched7, c[3].tolist(), LIST, B3) for c in k7_held]
     i7 = k7_ms.index(med(k7_ms))
     emit({"kernel": "masked_sc_chunk", "batch": B3, "chunk": CHUNK_SC,
-          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, "card": card})
+          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, **rate0_shares(k6_held), "card": card})
     emit({"kernel": "masked_scl_chunk", "batch": B3, "chunk": CHUNK_SCL, "list": LIST,
           "ms_per_call": k7_ms, "plain_ms": k7_plain_ms, "card": card})
     emit({"metric": "large_sc_decode", "n": N_SC, "batch": B3, "ms": sc_ms,
@@ -966,12 +1064,14 @@ def run_slice3(card):
     kernels = [
         {"name": "masked_sc_chunk[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_sc_chunk.cu",
+         "redesigned": "rate-0 skipping, span-32 nodes in registers",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:253",
          "launches": launches_sc["masked_sc_chunk"], "launches_per_decode": mixed_sc,
          "max_abs_err": k6_err, "ms": med(k6_ms), "plain_ms": k6_plain_ms,
          **bound(k6_bytes, k6_ops), "library_ms": None},
         {"name": "masked_scl_chunk[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_scl_chunk.cu",
+         "redesigned": "warp-synchronous walk, prune by rank",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
          "launches": launches_scl["masked_scl_chunk"], "launches_per_decode": mixed_scl,
          "max_abs_err": k7_err, "ms": k7_ms[i7], "plain_ms": k7_plain_ms,
@@ -993,7 +1093,8 @@ def run_slice4(card):
     from polar_codes_torch.dsp import Awgn, Bpsk
     from polar_codes_torch.models.detectors import CRC16, CRC32
     from polar_codes_torch.models.encoder import PolarEncoder
-    from polar_codes_torch.models.large import _MIXED, LargeSCDecoder, LargeSCLDecoder
+    from polar_codes_torch.models.large import (
+        _MIXED, LargeSCDecoder, LargeSCLDecoder, _classify_chunks)
     from polar_codes_torch.models.scan import ScanDecoder
     from polar_codes_torch.models.scl import SCLDecoder
     from polar_codes_torch.ops import large_kernel as lk
@@ -1179,6 +1280,15 @@ def run_slice4(card):
                          sk.scan_step_plain(scan.sched, xz, mem0)):
         _equal("K5 betas and memory on zeros", got, want)
     print("K6 (both families), K4 and K5 bit-equal on LLRs in [-2, 2]")
+    k6_err = max(k6_err, check_k6_masks("char", gen, dev))
+    # the chunk whose sub-blocks of SUB have the most classes
+    codes, mask7 = max(((_classify_chunks(list(c[1].cpu().numpy().reshape(-1, SUB))), c[1])
+                        for c in k7_calls), key=lambda cm: len(set(cm[0].tolist())))
+    sub7 = torch.as_tensor(codes, dtype=torch.int32, device=dev)
+    k7_err = max(k7_err, check_k7_ties("char", mask7, sub7, gen, dev))
+    print("K6 char on rate-0 runs, all-frozen and all-free chunks; K7 char on integer "
+          "LLRs at L in (2, 4, 8, 16, 32), with and without sub-blocks: equal to their "
+          "plain versions")
 
     # 21, 22 --------------------------------------------------------------
     phase("21 int8 large-N paths end to end; 22 launch counts")
@@ -1247,7 +1357,7 @@ def run_slice4(card):
                             reps=REPS)
     med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
     emit({"kernel": "masked_sc_chunk[char]", "batch": B3, "chunk": CHUNK_SC,
-          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, "card": card})
+          "ms_per_call": k6_ms, "plain_ms": k6_plain_ms, **rate0_shares(k6_held), "card": card})
     emit({"kernel": "masked_scl_chunk[char]", "batch": B3, "chunk": CHUNK_SCL, "list": LIST,
           "ms_per_call": k7_ms, "plain_ms": k7_plain_ms, "card": card})
     for name, (path_det, _, _) in paths.items():
@@ -1279,12 +1389,14 @@ def run_slice4(card):
     kernels += [
         {"name": "masked_sc_chunk[char]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_sc_chunk.cu",
+         "redesigned": "rate-0 skipping, span-32 nodes in registers",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:253",
          "launches": launches["large_sc_int8"]["masked_sc_chunk[char]"],
          "launches_per_decode": sc.n_chunks, "max_abs_err": k6_err, "ms": med(k6_ms),
          "plain_ms": k6_plain_ms, **bound(*k6_work(CHUNK_SC, B3)), "library_ms": None},
         {"name": "masked_scl_chunk[char]", "route": "cuda",
          "source": "polar_codes_torch/csrc/large_scl_chunk.cu",
+         "redesigned": "warp-synchronous walk, prune by rank",
          "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
          "launches": launches["large_scl_int8"]["masked_scl_chunk[char]"],
          "launches_per_decode": scl.n_chunks, "max_abs_err": k7_err, "ms": k7_ms[i7],

@@ -18,30 +18,40 @@
 //            llr < 0 (0 decides 0). f is not clipped: an input of -128
 //            gives |f| = 128, which f32 holds exactly.
 //
-// Walk: the chunk's tree is full, so no schedule is passed. Leaves are
-// taken in pairs (the span-2 nodes at level D-1, D = log2 M); before pair
-// p, the levels d >= D-1 - tz(p) are refreshed top down (f for a left
-// child, g for a right one, reading the left sibling's partial sums in
-// place), one lane decodes the pair, and tz(~p) combines climb back up:
-// the same trigger and climb rules as the outer loop of the decoder.
+// Walk: the chunk's tree is full, so no schedule is passed. One warp
+// decodes one codeword. Above span 32 the walk's leaves are the span-32
+// nodes (level dl = log2 M - 5): before leaf k the levels d >= dl - tz(k)
+// are refreshed top down (f for a left child, g for a right one, reading
+// the left sibling's partial sums), the lanes spread over the node's
+// positions and a __syncwarp after each level; then one lane decodes the
+// span-32 node in registers, fully unrolled (f, g, decisions and partial
+// sums of its 5 lower levels, its bits as 32-bit words); then tz(~k)
+// combines climb back up, as XORs of bit words. A subtree whose leaves are
+// all frozen (rate 0) decides u = 0 and x = 0 whatever its LLRs, in both
+// families, so it is skipped at every level: no f/g, no descent, its bit
+// words set to 0. The rate-1 shortcut is not taken: it is not exact in the
+// char family (the pair (0, -3) gives f = 0, which decides 0). The mask is
+// staged once into shared memory as 32-bit frozen words.
 //
-// What bounds it on an H100: latency. One warp decodes one codeword (B =
-// 128 gives 128 warps, about one per SM), walking ~4 dependent steps per
-// leaf pair, 4096 steps per chunk of 2048 with a __syncwarp after each; at
-// most a few of them have more than 32 positions to spread over the lanes.
-// A call at B = 128, M = 2048 moves 3.1 MB (about 0.94 us at 3.35 TB/s) and
-// does ~4.6 M scalar operations, so the walk, not bytes or arithmetic,
-// sets the time (0.55 ms a call on an H100 at 700 W). The
-// design keeps the whole chunk on chip: the LLR of the live node at each
-// level (2M f32, 16 KiB at M = 2048) and the bits (2M bytes) sit in shared
-// memory, device memory is read once and written once, and the mask is
-// read once per leaf from a [M] array shared by the whole batch. Putting
-// the lowest levels in registers and shuffles is later work.
+// What bounds it on an H100: the length of one codeword's dependent chain.
+// At B = 128 each SM runs about one warp, so a call takes one codeword's
+// walk: the serial SC of each span-32 node in one lane's registers (the
+// longest part: ~32 dependent decisions with their f/g, ~5000 cycles),
+// the refreshes of the upper levels, each closed by a __syncwarp, and
+// nothing for a rate-0 subtree. Measured (chip_smoke.py, NVIDIA H100 80GB
+// HBM3 at 700 W, B = 128, M = 2048): 0.18 ms a call on a mixed chunk of
+// the N = 131072 code in either family, 0.025-0.07 ms on chunks that are
+// mostly rate 0. A call moves 3.1 MB (about 0.94 us at 3.35 TB/s); the
+// walk, not bytes or arithmetic, sets the time. The whole
+// chunk stays on chip: the LLR of the live node at each level (2M f32,
+// 16 KiB at M = 2048) and the x, u and mask bits (3 M / 8 bytes) sit in
+// shared memory, device memory is read once and written once.
 //
 // Numerics: f is the product form sign(a) * sign(b) * min(|a|, |b|) with
-// jnp.sign's rule (sign(+-0) = +-0), in the order of the plain torch
-// version (ops/large_kernel.py); the build disables FMA contraction.
-// Kernel and plain version agree bit for bit.
+// jnp.sign's rule (sign(+-0) = +-0) of the plain torch version
+// (ops/large_kernel.py), computed as the sign-XOR form on the raw bits,
+// which equals it on every finite input; the build disables FMA
+// contraction. Kernel and plain version agree bit for bit.
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int masked_sc_chunk(const float *llr, const uint8_t *mask, float *x,
@@ -56,14 +66,16 @@
 namespace {
 
 constexpr int kMaxChunk = 8192;
+constexpr int kRegSpan = 32;  // span of the nodes decoded in registers
+constexpr int kRegLevels = 5;
+constexpr unsigned kAll = 0xffffffffu;
 
-// sign with jnp.sign's rule at zero: sgn(+-0) = +-0
-__device__ __forceinline__ float sgn(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
-}
-
-__device__ __forceinline__ float f_prod(float a, float b) {
-  return sgn(a) * sgn(b) * fminf(fabsf(a), fabsf(b));
+// f with jnp.sign's signed zeros, as the sign-XOR form on the raw bits
+__device__ __forceinline__ float f_bits(float a, float b) {
+  const unsigned ai = __float_as_uint(a), bi = __float_as_uint(b);
+  const unsigned sign = (ai ^ bi) & 0x80000000u;
+  const unsigned mag = min(ai & 0x7fffffffu, bi & 0x7fffffffu);
+  return __uint_as_float(sign | mag);
 }
 
 __device__ __forceinline__ int sign_bit(float x) {
@@ -82,9 +94,56 @@ struct CharFamily {
   __device__ static int hard(float x) { return x < 0.f; }
 };
 
+// SC of a span-S node held in registers: y its LLRs, frz bit i = leaf i
+// frozen -> x (codeword bits) and u (decisions), bit i = position i.
+template <int S, class Fam>
+__device__ __forceinline__ void sc_reg(const float (&y)[S], unsigned frz, unsigned& x,
+                                       unsigned& u) {
+  constexpr unsigned kFull = S == 32 ? kAll : (1u << S) - 1u;
+  if ((frz & kFull) == kFull) {  // rate 0
+    x = 0u;
+    u = 0u;
+    return;
+  }
+  if constexpr (S == 1) {
+    x = u = static_cast<unsigned>(Fam::hard(y[0]));
+  } else {
+    constexpr int H = S / 2;
+    float a[H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) a[i] = f_bits(y[i], y[i + H]);
+    unsigned xl, ul, xr, ur;
+    sc_reg<H, Fam>(a, frz, xl, ul);
+#pragma unroll
+    for (int i = 0; i < H; ++i) a[i] = Fam::g(y[i], y[i + H], (xl >> i) & 1u);
+    sc_reg<H, Fam>(a, frz >> H, xr, ur);
+    x = (xl ^ xr) | (xr << H);
+    u = ul | (ur << H);
+  }
+}
+
+// one lane: SC of the span-S node at Y (shared), words Wx/Wu at its offset
+template <int S, class Fam>
+__device__ void reg_leaf(const float* Y, unsigned frz, unsigned* Wx, unsigned* Wu) {
+  float y[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) y[i] = Y[i];
+  unsigned x, u;
+  sc_reg<S, Fam>(y, frz, x, u);
+  *Wx = x;
+  *Wu = u;
+}
+
 // Offset of level d's buffer (span M >> d): level 0 is the input.
 __device__ __forceinline__ int level_at(int d, int m) {
   return d == 0 ? 0 : 2 * m - (m >> (d - 1));
+}
+
+// every leaf of [off, off + span) frozen (span a multiple of 32); warp-wide
+__device__ __forceinline__ bool rate0(const unsigned* Fm, int off, int span, int lane) {
+  int ok = 1;
+  for (int w = lane; w < (span >> 5); w += 32) ok &= Fm[(off >> 5) + w] == kAll;
+  return __all_sync(kAll, ok);
 }
 
 template <class Fam>
@@ -93,61 +152,85 @@ masked_sc_chunk_kernel(const float* __restrict__ llr,
                        const uint8_t* __restrict__ mask, float* __restrict__ x_out,
                        float* __restrict__ u_out, int m, int levels) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem);          // [2M] LLR pyramid
-  uint8_t* W = reinterpret_cast<uint8_t*>(X + 2 * m);  // [M] partial sums
-  uint8_t* U = W + m;                                  // [M] leaf decisions
+  const int n_words = (m + 31) >> 5;
+  float* X = reinterpret_cast<float*>(smem);                // [2M] LLR pyramid
+  unsigned* Wx = reinterpret_cast<unsigned*>(X + 2 * m);    // [M / 32] partial sums
+  unsigned* Wu = Wx + n_words;                              // [M / 32] decisions
+  unsigned* Fm = Wu + n_words;                              // [M / 32] frozen mask
   const int lane = threadIdx.x;
   const size_t row = (size_t)blockIdx.x * m;
 
   for (int i = lane; i < m; i += 32) X[i] = llr[row + i];
+  for (int w = 0; w < n_words; ++w) {
+    const int pos = 32 * w + lane;
+    const unsigned word = __ballot_sync(kAll, pos < m && mask[pos] != 0);
+    if (lane == 0) Fm[w] = word;
+  }
   __syncwarp();
 
-  const int top = levels - 1;  // level of the span-2 nodes
-  const int n_pairs = m >> 1;
-  for (int p = 0; p < n_pairs; ++p) {
-    // refresh levels 1..top whose node starts at pair p
-    const int tz = p == 0 ? top : __ffs(p) - 1;
-    for (int d = top - tz < 1 ? 1 : top - tz; d <= top; ++d) {
-      const int span = m >> d;
-      const float* P = X + level_at(d - 1, m);
-      float* Y = X + level_at(d, m);
-      const int node = p >> (top - d);
-      if (node & 1) {
-        const uint8_t* left = W + (node - 1) * span;  // the left sibling's x
-        for (int i = lane; i < span; i += 32) {
-          const float a = P[i], b = P[i + span];
-          Y[i] = Fam::g(a, b, left[i]);
-        }
-      } else {
-        for (int i = lane; i < span; i += 32) Y[i] = f_prod(P[i], P[i + span]);
+  if (m <= kRegSpan) {  // the chunk is one register node
+    if (lane == 0) {
+      switch (m) {
+        case 2: reg_leaf<2, Fam>(X, Fm[0], Wx, Wu); break;
+        case 4: reg_leaf<4, Fam>(X, Fm[0], Wx, Wu); break;
+        case 8: reg_leaf<8, Fam>(X, Fm[0], Wx, Wu); break;
+        case 16: reg_leaf<16, Fam>(X, Fm[0], Wx, Wu); break;
+        default: reg_leaf<32, Fam>(X, Fm[0], Wx, Wu); break;
       }
-      __syncwarp();
-    }
-    if (lane == 0) {  // the span-2 node: f, leaf, g, leaf, combine
-      const float* Y = X + level_at(top, m);
-      const int k = 2 * p;
-      const float a = Y[0], b = Y[1];
-      const int u0 = mask[k] ? 0 : Fam::hard(f_prod(a, b));
-      const int u1 = mask[k + 1] ? 0 : Fam::hard(Fam::g(a, b, u0));
-      U[k] = u0;
-      U[k + 1] = u1;
-      W[k] = u0 ^ u1;
-      W[k + 1] = u1;
     }
     __syncwarp();
-    // climb: combine the finished nodes above the pair
-    const int climb = p == n_pairs - 1 ? top : __ffs(~p) - 1;
-    for (int c = 1; c <= climb; ++c) {
-      const int h = 1 << c;  // half span of the node being combined
-      uint8_t* B = W + 2 * (p + 1) - 2 * h;
-      for (int i = lane; i < h; i += 32) B[i] ^= B[i + h];
+  } else if (rate0(Fm, 0, m, lane)) {  // an all-frozen chunk
+    for (int w = lane; w < n_words; w += 32) Wx[w] = Wu[w] = 0u;
+    __syncwarp();
+  } else {
+    const int dl = levels - kRegLevels;  // level of the span-32 leaves
+    const int n_leaves = m >> kRegLevels;
+    int k = 0;
+    while (k < n_leaves) {
+      const int top = k == 0 ? 1 : dl - (__ffs(k) - 1);
+      int skipped = -1;  // level of a rate-0 node taken whole
+      for (int d = top; d <= dl; ++d) {
+        const int lg = levels - d, span = 1 << lg;
+        const int node = k >> (dl - d), off = node << lg;
+        if (rate0(Fm, off, span, lane)) {
+          for (int w = lane; w < (span >> 5); w += 32) Wx[(off >> 5) + w] = Wu[(off >> 5) + w] = 0u;
+          skipped = d;
+          break;
+        }
+        const float* P = X + level_at(d - 1, m);
+        float* Y = X + level_at(d, m);
+        if (node & 1) {
+          const unsigned* left = Wx + ((off - span) >> 5);  // the left sibling's x
+          for (int i = lane; i < span; i += 32)
+            Y[i] = Fam::g(P[i], P[i + span], (left[i >> 5] >> (i & 31)) & 1u);
+        } else {
+          for (int i = lane; i < span; i += 32) Y[i] = f_bits(P[i], P[i + span]);
+        }
+        __syncwarp();
+      }
+      int last = k, from = 1;
+      if (skipped < 0) {
+        if (lane == 0) reg_leaf<kRegSpan, Fam>(X + level_at(dl, m), Fm[k], Wx + k, Wu + k);
+      } else {
+        last = k + (1 << (dl - skipped)) - 1;  // the skipped node's last leaf
+        from = dl - skipped + 1;               // its own combines are XORs of zeros
+      }
       __syncwarp();
+      // climb: combine the finished nodes above the last leaf
+      const int climb = __ffs(~last) - 1;
+      for (int j = from; j <= climb; ++j) {
+        const int hw = 1 << (j - 1);  // half the node, in words
+        unsigned* B = Wx + ((last >> j) << j);
+        for (int w = lane; w < hw; w += 32) B[w] ^= B[w + hw];
+        __syncwarp();
+      }
+      k = last + 1;
     }
   }
 
   for (int i = lane; i < m; i += 32) {
-    x_out[row + i] = W[i] ? -1.f : 1.f;
-    u_out[row + i] = U[i] ? -1.f : 1.f;
+    x_out[row + i] = (Wx[i >> 5] >> (i & 31)) & 1u ? -1.f : 1.f;
+    u_out[row + i] = (Wu[i >> 5] >> (i & 31)) & 1u ? -1.f : 1.f;
   }
 }
 
@@ -156,7 +239,8 @@ int launch(const float* llr, const uint8_t* mask, float* x, float* u, int chunk,
            int batch, cudaStream_t stream) {
   int levels = 0;
   while ((1 << levels) < chunk) ++levels;  // D = log2 M
-  const size_t smem = (size_t)2 * chunk * sizeof(float) + 2 * chunk;
+  const size_t words = (size_t)(chunk + 31) / 32;
+  const size_t smem = (size_t)2 * chunk * sizeof(float) + 3 * words * sizeof(unsigned);
   auto kernel = masked_sc_chunk_kernel<Fam>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -39,7 +39,10 @@ descends from. A prune round ranks candidates by (value desc, flat code
 l*C + c asc) and leaves _NEG on the candidate it took, as the TPU kernel's
 iterative extraction does: once only values <= _NEG remain (inactive list
 slots), a taken candidate can be taken again. This shows only in inactive
-slots.
+slots. The kernel computes the same result by rank (each candidate counts
+the candidates that beat it) with the re-take rule written out;
+`prune_by_rank` is that computation in torch ops, held against the
+iterative prune by the CPU tests.
 
 `masked_sc_chunk` and `masked_scl_chunk` run their plain versions for CPU
 tensors and the CUDA kernels for CUDA tensors, never one in place of the
@@ -234,6 +237,38 @@ def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
             met.T.contiguous())
 
 
+def prune_by_rank(metrics: torch.Tensor, deltas: torch.Tensor, n_list: int):
+    """K7's prune by rank, in torch ops (its CPU twin; no decode path calls
+    it): metrics [w, B], deltas [C, w, B] with w * C > n_list -> (metrics'
+    [L, B], src [L, B], cand [L, B]), equal to _Plain(n_list,
+    drop=_NEG).prune. Candidate t = l*C + c has the value metrics[l] +
+    deltas[c, l] and the rank #{u: v_u > v_t or (v_u == v_t and u < t)}.
+    With k values above _NEG, slots r < max(k, 1) take rank r with its
+    value; every later slot takes the smallest code among the candidates
+    taken and those whose value is exactly _NEG, with value _NEG: the
+    iterative extraction's re-take rule (each taken candidate is left at
+    _NEG)."""
+    n_cand, width = deltas.shape[0], metrics.shape[0]
+    total = width * n_cand
+    if total <= n_list:
+        raise ValueError(f"{width} paths x {n_cand} candidates do not exceed L = {n_list}")
+    flat = (metrics[None] + deltas).permute(1, 0, 2).reshape(total, -1)  # [T, B]
+    codes = torch.arange(total, device=flat.device)
+    v_t, v_u = flat[:, None], flat[None, :]  # candidate t against candidate u
+    beats = (v_u > v_t) | ((v_u == v_t) & (codes[None, :, None] < codes[:, None, None]))
+    rank = beats.sum(dim=1)  # [T, B], a permutation of 0..T-1 per column
+    by_rank = torch.empty_like(rank).scatter_(0, rank, codes[:, None].expand_as(rank))
+    taken_n = torch.clamp((flat > _NEG).sum(dim=0), min=1)  # max(k, 1)
+    pool = (rank < taken_n[None]) | (flat == _NEG)
+    retake = torch.where(pool, codes[:, None], total).min(dim=0).values
+    slot = torch.arange(n_list, device=flat.device)[:, None]
+    live = slot < taken_n[None]
+    code = torch.where(live, by_rank[:n_list], retake[None])
+    value = torch.where(live, torch.gather(flat, 0, by_rank[:n_list]),
+                        torch.full_like(flat[:n_list], _NEG))
+    return value, code // n_cand, code % n_cand
+
+
 @functools.lru_cache(maxsize=None)
 def scl_chunk_schedule(m_len: int, sub: int) -> np.ndarray:
     """K7's walk of one chunk (sub = 0: per-bit to span 1): [n_ops, 5] int32
@@ -265,10 +300,9 @@ def scl_chunk_schedule(m_len: int, sub: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _scl_consts(m_len: int, sub: int, dev: torch.device):
-    """(schedule, SPC table, a stand-in for absent class codes) on `dev`."""
-    return (torch.as_tensor(scl_chunk_schedule(m_len, sub), device=dev),
-            torch.as_tensor(SPC_TABLE, device=dev),
+def _scl_consts(dev: torch.device):
+    """(SPC table, a stand-in for absent class codes) on `dev`."""
+    return (torch.as_tensor(SPC_TABLE, device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
 
 
@@ -319,11 +353,12 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
             raise ValueError(f"{sub_cls.numel()} class codes do not cut {m_len} "
                              "into power-of-2 sub-blocks")
     fn = _bind_scl(_build.load("large_scl_chunk"))
-    ops, spc, none = _scl_consts(m_len, sub, dev)
+    spc, none = _scl_consts(dev)
     bits = torch.empty((n_batch, m_len), dtype=torch.int32, device=dev)
     perm = torch.empty((n_batch, n_list), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, n_list), dtype=torch.float32, device=dev)
-    err = fn(ops.data_ptr(), ops.shape[0], spc.data_ptr(), llr.data_ptr(),
+    # the kernel walks the chunk itself: no schedule (ops, n_ops) is passed
+    err = fn(None, 0, spc.data_ptr(), llr.data_ptr(),
              mask.data_ptr(), metrics.data_ptr(),
              (none if sub_cls is None else sub_cls).data_ptr(), sub,
              bits.data_ptr(), perm.data_ptr(), met.data_ptr(), n_list, m_len, n_batch,

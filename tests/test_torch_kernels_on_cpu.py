@@ -1,0 +1,122 @@
+"""The masked chunk kernels' CUDA sources (csrc/large_sc_chunk.cu, K6;
+csrc/large_scl_chunk.cu, K7), built for the CPU by ops/_emu.py (g++, one
+thread per CUDA thread), against their plain versions.
+
+Small shapes, inputs from a seed with numpy: integer LLRs in [-2, 2]
+(ties, signed zeros through f) and Gaussian ones; K6 on masks with rate-0
+runs, all-frozen, all-free and random chunks; K7 at every list size with
+and without sub-blocks of every class, on rows with one live path and with
+0 to L - 1 live paths at random slots. Tolerance: none for K6 (x and u
+bit-equal) and for K7's bits and perms; K7 metrics exactly equal in char,
+within 1e-4 in float32 (the card's tolerance; these integer and Gaussian
+inputs give equal metrics). On the card `chip_smoke.py` holds the nvcc
+builds to the same rules.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from polar_codes_torch.ops import _emu  # noqa: E402
+from polar_codes_torch.ops import large_kernel as lk  # noqa: E402
+
+FAMILIES = ("float32", "char")
+
+
+def _lib(name):
+    try:
+        return _emu.load_on_cpu(name)
+    except RuntimeError as err:  # no g++ on this machine
+        pytest.skip(str(err))
+
+
+@pytest.fixture(scope="module")
+def k6():
+    return lk._bind_sc(_lib("large_sc_chunk"))
+
+
+@pytest.fixture(scope="module")
+def k7():
+    return lk._bind_scl(_lib("large_scl_chunk"))
+
+
+def _llr(rng, shape, family, kind):
+    if kind == "ints":
+        return rng.integers(-2, 3, shape).astype(np.float32)
+    x = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    return np.clip(np.round(x * 10.0), -127, 127).astype(np.float32) if family == "char" else x
+
+
+def _rate0_mask(rng, m_len):
+    mask = (rng.random(m_len) < 0.5).astype(np.uint8)
+    span = 2
+    while span <= m_len // 2:
+        n_nodes = m_len // span
+        for node in rng.choice(n_nodes, size=max(1, n_nodes // 16), replace=False):
+            mask[node * span:(node + 1) * span] = 1
+        span *= 2
+    return mask
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("m_len", [16, 64, 256])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k6_source_on_cpu_matches_plain(k6, family, m_len):
+    rng = np.random.default_rng(m_len + len(family))
+    masks = {"rate-0 runs": _rate0_mask(rng, m_len), "all frozen": np.ones(m_len, np.uint8),
+             "all free": np.zeros(m_len, np.uint8),
+             "random": (rng.random(m_len) < 0.5).astype(np.uint8)}
+    for kind in ("ints", "gauss"):
+        llr = torch.as_tensor(_llr(rng, (2, m_len), family, kind))
+        for name, mask in masks.items():
+            mask_t = torch.as_tensor(mask)
+            x, u = torch.empty_like(llr), torch.empty_like(llr)
+            assert k6(llr.data_ptr(), mask_t.data_ptr(), x.data_ptr(), u.data_ptr(), m_len,
+                      2, lk._FAMILIES[family].code, None) == 0
+            px, pu = lk.masked_sc_chunk_plain(llr, mask_t, family)
+            assert _same_bits(x, px) and _same_bits(u, pu), f"{kind}, {name}"
+
+
+# sub-blocks of 4: rate0, rate1, rep, spc, two mixed, rep, spc
+_CLASS_MASK = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1, 1, 1, 0, 1, 0, 0, 0,
+                        1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0], np.uint8)
+
+
+@pytest.mark.parametrize("sub", [0, 4])
+@pytest.mark.parametrize("n_list", lk.SCL_LISTS)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
+    from polar_codes_torch.models.large import _classify_chunks
+
+    rng = np.random.default_rng(100 * n_list + sub + len(family))
+    m_len, n_batch = _CLASS_MASK.size, 2
+    mask = torch.as_tensor(_CLASS_MASK)
+    sub_cls = (torch.as_tensor(_classify_chunks(list(_CLASS_MASK.reshape(-1, sub))))
+               if sub else None)
+    for kind in ("ints", "gauss"):
+        llr = torch.as_tensor(_llr(rng, (n_batch, n_list, m_len), family, kind))
+        met = rng.integers(-3, 1, (n_batch, n_list)).astype(np.float32)
+        met[0, 1:] = lk._NEG  # one live path
+        met[1, rng.permutation(n_list)[rng.integers(0, n_list):]] = lk._NEG
+        met = torch.as_tensor(met)
+        spc, none = lk._scl_consts(torch.device("cpu"))
+        bits = torch.empty((n_batch, m_len), dtype=torch.int32)
+        perm = torch.empty((n_batch, n_list), dtype=torch.int32)
+        m_out = torch.empty((n_batch, n_list), dtype=torch.float32)
+        assert k7(None, 0, spc.data_ptr(), llr.data_ptr(),
+                  mask.data_ptr(), met.data_ptr(),
+                  (none if sub_cls is None else sub_cls).data_ptr(), sub, bits.data_ptr(),
+                  perm.data_ptr(), m_out.data_ptr(), n_list, m_len, n_batch,
+                  lk._FAMILIES[family].code, None) == 0
+        pb, pp, pm = lk.masked_scl_chunk_plain(llr, mask, met, sub_cls, family)
+        assert torch.equal(bits, pb), kind
+        assert torch.equal(perm, pp), kind
+        if family == "char":
+            assert torch.equal(m_out, pm), kind
+        else:
+            torch.testing.assert_close(m_out, pm, rtol=1e-4, atol=1e-4)
