@@ -36,7 +36,8 @@ the pure-chunk rules (every pure chunk), the final join (large SCL: chunk
 gathers and top butterfly stages; large SC: the codeword transform), the
 tail (SCL: CRC-aided selection after decode_packed; SC: info extraction),
 and the glue above the kernels as the rest of the decode, with the kernel
-launches per decode.
+launches per decode. Last, K1's cycles per codeword by op kind and leaf
+phase, from a build of its source with clock64 probes (-DK1_PROFILE).
 
     python3 chip_profile.py
 
@@ -150,6 +151,7 @@ def main():
         profile(name, fn, CALLS, card, torch)
     scl_paths(card, torch, dev, gen, frozen, quant, llr / AMPL)
     large_paths(card, torch, dev, gen)
+    k1_ops(card, torch, dev, frozen, llr / AMPL)
 
 
 def kernel_launches():
@@ -281,6 +283,72 @@ def large_paths(card, torch, dev, gen):
             "final_join": timed(lambda: scl._join_chunks(*joins[0])),
             "tail": total_ms - packed_ms,
         }, launches)
+
+
+K1_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "leaf rate0", 4: "leaf rate1", 5: "leaf rep",
+            6: "leaf spc", 7: "leaf enum", 8: "leaf: weakest", 9: "leaf: candidates",
+            10: "leaf: prune", 11: "leaf: decision bits", 12: "schedule", 13: "F at level 0",
+            14: "G at level 0"}
+
+
+def k1_ops(card, torch, dev, frozen, llr):
+    """Where a K1 call's time goes, per codeword: K1 built with -DK1_PROFILE
+    (clock64 probes, summed by lane 0 of every warp; csrc/scl_subtree.cu)
+    on the two calls of one float32 CA-SCL-8 decode at B = 181 and 2048,
+    and on the large-N pure chunks' one-leaf span-256 schedules at B = 128.
+    Prints cycles and ops per codeword by op kind and leaf phase ("F" and
+    "G" include their level-0 calls, the leaf kinds include their
+    phases, "schedule" is the whole call after the launch)."""
+    import ctypes
+    import hashlib
+
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.models.tree import NodeKind
+    from polar_codes_torch.ops import _build, scl_kernel_bl
+    from polar_codes_torch.ops.large_kernel import _sub_leaf
+
+    nvcc = _build.nvcc_path()
+    src = _build.CSRC / "scl_subtree.cu"
+    flags = (*_build.NVCC_FLAGS, "-DK1_PROFILE")
+    key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
+    out = _build.BUILD / f"libscl_subtree_profile-{key}.so"
+    if not out.exists():
+        run = subprocess.run([nvcc, *flags, "-o", str(out), str(src)], capture_output=True,
+                             text=True)
+        if run.returncode:
+            raise SystemExit(f"nvcc -DK1_PROFILE failed:\n{run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.scl_subtree_profile.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 64)()
+
+    calls = []
+    dec = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=CRC16(), device=dev,
+                     subtree_fn=lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a))
+    dec.decode_packed(llr)
+    runs = [(f"N={N_LEN} CA-SCL-8 call {i}, w {s.w_in}->{s.w_out}", s, x[..., :b].contiguous(),
+             m[:b].contiguous()) for b in (181, BATCH) for i, (s, x, m) in enumerate(calls)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for kind in (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC):
+        sched = scl_kernel_bl.build_schedule(_sub_leaf(kind, 256), LIST, LIST)
+        x = torch.randn((LIST, 256, B_LARGE), generator=gen, device=dev) * 2.0 + 1.0
+        m = torch.randn((B_LARGE, LIST), generator=gen, device=dev) * 10.0
+        runs.append((f"one leaf {kind.value} span 256", sched, x, m))
+    for name, sched, x, m in runs:
+        scl_kernel_bl.launch(lib, sched, x, m)
+        torch.cuda.synchronize()
+        lib.scl_subtree_profile(buf)
+        scl_kernel_bl.launch(lib, sched, x, m)
+        torch.cuda.synchronize()
+        lib.scl_subtree_profile(buf)
+        n_batch = x.shape[-1]
+        print(json.dumps({
+            "k1_ops": name, "batch": n_batch,
+            "cycles_per_codeword": {v: buf[k] / n_batch for k, v in K1_SLOTS.items()
+                                    if buf[k + 32]},
+            "ops_per_codeword": {v: buf[k + 32] / n_batch for k, v in K1_SLOTS.items()
+                                 if buf[k + 32]},
+            "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -91,8 +91,18 @@ K1 bf16), and both large-N decoders with dtype=int8 on quantised LLRs
      char on every chunk of the int8 SCL path and K1 none
  23. CUDA-event times of each new family per call and each new decode per
      batch, with bounds
- 24. {"kernels": [...]}, every family of all seven TPU kernels
- 25. {"ok": true, "device": {...}}
+
+Slice 6, the SCL subtree kernel K1 redesigned (a warp per codeword, its
+list state in shared memory), in every family:
+ 24. K1 against its plain version on every subtree call of N = 1024
+     CA-SCL decodes at L = 2, 4, 8, 16, 32 and B = 1, 181, 2048 on integer
+     LLRs in [-2, 2], on those subtrees entered at w_in = L / 2, and on
+     one-leaf schedules of every leaf kind: bits, perms and metrics
+     equal; K1's two N = 1024 CA-SCL-8 calls timed at B = 181 and 2048
+     (and at 1, 2, 4 codewords a block), and the one-leaf span-256 calls
+     of the large-N pure chunks
+ 25. {"kernels": [...]}, every family of all seven TPU kernels
+ 26. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -303,6 +313,15 @@ def main():
     slice4 = run_slice4(card)
 
     # 24 ------------------------------------------------------------------
+    phase("24 K1 at every list size, on ties, w_in < L, B in (1, 181, 2048), one-leaf "
+          "schedules")
+    k1_shapes_err = run_k1_shapes(card)
+
+    # 25 ------------------------------------------------------------------
+    for entry in slice4["kernels"]:  # K1 char and bf16: phase 24's calls too
+        if entry["name"].startswith("scl_subtree["):
+            fam = entry["name"][len("scl_subtree["):-1]
+            entry["max_abs_err"] = max(entry["max_abs_err"], k1_shapes_err[fam])
     k1_bytes = k1_ops = 0
     for sched, *_ in calls:
         nb, no = k1_work(sched, BATCH)
@@ -321,16 +340,17 @@ def main():
          **bound(k2_bytes, k2_ops), "library_ms": None},
         {"name": "scl_subtree[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/scl_subtree.cu",
+         "redesigned": K1_DESIGN,
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
          "launches": launches["scl_subtree"],
          "launches_by_path": {"crc16_scl8": launches["scl_subtree"],
                               "pcsim_adaptive": slice2["launches"]["scl_subtree"],
                               "large_scl": slice3["launches"]["scl_subtree"],
                               "scl8_bf16_widening": slice4["launches"]["scl_subtree[float32]"]},
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         **bound(k1_bytes, k1_ops), "library_ms": None},
+         "max_abs_err": max(k1_err, k1_shapes_err["float32"]), "ms": k1_ms,
+         "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 25 ------------------------------------------------------------------
+    # 26 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1379,7 +1399,7 @@ def run_slice4(card):
     sched7 = lk.scl_chunk_schedule(CHUNK_SCL, 0).tolist()
     kernels = [
         {"name": f"scl_subtree[{fam}]", "route": "cuda",
-         "source": "polar_codes_torch/csrc/scl_subtree.cu",
+         "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_DESIGN,
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
          "launches": launches[path][f"scl_subtree[{fam}]"],
          "launches_per_decode": want[path][f"scl_subtree[{fam}]"],
@@ -1403,6 +1423,133 @@ def run_slice4(card):
          "plain_ms": k7_plain_ms, **bound(*k7_work(sched7, [], LIST, B3)), "library_ms": None},
     ]
     return {"kernels": kernels, "launches": launches["scl8_bf16"]}
+
+
+# ---- the warp-per-codeword K1: every list size, ties, small batches ------
+
+SEED6 = 20261020
+K1_DESIGN = "a warp per codeword, list state in shared memory"
+K1_BATCHES = (1, 181, 2048)  # one codeword, the adaptive rerun's rows, the paths' batch
+K1_LISTS = (2, 4, 8, 16, 32)
+
+
+def run_k1_shapes(card):
+    """Phase 24. K1 in every family against its plain version: every
+    subtree call of N = 1024 CA-SCL decodes at L in K1_LISTS and B in
+    K1_BATCHES on integer LLRs in [-2, 2] (ties, signed zeros), those calls'
+    subtrees entered at w_in = L / 2, and one-leaf schedules of every leaf
+    kind (rate-0, rate-1, rep, SPC at span 256 with rows of one live path,
+    as the large-N pure chunks; ENUM at span 8; rate-1 at span 1); bits,
+    perms and metrics equal. Then K1's two N = 1024 CA-SCL-8 calls timed at
+    B = 181 and B = 2048, and at B = 2048 with 1, 2 and 4 codewords a block,
+    and the one-leaf span-256 schedules of the large-N pure chunks at B3.
+    Returns the largest metric difference per family (0)."""
+    import numpy as np
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.models.tree import CodeNode, NodeKind
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.ops.large_kernel import _sub_leaf
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED6)
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    err = {"float32": 0.0, "char": 0.0, "bfloat16": 0.0}
+    checked = 0
+
+    def hold(where, sched, x, m):
+        nonlocal checked
+        got = kbl.scl_subtree(sched, x, m)
+        want = kbl.scl_subtree_plain(sched, x, m)
+        fam = kbl.family(x.dtype).name
+        _equal(where + " bits", got[0], want[0])
+        _equal(where + " perm", got[1], want[1])
+        if not torch.isfinite(got[2]).all():
+            raise AssertionError(where + ": metrics not finite")
+        err[fam] = max(err[fam], _equal(where + " metrics", got[2], want[2]))
+        checked += 1
+
+    def ints(shape, dtype):
+        return torch.randint(-2, 3, shape, generator=gen, device=dev).to(dtype)
+
+    states = {torch.float32: torch.float32, torch.int8: torch.int16,
+              torch.bfloat16: torch.bfloat16}
+    for n_list in K1_LISTS:
+        for dtype, state in states.items():
+            for n_batch in K1_BATCHES:
+                calls = []
+
+                def record(sched, x, m):
+                    calls.append((sched, x, m))
+                    return kbl.scl_subtree_plain(sched, x, m)
+
+                SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), dtype=dtype,
+                           device=dev, subtree_fn=record).decode_packed(
+                    ints((n_batch, N_LEN), dtype))
+                for sched, x, m in calls:
+                    hold(f"K1 {kbl.family(x.dtype).name} L={n_list} B={n_batch} span "
+                         f"{sched.span} at {sched.node.offset}, w {sched.w_in}", sched, x, m)
+                if n_batch != 181:
+                    continue
+                for sched, x, m in calls[:2]:  # entered at w_in = L / 2
+                    half = kbl.build_schedule(sched.node, max(1, n_list // 2), n_list)
+                    mh = torch.randint(-3, 1, (n_batch, half.w_in), generator=gen,
+                                       device=dev).to(torch.float32)
+                    hold(f"K1 L={n_list} w_in {half.w_in}", half,
+                         ints((half.w_in, half.span, n_batch), state), mh)
+                leaves = [_sub_leaf(k, 256) for k in
+                          (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)]
+                leaves += [CodeNode(0, 8, np.array([0, 1, 2, 4, 5]), NodeKind.ENUM),
+                           CodeNode(0, 1, np.zeros(0, np.int64), NodeKind.RATE1)]
+                for node in leaves:
+                    one = kbl.build_schedule(node, n_list, n_list)
+                    m1 = torch.randint(-3, 1, (n_batch, n_list), generator=gen,
+                                       device=dev).to(torch.float32)
+                    m1[::2, 1:] = NEG  # every other row: one live path
+                    hold(f"K1 L={n_list} one leaf {node.kind.value} span {node.length}", one,
+                         ints((n_list, node.length, n_batch), state), m1)
+    torch.cuda.synchronize()
+    emit({"k1_checked_calls": checked, "max_abs_err": err})
+    print(f"K1: {checked} calls equal to the plain version (bits, perms, metrics) at L in "
+          f"{K1_LISTS}, B in {K1_BATCHES}, every family and leaf kind")
+
+    # K1's two calls of one N = 1024 CA-SCL-8 decode, at B = 181 and 2048
+    calls = []
+
+    def record8(sched, x, m):
+        calls.append((sched, x, m))
+        return kbl.scl_subtree(sched, x, m)
+
+    llr = torch.randn((B2, N_LEN), generator=gen, device=dev) * 1.5 + 1.0
+    SCLDecoder(N_LEN, frozen, list_size=LIST, detector=CRC16(), device=dev,
+               subtree_fn=record8).decode_packed(llr)
+    rows = {}
+    for n_batch in (181, B2):
+        part = [(s, x[..., :n_batch].contiguous(), m[:n_batch].contiguous())
+                for s, x, m in calls]
+        rows[n_batch] = [time_cuda(lambda c=c: kbl.scl_subtree(*c), reps=REPS) for c in part]
+    one_leaf = {}  # the large-N pure chunks: one leaf of span 256 at B = 128, L = 8
+    for kind in (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC):
+        sched = kbl.build_schedule(_sub_leaf(kind, 256), LIST, LIST)
+        x = torch.randn((LIST, 256, B3), generator=gen, device=dev) * 2.0 + 1.0
+        m = torch.randn((B3, LIST), generator=gen, device=dev) * 10.0
+        one_leaf[kind.value] = time_cuda(lambda: kbl.scl_subtree(sched, x, m), reps=REPS)
+    per_block = {}
+    for pb in (1, 2, 4):
+        kbl.PER_BLOCK = pb
+        per_block[pb] = [time_cuda(lambda c=c: kbl.scl_subtree(*c), reps=REPS) for c in calls]
+    kbl.PER_BLOCK = 0
+    emit({"kernel": "scl_subtree[float32]", "path": "N=1024 CA-SCL-8, both calls",
+          "spans": [c[0].span for c in calls], "w": [[c[0].w_in, c[0].w_out] for c in calls],
+          "ms_b181": rows[181], "ms_b2048": rows[B2],
+          "ratio_b181_b2048": sum(rows[181]) / sum(rows[B2]),
+          "ms_b2048_by_codewords_per_block": per_block,
+          f"one_leaf_span256_b{B3}_ms": one_leaf, "card": card})
+    return err
 
 
 def _check_tie(dec, dec_plain, llr, batch_idx, blk):

@@ -2,10 +2,12 @@
 // nvcc or a card (ops/_emu.py builds a source against this header with
 // g++). Each CUDA thread is a std::thread; blocks run one after another;
 // __syncwarp, __syncthreads and every shuffle, ballot and warp reduction
-// are barriers over the warp or block. Only what the chunk kernels use is
-// here: one-dimensional launches, full-warp masks, dynamic and static
-// shared memory (a `__shared__` variable is a function-local static, so
-// one block runs at a time). A barrier that waits 60 s aborts: a
+// are barriers over the warp or block. Only what the kernels that run here
+// use is defined: one-dimensional launches, full-warp masks, dynamic and
+// static shared memory (a `__shared__` variable is a function-local
+// static, so one block runs at a time), __nv_bfloat16 with its two
+// conversions (round to nearest even), and a card whose opt-in shared
+// memory per block is the H100's. A barrier that waits 60 s aborts: a
 // divergent __syncwarp, shuffle or ballot, which deadlocks on the card
 // too.
 #pragma once
@@ -38,9 +40,18 @@ struct dim3 {
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = 232448;  // an H100's opt-in shared memory per block
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -72,11 +83,12 @@ class EmuBarrier {
 struct EmuWarp {
   explicit EmuWarp(unsigned n) : bar(n) {}
   EmuBarrier bar;
-  uint64_t slot[32];
+  uint64_t slot[2][32];  // exchanges alternate between the two
 };
 inline std::vector<std::unique_ptr<EmuWarp>> emu_warps;
 inline std::unique_ptr<EmuBarrier> emu_block;
 inline std::vector<unsigned char> emu_dynamic;
+inline thread_local unsigned emu_exchanges;  // this thread's exchanges so far
 
 inline unsigned char* emu_smem() { return emu_dynamic.data(); }
 inline EmuWarp& emu_warp() { return *emu_warps[threadIdx.x / 32]; }
@@ -84,15 +96,18 @@ inline int emu_lane() { return threadIdx.x & 31; }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().bar.wait(); }
 inline void __syncthreads() { emu_block->wait(); }
 
-// every lane posts a 64-bit value, then reads what `pick` computes from all
+// every lane posts a 64-bit value, then reads what `pick` computes from
+// all. Every lane of a warp makes the same exchanges in the same order, so
+// consecutive exchanges use alternate slots: a lane writes a slot again
+// only after the next exchange's barrier, which every lane passes after
+// reading it.
 template <class Pick>
 inline auto emu_exchange(uint64_t mine, Pick pick) {
   EmuWarp& w = emu_warp();
-  w.slot[emu_lane()] = mine;
+  uint64_t* slot = w.slot[emu_exchanges++ & 1];
+  slot[emu_lane()] = mine;
   w.bar.wait();
-  auto out = pick(w.slot);
-  w.bar.wait();
-  return out;
+  return pick(static_cast<const uint64_t*>(slot));
 }
 template <class T>
 inline T emu_shfl(T v, int src) {
@@ -140,6 +155,18 @@ inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, 4);
   return f;
+}
+
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  const unsigned u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<uint16_t>((u >> 16) | 0x40u)};
+  return {static_cast<uint16_t>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 h) {
+  return __uint_as_float(static_cast<unsigned>(h.x) << 16);
 }
 
 // kernel<<<grid, block, smem, stream>>>(args...), rewritten by ops/_emu.py

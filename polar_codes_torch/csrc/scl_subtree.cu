@@ -37,41 +37,116 @@
 // flip tables come in spc_tab. One kernel per list size and family serves
 // every subtree of every code; nothing is generated per code.
 //
-// What bounds it on an H100: latency. One thread decodes one codeword (the
-// TPU kernel's batch-on-lanes mapping: neighbouring threads touch
-// neighbouring addresses), so a batch of 1024 codewords is 1024 threads,
-// a few warps per SM, each running a long dependent chain of f/g passes,
-// candidate scans and L-round prunes. The per-path LLR state lives in a
-// global scratch [levels, L, span/2^d, B] of the state type (about 16 KB
-// per codeword at L = 8, span 512 in f32, half that in int16 or bf16),
-// which stays in L2 at B = 1024. Small blocks (8 threads for B <= ~1000)
-// spread a small batch over all SMs; each warp then moves 32-byte sectors.
-// Making it fast (a warp per codeword with the span on the lanes, state in
-// shared memory) is later work.
+// Mapping: one warp decodes one codeword, warp-synchronous (__syncwarp,
+// shuffles and ballots between ops, no __syncthreads), one codeword (warp)
+// per block below 4 x 132 codewords, so a small batch spreads over every
+// SM, four above (measured: ~10% faster at B = 2048 than one; chip_smoke.py
+// phase 24 times 1, 2 and 4). Each warp's list state lives in shared memory: the LLRs of
+// tree levels d >= 1 ([L][span >> d] each, L x (span - 1) values of the
+// state type), the packed bit words [span], the open nodes' perms
+// P[level][L], the path metrics, the candidate values, the leaf scratch
+// and the SPC table; device memory is read once (the input level 0, by the first
+// F and G, or staged into the level region when the subtree is one leaf)
+// and written once (bits, perm, metrics). Per codeword that is
+// sizeof(Shared<L>) + 4 span + L span sizeof(state) bytes: 20 KB at
+// L = 8, span 512 in f32, 12 KB in int16 or bf16; a schedule whose
+// state exceeds the card's opt-in shared memory per block (only a
+// caller-chosen kernel_span can) is refused (-2). Inside an op:
+//   F, G      lanes over (path, element) pairs; G reads the parent through
+//             the left child's perm (levels live in separate regions, so
+//             no read aliases a write);
+//   COMBINE   lanes over positions, each forking its left bit word
+//             through the right child's perm (held in registers); the perm
+//             composition on lanes < w;
+//   LEAF      the `weakest` magnitudes (rate-1, SPC) by groups of 32 / w
+//             lanes per path: 2 or 4 rounds of an arg-min over packed
+//             (|x|, index) keys, each lane scanning a stride of the span,
+//             then shuffles; the SPC parity rides along as an XOR; each candidate's value on its
+//             own lane (path l, candidate c at code l*C + c), every metric
+//             sum sequential over the span on one lane; the prune by rank,
+//             each lane holding its candidates in registers for one pass
+//             over all the values;
+//             the decision bits with lanes over (position, slot), one
+//             ballot per 32 / L positions.
+//
+// What bounds it on an H100: the length of one codeword's dependent chain
+// of warp steps (each op closes with a __syncwarp), overlapped across the
+// 8 (f32) or 16 (int16, bf16) warps an SM holds by shared memory at four
+// codewords a block; bytes (each input read once, each output written
+// once) and arithmetic are ~50-100x below that. Measured (chip_smoke.py,
+// chip_profile.py; NVIDIA H100 80GB HBM3 at 700 W, N = 1024, L = 8, span
+// 512): ~0.15-0.19 ms a call at B = 181, one codeword's chain of ~250-310k
+// cycles, of which the leaves' prunes ~20%, their other phases ~30%, F and
+// G ~15% (the level-0 ones read device memory strided by B), combines 5%;
+// 0.32-0.43 ms at B = 2048.
 //
 // Numerics: every sum is sequential over the span in f32, in the order of
 // the plain torch version (ops/scl_kernel_bl.py), and the build disables
 // FMA contraction, so kernel and plain version agree bit for bit in each
-// family. Prune order is (value descending, flat code l*C + c ascending).
+// family. The prune ranks the candidates by (value descending, flat code
+// l*C + c ascending); a candidate's slot is its rank, the first L survive,
+// and while w*C <= L every candidate survives in l-major slots. On finite
+// values that is the plain version's iterative extraction order exactly.
+// `weakest` takes the (|x|, index)-smallest entries, which is the plain
+// version's first-index-on-ties rule.
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int scl_subtree(const int *ops, int n_ops, const int *enum_masks,
 //                   const int *spc_tab, const void *llr, const float *met,
-//                   void *scratch, int *bits, int *perm, float *met_out,
-//                   int list_size, int w_in, int w_out, int span, int batch,
-//                   int family, cudaStream_t stream)
-// Returns cudaGetLastError() after the launch, or -1 for an unsupported
-// list size or family.
+//                   int *bits, int *perm, float *met_out, int list_size,
+//                   int w_in, int w_out, int span, int batch, int family,
+//                   int per_block, cudaStream_t stream)
+//     per_block: codewords (warps) per block, 1, 2 or 4; 0 picks from the
+//     batch. Returns cudaGetLastError() after the launch (or of the
+//     shared-memory attribute call), -1 for an unsupported list size,
+//     family or span, -2 when one codeword's state exceeds the card's
+//     opt-in shared memory per block.
+//   int scl_subtree_smem(int list_size, int span, int family)
+//     shared-memory bytes per codeword, or -1.
+//   int scl_subtree_smem_limit(void)
+//     the current card's opt-in shared memory per block, in bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef K1_PROFILE
+// Cycles per op kind and leaf phase, summed by lane 0 of every warp, and
+// their counts at slot + 32 (chip_profile.py builds with -DK1_PROFILE and
+// reads them with scl_subtree_profile): 0-2 F, G, COMBINE; 3-7 leaves by
+// kind; 8-11 a leaf's weakest, candidates, prune, decision bits; 12 the
+// whole schedule; 13-14 F and G at level 0.
+__device__ unsigned long long k1_prof[64];
+#define K1_CLOCK(t) long long t = clock64()
+#define K1_TICK(slot, t)                                                      \
+  do {                                                                        \
+    const long long now_ = clock64();                                         \
+    if (lane == 0) {                                                          \
+      atomicAdd(&k1_prof[slot], static_cast<unsigned long long>(now_ - (t))); \
+      atomicAdd(&k1_prof[(slot) + 32], 1ull);                                 \
+    }                                                                         \
+    t = now_;                                                                 \
+  } while (0)
+extern "C" int scl_subtree_profile(unsigned long long* out) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, k1_prof, sizeof(k1_prof));
+  const unsigned long long zero[64] = {};
+  return static_cast<int>(err != cudaSuccess ? err
+                                             : cudaMemcpyToSymbol(k1_prof, zero, sizeof(zero)));
+}
+#else
+#define K1_CLOCK(t)
+#define K1_TICK(slot, t)
+#endif
 
 namespace {
 
 constexpr int kMaxLevels = 16;
 constexpr int kMaxCand = 32;
 constexpr int kOpWords = 8;
+constexpr int kMaxPerBlock = 4;
+constexpr int kLoads = 8;  // device-memory loads a lane keeps in flight
+constexpr int kMaxDevices = 16;
+constexpr unsigned kAll = 0xffffffffu;
 enum { OP_F = 0, OP_G = 1, OP_COMBINE = 2, OP_LEAF = 3 };
 enum { K_RATE0 = 0, K_RATE1 = 1, K_REP = 2, K_SPC = 3, K_ENUM = 4 };
 
@@ -90,6 +165,8 @@ __device__ __forceinline__ int sign_bit(float x) {
 __device__ __forceinline__ float sgn(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
+
+__device__ __forceinline__ int log2i(int x) { return 31 - __clz(x); }
 
 // Each family: the state type, its conversions to and from f32 (load,
 // store), and f, g and the hard decision on f32 values.
@@ -127,318 +204,515 @@ struct Bf16Family {
   __device__ static int hard(float x) { return sign_bit(x); }
 };
 
-template <int L, class Fam>
-struct Thread {
-  using S = typename Fam::State;
-  const S* llr_in;
-  S* scratch;
-  int* bits;
-  int span, batch, b;
-
-  // [L, S_d, B] LLRs of tree level d. Level 0 is the call's input, which
-  // is only read; levels d >= 1 follow each other in the scratch.
-  __device__ S* level(int d) const {
-    if (d == 0) return const_cast<S*>(llr_in);
-    return scratch + (size_t)L * batch * (span - (span >> (d - 1)));
-  }
-  // state element i of path l at a level of span s, as f32
-  __device__ float get(const S* x, int l, int i, int s) const { return Fam::load(x[at(l, i, s)]); }
-  __device__ size_t at(int l, int i, int s) const {
-    return ((size_t)l * s + i) * batch + b;
-  }
-  __device__ int& word(int pos) const { return bits[(size_t)pos * batch + b]; }
+// One codeword's state besides the LLR levels and the bit words.
+template <int L>
+struct Shared {
+  float M[L];                // metric of each path
+  int P[kMaxLevels][L];      // perm of the node open at each level
+  float V[L * kMaxCand];     // candidate values by flat code l*C + c
+  int pc[L];                 // prune result by slot: code and value
+  float pv[L];
+  float ms[4][L];            // weakest magnitudes of each path, and where
+  int is[4][L];              //   (ENUM: ms[0] holds each path's sum of |x|)
+  int par[L];                // SPC parity of each path
+  int spc[32];               // SPC_TABLE
 };
 
-// Top-min(L, w*C) of the candidates m[l] + d[c*L + l] in (value desc, code
-// l*C + c asc) order. While w*C <= L every candidate survives in l-major
-// slots (progressive widening). Returns the new width.
-template <int L>
-__device__ int prune(const float* m, int w, const float* d, int n_cand,
-                     float* nm, int* src, int* cand) {
-  const int total = w * n_cand;
-  if (total <= L) {
-    for (int l = 0; l < w; ++l)
-      for (int c = 0; c < n_cand; ++c) {
-        const int s = l * n_cand + c;
-        nm[s] = m[l] + d[c * L + l];
-        src[s] = l;
-        cand[s] = c;
-      }
-    return total;
-  }
-  float pv = 0.f;
-  int pc = -1;
-  for (int r = 0; r < L; ++r) {
-    float bv = 0.f;
-    int bc = -1;
-    for (int l = 0; l < w; ++l)
-      for (int c = 0; c < n_cand; ++c) {
-        const int code = l * n_cand + c;
-        const float v = m[l] + d[c * L + l];
-        // skip what earlier rounds took: everything not after (pv, pc)
-        if (pc >= 0 && !(v < pv || (v == pv && code > pc))) continue;
-        if (bc < 0 || v > bv) {  // codes ascend, so ties keep the first
-          bv = v;
-          bc = code;
-        }
-      }
-    nm[r] = bv;
-    src[r] = bc / n_cand;
-    cand[r] = bc % n_cand;
-    pv = bv;
-    pc = bc;
-  }
-  return L;
+template <int L, class Fam>
+size_t warp_bytes(int span) {
+  const size_t n = sizeof(Shared<L>) + (size_t)span * sizeof(int) +
+                   (size_t)L * span * sizeof(typename Fam::State);
+  return (n + 15) & ~static_cast<size_t>(15);
 }
 
-// `count` smallest |x| of path l over the leaf span and their first
-// indices, each round excluding the positions already taken.
+// One warp's view of its codeword.
 template <int L, class Fam>
-__device__ void weakest(const Thread<L, Fam>& t, const typename Fam::State* x, int l,
-                        int span, int count, float* ms, int* is) {
-  for (int k = 0; k < count; ++k) {
-    float best = 0.f;
-    int bi = -1;
-    for (int s = 0; s < span; ++s) {
-      bool taken = false;
-      for (int j = 0; j < k; ++j) taken |= (is[j * L + l] == s);
-      if (taken) continue;
-      const float v = fabsf(t.get(x, l, s, span));
-      if (bi < 0 || v < best) {
-        best = v;
-        bi = s;
-      }
-    }
-    ms[k * L + l] = best;
-    is[k * L + l] = bi;
-  }
-}
-
-template <int L, class Fam>
-__global__ void scl_subtree_kernel(const int* __restrict__ ops, int n_ops,
-                                   const int* __restrict__ enum_masks,
-                                   const int* __restrict__ spc_tab,
-                                   const typename Fam::State* __restrict__ llr,
-                                   const float* __restrict__ met_in,
-                                   typename Fam::State* __restrict__ scratch,
-                                   int* __restrict__ bits,
-                                   int* __restrict__ perm_out,
-                                   float* __restrict__ met_out, int w_in,
-                                   int w_out, int span, int batch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+struct Warp {
   using S = typename Fam::State;
-  Thread<L, Fam> t{llr, scratch, bits, span, batch, b};
+  static constexpr int kLgL = L == 2 ? 1 : L == 4 ? 2 : L == 8 ? 3 : L == 16 ? 4 : 5;
+  static constexpr int kPer = 32 / L;  // positions per ballot
+  static constexpr unsigned kMask = L == 32 ? kAll : (1u << L) - 1u;
 
-  float m[L];
-  int w = w_in;
-  for (int l = 0; l < w_in; ++l) m[l] = met_in[(size_t)b * w_in + l];
-  int P[kMaxLevels][L];  // perm of the node open at each level
-  float dl[kMaxCand * L];  // candidate deltas [C][L]
-  float nm[L];
-  int src[L], cand[L];
-  float ms[4 * L];
-  int is[4 * L];
-  int par[L];
+  Shared<L>& s;
+  int* W;          // [span] packed bit words
+  S* X;            // levels d >= 1, or the staged input of a one-leaf subtree
+  const S* in;     // the input level 0: element (l, i) at in[(l * span + i) * batch]
+  const int* masks;
+  int span, batch, lane;
 
-  for (int k = 0; k < n_ops; ++k) {
-    const int* op = ops + k * kOpWords;
-    const int code = op[0], d = op[1], len = op[2], off = op[3];
-    const S* X = t.level(d);
-    if (code == OP_F || code == OP_G) {
-      const int h = len >> 1;
-      S* Y = t.level(d + 1);
-      if (code == OP_F) {
-        for (int l = 0; l < w; ++l)
-          for (int i = 0; i < h; ++i)
-            Y[t.at(l, i, h)] = Fam::store(Fam::f(t.get(X, l, i, len), t.get(X, l, i + h, len)));
-      } else {
-        const int* p = P[d + 1];  // left child's perm: slots -> parent slots
-        for (int i = 0; i < h; ++i) {
-          const int lw = t.word(off + i);
-          for (int l = 0; l < w; ++l) {
-            const float a = t.get(X, p[l], i, len);
-            const float bb = t.get(X, p[l], i + h, len);
-            Y[t.at(l, i, h)] = Fam::store(Fam::g(a, bb, (lw >> l) & 1));
+  __device__ S* lvl(int d) const {
+    return X + (d == 0 ? 0 : L * (span - (span >> (d - 1))));
+  }
+
+  // f from level d (span len) into level d + 1, for paths l < w
+  __device__ void F(int d, int len, int w) {
+    const int h = len >> 1, lh = log2i(h), n = w << lh;
+    S* Y = lvl(d + 1);
+    if (d == 0) {  // device memory: kLoads pairs in flight per lane
+      for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+        float a[kLoads], c[kLoads];
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          a[q] = c[q] = 0.f;
+          if (t < n) {
+            const size_t at = (size_t)(l * len + i) * batch;
+            a[q] = Fam::load(in[at]);
+            c[q] = Fam::load(in[at + (size_t)h * batch]);
           }
         }
-        for (int l = 0; l < w; ++l) P[d][l] = p[l];
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q)
+          if (t0 + 32 * q < n) Y[t0 + 32 * q] = Fam::store(Fam::f(a[q], c[q]));
       }
-      continue;
-    }
-    if (code == OP_COMBINE) {
-      const int h = len >> 1;
-      const int* p = P[d + 1];  // right child's perm
-      for (int i = 0; i < h; ++i) {
-        const int lw = t.word(off + i);
-        int g = 0;
-        for (int j = 0; j < w; ++j) g |= ((lw >> p[j]) & 1) << j;
-        t.word(off + i) = g ^ t.word(off + h + i);
+    } else {
+      const S* Xd = lvl(d);
+#pragma unroll 4
+      for (int t = lane; t < n; t += 32) {
+        const int l = t >> lh, i = t & (h - 1);
+        Y[t] = Fam::store(Fam::f(Fam::load(Xd[l * len + i]), Fam::load(Xd[l * len + i + h])));
       }
-      int comp[L];
-      for (int j = 0; j < w; ++j) comp[j] = P[d][p[j]];
-      for (int j = 0; j < w; ++j) P[d][j] = comp[j];
-      continue;
     }
+    __syncwarp();
+  }
 
-    // ---- LEAF ----------------------------------------------------------
-    const int kind = op[4], aux = op[5], n_cand = op[6];
-    if (kind == K_RATE0) {
-      for (int l = 0; l < w; ++l) {
-        float acc = 0.f;
-        for (int s = 0; s < len; ++s) acc = acc + fminf(t.get(X, l, s, len), 0.f);
-        m[l] = m[l] + acc;
-        P[d][l] = l;
+  // g from level d into level d + 1 (node at offset off, whose left half's
+  // bits are done), gathering the parent through the left child's perm;
+  // then the left child's perm becomes level d's
+  __device__ void G(int d, int len, int off, int w) {
+    const int h = len >> 1, lh = log2i(h), n = w << lh;
+    S* Y = lvl(d + 1);
+    const int* p = s.P[d + 1];  // slots -> parent slots
+    if (d == 0) {  // device memory: kLoads pairs in flight per lane
+      for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+        float a[kLoads], c[kLoads];
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          a[q] = c[q] = 0.f;
+          if (t < n) {
+            const size_t at = (size_t)(p[l] * len + i) * batch;
+            a[q] = Fam::load(in[at]);
+            c[q] = Fam::load(in[at + (size_t)h * batch]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          if (t < n) Y[t] = Fam::store(Fam::g(a[q], c[q], (W[off + i] >> l) & 1));
+        }
       }
-      for (int s = 0; s < len; ++s) t.word(off + s) = 0;
-      continue;
+    } else {
+      const S* Xd = lvl(d);
+#pragma unroll 4
+      for (int t = lane; t < n; t += 32) {
+        const int l = t >> lh, i = t & (h - 1);
+        const S* x = Xd + p[l] * len + i;
+        Y[t] = Fam::store(Fam::g(Fam::load(x[0]), Fam::load(x[h]), (W[off + i] >> l) & 1));
+      }
     }
-    int nc;
+    if (lane < w) s.P[d][lane] = p[lane];
+    __syncwarp();
+  }
+
+  // the node at level d, offset off: left bits forked through the right
+  // child's perm, XOR the right bits; perms composed
+  __device__ void combine(int d, int len, int off, int w) {
+    const int h = len >> 1;
+    const int* p = s.P[d + 1];  // right child's perm
+    int pj[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) pj[j] = j < w ? p[j] : 0;
+    for (int i = lane; i < h; i += 32) {
+      const int lw = W[off + i];
+      int fork = 0;
+#pragma unroll
+      for (int j = 0; j < L; ++j) fork |= (j < w ? (lw >> pj[j]) & 1 : 0) << j;
+      W[off + i] = fork ^ W[off + h + i];
+    }
+    int c = 0;
+    if (lane < w) c = s.P[d][p[lane]];
+    __syncwarp();
+    if (lane < w) s.P[d][lane] = c;
+    __syncwarp();
+  }
+
+  // The K (|x|, index)-smallest entries of each path l < w of the span-len
+  // leaf at Xd into s.ms / s.is, and each path's parity of hard decisions
+  // into s.par: a group of 32 / w lanes per path, K rounds of an arg-min
+  // over the entries after the last one taken, each entry keyed by
+  // (|x| bits, index) in one unsigned 64-bit word, which orders as the
+  // pair (|x| >= 0); each lane scans a stride of the span, then the group
+  // takes the minimum by shuffles.
+  template <int K>
+  __device__ void weakest(const S* Xd, int len, int w) {
+    const int lgg = 5 - (w > 1 ? 32 - __clz(w - 1) : 0);
+    const int g = 1 << lgg, l = lane >> lgg, gl = lane & (g - 1);
+    const S* x = Xd + l * len;
+    unsigned long long prev = 0;
+    int neg = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      unsigned long long best = ~0ull;
+      if (l < w) {
+#pragma unroll 4
+        for (int i = gl; i < len; i += g) {
+          const float y = Fam::load(x[i]);
+          if (k == 0) neg ^= Fam::hard(y);
+          const unsigned long long key =
+              (static_cast<unsigned long long>(__float_as_uint(fabsf(y))) << 32) |
+              static_cast<unsigned>(i);
+          if ((k == 0 || key > prev) && key < best) best = key;
+        }
+      }
+      for (int o = g >> 1; o > 0; o >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(kAll, best, o);
+        best = other < best ? other : best;
+      }
+      if (gl == 0 && l < w) {
+        s.ms[k][l] = __uint_as_float(static_cast<unsigned>(best >> 32));
+        s.is[k][l] = static_cast<int>(best & 0xffffffffu);
+      }
+      prev = best;
+    }
+    for (int o = g >> 1; o > 0; o >>= 1) neg ^= __shfl_xor_sync(kAll, neg, o);
+    if (gl == 0 && l < w) s.par[l] = neg;
+    __syncwarp();
+  }
+
+  // Candidate c of path l of a leaf of `kind`: its metric delta. Sums run
+  // sequentially over the span, in the plain version's order.
+  __device__ float delta(int kind, const S* x, int len, int l, int c, int aux) const {
     if (kind == K_REP) {
-      nc = 2;
-      for (int l = 0; l < w; ++l) {
-        float z = 0.f, o = 0.f;
-        for (int s = 0; s < len; ++s) {
-          const float x = t.get(X, l, s, len);
-          z = z + fminf(x, 0.f);
-          o = o + fmaxf(x, 0.f);
-        }
-        dl[l] = z;
-        dl[L + l] = -o;
+      float acc = 0.f;
+      if (c == 0) {
+#pragma unroll 8
+        for (int i = 0; i < len; ++i) acc = acc + fminf(Fam::load(x[i]), 0.f);
+        return acc;
       }
-    } else if (kind == K_RATE1 && len == 1) {
-      nc = 2;
-      for (int l = 0; l < w; ++l) {
-        dl[l] = 0.f;
-        dl[L + l] = -fabsf(t.get(X, l, 0, 1));
+#pragma unroll 8
+      for (int i = 0; i < len; ++i) acc = acc + fmaxf(Fam::load(x[i]), 0.f);
+      return -acc;
+    }
+    if (kind == K_RATE1 && len == 1) return c == 0 ? 0.f : -fabsf(Fam::load(x[0]));
+    if (kind == K_RATE1) {
+      const float m0 = s.ms[0][l], m1 = s.ms[1][l];
+      return c == 0 ? 0.f : c == 1 ? -m0 : c == 2 ? -m1 : -m0 - m1;
+    }
+    if (kind == K_SPC) {
+      const float m0 = s.ms[0][l];
+      const int tm = s.spc[24 + c];
+      float tc = 0.f;
+      for (int j = 0; j < 3; ++j)
+        if ((tm >> j) & 1) tc = tc + s.ms[1 + j][l];
+      const float even = (s.spc[16 + c] ? -m0 : -0.f * m0) - tc;
+      const float odd = -m0 - tc;
+      return s.par[l] ? odd : even;
+    }
+    // K_ENUM: the correlation with codeword c of the leaf's subcode, less
+    // the path's sum of |x| (in s.ms[0])
+    const int mk = masks[aux + c];
+    float sc = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < len; ++i) {
+      const float y = Fam::load(x[i]);
+      sc = sc + (((mk >> i) & 1) ? -y : y);
+    }
+    return 0.5f * (sc - s.ms[0][l]);
+  }
+
+  // Top-min(L, T) of the T candidate values in s.V into s.pc / s.pv (slot
+  // -> code, value): a candidate's slot is its rank under (value desc,
+  // code asc); while T <= L every candidate keeps its code as its slot.
+  // Returns the new width.
+  __device__ int prune(int T) {
+    if (T <= L) {
+      for (int t = lane; t < T; t += 32) {
+        s.pc[t] = t;
+        s.pv[t] = s.V[t];
       }
-    } else if (kind == K_RATE1) {
-      nc = 4;
-      for (int l = 0; l < w; ++l) {
-        weakest(t, X, l, len, 2, ms, is);
-        const float m0 = ms[l], m1 = ms[L + l];
-        dl[l] = 0.f;
-        dl[L + l] = -m0;
-        dl[2 * L + l] = -m1;
-        dl[3 * L + l] = -m0 - m1;
-      }
-    } else if (kind == K_SPC) {
-      nc = 8;
-      for (int l = 0; l < w; ++l) {
-        weakest(t, X, l, len, 4, ms, is);
-        int neg = 0;
-        for (int s = 0; s < len; ++s) neg += Fam::hard(t.get(X, l, s, len));
-        par[l] = neg & 1;
-        const float m0 = ms[l];
-        for (int c = 0; c < 8; ++c) {
-          const int tm = spc_tab[24 + c];
-          float tc = 0.f;
-          for (int j = 0; j < 3; ++j)
-            if ((tm >> j) & 1) tc = tc + ms[(1 + j) * L + l];
-          const float even = (spc_tab[16 + c] ? -m0 : -0.f * m0) - tc;
-          const float odd = -m0 - tc;
-          dl[c * L + l] = par[l] ? odd : even;
-        }
-      }
-    } else {  // K_ENUM: score every codeword of the leaf subcode
-      nc = n_cand;
-      const int* masks = enum_masks + aux;
-      for (int l = 0; l < w; ++l) {
-        float sa = 0.f;
-        for (int s = 0; s < len; ++s) sa = sa + fabsf(t.get(X, l, s, len));
-        for (int c = 0; c < nc; ++c) {
-          const int mk = masks[c];
-          float sc = 0.f;
-          for (int s = 0; s < len; ++s) {
-            const float x = t.get(X, l, s, len);
-            sc = sc + (((mk >> s) & 1) ? -x : x);
-          }
-          dl[c * L + l] = 0.5f * (sc - sa);
-        }
+    } else {
+      const int per = (T + 31) >> 5;
+      if (per == 1)
+        rank<1>(T);
+      else if (per == 2)
+        rank<2>(T);
+      else if (per <= 4)
+        rank<4>(T);
+      else if (per <= 8)
+        rank<(L < 8 ? L : 8)>(T);
+      else
+        rank<L>(T);
+    }
+    __syncwarp();
+    return T < L ? T : L;
+  }
+
+  // The ranks of candidates lane + 32 r (r < R), each counting the
+  // candidates that beat it, in one pass over all T values; slot = rank.
+  template <int R>
+  __device__ void rank(int T) {
+    float v[R];
+    int n[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = lane + 32 * r < T ? s.V[lane + 32 * r] : 0.f;
+      n[r] = 0;
+    }
+#pragma unroll 4
+    for (int u = 0; u < T; ++u) {
+      const float o = s.V[u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) n[r] += (o > v[r]) | ((o == v[r]) & (u < lane + 32 * r));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = lane + 32 * r;
+      if (t < T && n[r] < L) {
+        s.pc[n[r]] = t;
+        s.pv[n[r]] = v[r];
       }
     }
-    const int w2 = prune<L>(m, w, dl, nc, nm, src, cand);
+  }
 
-    // decision bits of the surviving paths, packed one plane per path
-    for (int s = 0; s < len; ++s) {
-      int out = 0;
-      for (int j = 0; j < w2; ++j) {
-        const int l = src[j], c = cand[j];
-        int bit;
+  // LEAF: candidates, prune, decision bits, the survivors' metrics and perm
+  __device__ void leaf(int d, int len, int off, int kind, int aux, int nc, int& w) {
+    const S* Xd = lvl(d);
+    if (kind == K_RATE0) {
+      if (lane < w) {
+        const S* x = Xd + lane * len;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int i = 0; i < len; ++i) acc = acc + fminf(Fam::load(x[i]), 0.f);
+        s.M[lane] = s.M[lane] + acc;
+        s.P[d][lane] = lane;
+      }
+      for (int i = lane; i < len; i += 32) W[off + i] = 0;
+      __syncwarp();
+      return;
+    }
+    K1_CLOCK(tp);
+    if (kind == K_RATE1 && len > 1) {
+      weakest<2>(Xd, len, w);
+    } else if (kind == K_SPC) {
+      weakest<4>(Xd, len, w);
+    } else if (kind == K_ENUM) {
+      if (lane < w) {
+        const S* x = Xd + lane * len;
+        float sa = 0.f;
+#pragma unroll 8
+        for (int i = 0; i < len; ++i) sa = sa + fabsf(Fam::load(x[i]));
+        s.ms[0][lane] = sa;
+      }
+      __syncwarp();
+    }
+    K1_TICK(8, tp);
+    const int T = w * nc;
+    for (int t = lane; t < T; t += 32) {
+      const int l = t / nc, c = t - l * nc;
+      s.V[t] = s.M[l] + delta(kind, Xd + l * len, len, l, c, aux);
+    }
+    __syncwarp();
+    K1_TICK(9, tp);
+    const int w2 = prune(T);
+    K1_TICK(10, tp);
+
+    // decision bits of the surviving paths, packed one plane per path:
+    // lane (position base + lane / L, slot lane % L)
+    const int j = lane & (L - 1);
+    int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
+    if (j < w2) {
+      const int code = s.pc[j];
+      src = code / nc;
+      c = code - src * nc;
+      if (kind == K_RATE1 && len == 1) {
+        fm = c == 1;
+        i0 = 0;
+      } else if (kind == K_RATE1) {
+        fm = (c == 1 || c == 3) | ((c == 2 || c == 3) << 1);
+        i0 = s.is[0][src];
+        i1 = s.is[1][src];
+      } else if (kind == K_SPC) {
+        fm = s.spc[(s.par[src] ? 8 : 0) + c];
+        i0 = s.is[0][src];
+        i1 = s.is[1][src];
+        i2 = s.is[2][src];
+        i3 = s.is[3][src];
+      } else if (kind == K_ENUM) {
+        emask = masks[aux + c];
+      }
+    }
+    const S* xs = Xd + src * len;
+    for (int base = 0; base < len; base += kPer) {
+      const int i = base + (lane >> kLgL);
+      int bit = 0;
+      if (j < w2 && i < len) {
         if (kind == K_REP) {
           bit = c != 0;
         } else if (kind == K_ENUM) {
-          bit = (enum_masks[aux + c] >> s) & 1;
+          bit = (emask >> i) & 1;
         } else {
-          bit = Fam::hard(t.get(X, l, s, len));
-          if (kind == K_RATE1 && len == 1) {
-            bit ^= (c == 1);
-          } else if (kind == K_RATE1) {
-            bit ^= ((c == 1 || c == 3) && s == is[l]) ||
-                   ((c == 2 || c == 3) && s == is[L + l]);
-          } else {  // K_SPC
-            const int fm = spc_tab[(par[l] ? 8 : 0) + c];
-            int f = 0;
-            for (int j4 = 0; j4 < 4; ++j4)
-              f |= ((fm >> j4) & 1) && s == is[j4 * L + l];
-            bit ^= f;
-          }
+          bit = Fam::hard(Fam::load(xs[i])) ^
+                (((fm & 1) && i == i0) | ((fm & 2) && i == i1) | ((fm & 4) && i == i2) |
+                 ((fm & 8) && i == i3));
         }
-        out |= bit << j;
       }
-      t.word(off + s) = out;
+      const unsigned b = __ballot_sync(kAll, bit);
+      if (lane < kPer && base + lane < len)
+        W[off + base + lane] = static_cast<int>((b >> (lane * L)) & kMask);
     }
-    for (int j = 0; j < w2; ++j) {
-      m[j] = nm[j];
-      P[d][j] = src[j];
+    K1_TICK(11, tp);
+    if (lane < w2) {
+      s.M[lane] = s.pv[lane];
+      s.P[d][lane] = s.pc[lane] / nc;
     }
+    __syncwarp();
     w = w2;
   }
+};
 
-  for (int j = 0; j < w_out; ++j) {
-    perm_out[(size_t)b * w_out + j] = P[0][j];
-    met_out[(size_t)b * w_out + j] = m[j];
+template <int L, class Fam>
+__global__ void __launch_bounds__(32 * kMaxPerBlock)
+scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict__ enum_masks,
+                   const int* __restrict__ spc_tab, const typename Fam::State* __restrict__ llr,
+                   const float* __restrict__ met_in, int* __restrict__ bits,
+                   int* __restrict__ perm_out, float* __restrict__ met_out, int w_in, int w_out,
+                   int span, int batch, int per_warp) {
+  using S = typename Fam::State;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // the whole warp: no collective is left behind
+  unsigned char* mine = smem + (size_t)warp * per_warp;
+  Shared<L>& s = *reinterpret_cast<Shared<L>*>(mine);
+  int* W = reinterpret_cast<int*>(mine + sizeof(Shared<L>));
+  S* X = reinterpret_cast<S*>(W + span);
+  K1_CLOCK(tk);
+  Warp<L, Fam> wp{s, W, X, llr + b, enum_masks, span, batch, lane};
+
+  if (lane < w_in) s.M[lane] = met_in[(size_t)b * w_in + lane];
+  s.spc[lane] = spc_tab[lane];
+  if (ops[0] == OP_LEAF) {  // a one-leaf subtree reads its input from shared memory
+    const int n = w_in * span;
+    for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+      S v[kLoads];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q)
+        if (t0 + 32 * q < n) v[q] = llr[(size_t)(t0 + 32 * q) * batch + b];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q)
+        if (t0 + 32 * q < n) X[t0 + 32 * q] = v[q];
+    }
   }
+  __syncwarp();
+
+  int w = w_in;
+  int op[7];
+#pragma unroll
+  for (int q = 0; q < 7; ++q) op[q] = ops[q];
+  for (int k = 0; k < n_ops; ++k) {
+    int next[7];  // the next op's words, loaded while this op runs
+    const int* nx = ops + (k + 1 < n_ops ? k + 1 : k) * kOpWords;
+#pragma unroll
+    for (int q = 0; q < 7; ++q) next[q] = nx[q];
+    const int code = op[0], d = op[1], len = op[2], off = op[3];
+    K1_CLOCK(t0);
+    if (code == OP_F)
+      wp.F(d, len, w);
+    else if (code == OP_G)
+      wp.G(d, len, off, w);
+    else if (code == OP_COMBINE)
+      wp.combine(d, len, off, w);
+    else
+      wp.leaf(d, len, off, op[4], op[5], op[6], w);
+    K1_TICK(code == OP_LEAF ? 3 + op[4] : code < 2 && d == 0 ? 13 + code : code, t0);
+#pragma unroll
+    for (int q = 0; q < 7; ++q) op[q] = next[q];
+  }
+
+  K1_TICK(12, tk);
+  for (int i = lane; i < span; i += 32) bits[(size_t)i * batch + b] = W[i];
+  if (lane < w_out) {
+    perm_out[(size_t)b * w_out + lane] = s.P[0][lane];
+    met_out[(size_t)b * w_out + lane] = s.M[lane];
+  }
+}
+
+int smem_limit() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+      cudaSuccess)
+    return 0;
+  return optin;
 }
 
 template <int L, class Fam>
 int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
-           const void* llr, const float* met, void* scratch, int* bits, int* perm,
-           float* met_out, int w_in, int w_out, int span, int batch,
-           cudaStream_t stream) {
+           const void* llr, const float* met, int* bits, int* perm, float* met_out, int w_in,
+           int w_out, int span, int batch, int per_block, cudaStream_t stream) {
   using S = typename Fam::State;
-  // small blocks first: spread a small batch over every SM
-  int threads = 8;
-  while (threads < 128 && batch / (2 * threads) >= 132) threads *= 2;
-  const int blocks = (batch + threads - 1) / threads;
-  scl_subtree_kernel<L, Fam><<<blocks, threads, 0, stream>>>(
-      ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met,
-      static_cast<S*>(scratch), bits, perm, met_out, w_in, w_out, span, batch);
+  const size_t per_warp = warp_bytes<L, Fam>(span);
+  const size_t limit = static_cast<size_t>(smem_limit());
+  if (per_warp > limit) return -2;
+  // codewords per block: one while the batch leaves SMs idle, then four
+  int cw = per_block > 0 ? per_block : (batch >= 4 * 132 ? 4 : 1);
+  cw = cw > kMaxPerBlock ? kMaxPerBlock : cw;
+  while (cw > 1 && cw * per_warp > limit) cw >>= 1;
+  const size_t smem = cw * per_warp;
+  auto kernel = scl_subtree_kernel<L, Fam>;
+  static int raised[kMaxDevices] = {};  // the kernel's shared-memory limit set per card
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || static_cast<int>(smem) > raised[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) raised[dev] = static_cast<int>(smem);
+  }
+  kernel<<<(batch + cw - 1) / cw, 32 * cw, smem, stream>>>(
+      ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met, bits, perm, met_out,
+      w_in, w_out, span, batch, static_cast<int>(per_warp));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class Fam>
 int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x,
-             const float* mi, void* sc, int* bt, int* pr, float* mo, int list_size,
-             int w_in, int w_out, int span, int batch, cudaStream_t st) {
+             const float* mi, int* bt, int* pr, float* mo, int list_size, int w_in,
+             int w_out, int span, int batch, int pb, cudaStream_t st) {
   switch (list_size) {
-    case 2: return launch<2, Fam>(o, n_ops, e, sp, x, mi, sc, bt, pr, mo, w_in, w_out, span, batch, st);
-    case 4: return launch<4, Fam>(o, n_ops, e, sp, x, mi, sc, bt, pr, mo, w_in, w_out, span, batch, st);
-    case 8: return launch<8, Fam>(o, n_ops, e, sp, x, mi, sc, bt, pr, mo, w_in, w_out, span, batch, st);
-    case 16: return launch<16, Fam>(o, n_ops, e, sp, x, mi, sc, bt, pr, mo, w_in, w_out, span, batch, st);
-    case 32: return launch<32, Fam>(o, n_ops, e, sp, x, mi, sc, bt, pr, mo, w_in, w_out, span, batch, st);
+    case 2: return launch<2, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
+    case 4: return launch<4, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
+    case 8: return launch<8, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
+    case 16: return launch<16, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
+    case 32: return launch<32, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
     default: return -1;
   }
+}
+
+template <class Fam>
+int bytes_of(int list_size, int span) {
+  switch (list_size) {
+    case 2: return static_cast<int>(warp_bytes<2, Fam>(span));
+    case 4: return static_cast<int>(warp_bytes<4, Fam>(span));
+    case 8: return static_cast<int>(warp_bytes<8, Fam>(span));
+    case 16: return static_cast<int>(warp_bytes<16, Fam>(span));
+    case 32: return static_cast<int>(warp_bytes<32, Fam>(span));
+    default: return -1;
+  }
+}
+
+bool bad_span(int span) {
+  return span < 1 || span > (1 << (kMaxLevels - 1)) || (span & (span - 1));
 }
 
 }  // namespace
 
 extern "C" int scl_subtree(const void* ops, int n_ops, const void* enum_masks,
-                           const void* spc_tab, const void* llr,
-                           const void* met, void* scratch, void* bits,
-                           void* perm, void* met_out, int list_size, int w_in,
-                           int w_out, int span, int batch, int family,
-                           void* stream) {
+                           const void* spc_tab, const void* llr, const void* met, void* bits,
+                           void* perm, void* met_out, int list_size, int w_in, int w_out,
+                           int span, int batch, int family, int per_block, void* stream) {
+  if (bad_span(span)) return -1;
   if (batch <= 0) return 0;
   auto o = static_cast<const int*>(ops);
   auto e = static_cast<const int*>(enum_masks);
@@ -449,9 +723,21 @@ extern "C" int scl_subtree(const void* ops, int n_ops, const void* enum_masks,
   auto mo = static_cast<float*>(met_out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (family) {
-    case 0: return dispatch<FloatFamily>(o, n_ops, e, sp, llr, mi, scratch, bt, pr, mo, list_size, w_in, w_out, span, batch, st);
-    case 1: return dispatch<CharFamily>(o, n_ops, e, sp, llr, mi, scratch, bt, pr, mo, list_size, w_in, w_out, span, batch, st);
-    case 2: return dispatch<Bf16Family>(o, n_ops, e, sp, llr, mi, scratch, bt, pr, mo, list_size, w_in, w_out, span, batch, st);
+    case 0: return dispatch<FloatFamily>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
+    case 1: return dispatch<CharFamily>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
+    case 2: return dispatch<Bf16Family>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
     default: return -1;
   }
 }
+
+extern "C" int scl_subtree_smem(int list_size, int span, int family) {
+  if (bad_span(span)) return -1;
+  switch (family) {
+    case 0: return bytes_of<FloatFamily>(list_size, span);
+    case 1: return bytes_of<CharFamily>(list_size, span);
+    case 2: return bytes_of<Bf16Family>(list_size, span);
+    default: return -1;
+  }
+}
+
+extern "C" int scl_subtree_smem_limit() { return smem_limit(); }

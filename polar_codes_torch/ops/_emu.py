@@ -30,7 +30,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def translate(source: str) -> str:
     """A CUDA source as C++ for cuda_on_cpu.h."""
-    text = re.sub(r"#include <(?:cuda_runtime|math_constants)\.h>\n", "", source)
+    text = re.sub(r"#include <(?:cuda_runtime|cuda_bf16|math_constants)\.h>\n", "", source)
     text = re.sub(r"extern __shared__ [^;]*?(\w+)\[\];", r"unsigned char* \1 = emu_smem();",
                   text)
 

@@ -52,6 +52,9 @@ MAX_CAND = 32  # candidate slots per path in the kernel (ENUM k <= 5)
 MAX_LEVELS = 16  # tree levels per subtree in the kernel
 # kernel launches per family since the counts were last reset
 LAUNCHES = {"float32": 0, "char": 0, "bfloat16": 0}
+# codewords (warps) per block of a K1 launch: 1, 2 or 4; 0 lets the kernel
+# choose from the batch
+PER_BLOCK = 0
 
 OP_F, OP_G, OP_COMBINE, OP_LEAF = 0, 1, 2, 3
 _KIND_CODE = {
@@ -435,15 +438,43 @@ def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
 
 def _bind(lib):
     fn = lib.scl_subtree
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # first use of this library
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.scl_subtree_smem.argtypes = [ctypes.c_int] * 3
+        lib.scl_subtree_smem.restype = ctypes.c_int
+        lib.scl_subtree_smem_limit.argtypes = []
+        lib.scl_subtree_smem_limit.restype = ctypes.c_int
     return fn
+
+
+def check_smem(lib, sched: SubtreeSchedule, fam) -> int:
+    """Shared-memory bytes per codeword of `sched` in family `fam` on the
+    current card; raises NotImplementedError when one codeword's state
+    exceeds the card's opt-in shared memory per block."""
+    _bind(lib)
+    need = lib.scl_subtree_smem(sched.list_size, sched.span, fam.code)
+    limit = lib.scl_subtree_smem_limit()
+    if need < 0 or need > limit:
+        raise NotImplementedError(
+            f"K1 keeps one codeword's list state in shared memory: L={sched.list_size}, "
+            f"span {sched.span} in {fam.name} needs {need} bytes, the card allows "
+            f"{limit} per block (choose a smaller kernel_span)")
+    return need
 
 
 def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
     """K1: the plain version for CPU tensors, the CUDA kernel of the LLRs'
-    family for CUDA tensors (same signature as scl_subtree_plain)."""
+    family for CUDA tensors (same signature as scl_subtree_plain).
+
+    On the card one warp decodes one codeword with its list state (the
+    LLRs of every tree level below the subtree's root, the packed bit
+    words, the perms) in shared memory, PER_BLOCK codewords a block (0:
+    chosen from the batch). A schedule whose state does not fit in the
+    card's opt-in shared memory per block (L * span values of the state
+    type plus 4 * span bytes and the list's bookkeeping; only a
+    caller-chosen kernel_span can exceed it) raises NotImplementedError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -465,20 +496,28 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
         raise NotImplementedError(
             f"the kernel covers L in (2, 4, 8, 16, 32) and at most {MAX_LEVELS} "
             f"tree levels, got L={sched.list_size}, {sched.levels} levels")
-    fn = _bind(_build.load("scl_subtree"))
-    ops, masks, spc = sched.device_consts(llr.device)
+    out = launch(_build.load("scl_subtree"), sched, llr, metrics)
+    LAUNCHES[fam.name] += 1
+    return out
+
+
+def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
+    """Launch K1 from the loaded library `lib` on checked CUDA tensors."""
+    fn = _bind(lib)
+    fam = FAMILIES[llr.dtype]
     dev = llr.device
-    scratch = torch.empty(max(sched.list_size * sched.span * n_batch, 1),
-                          dtype=llr.dtype, device=dev)
+    ops, masks, spc = sched.device_consts(dev)
+    n_batch = llr.shape[-1]
     bits = torch.empty((sched.span, n_batch), dtype=torch.int32, device=dev)
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
     err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
-             llr.data_ptr(), metrics.data_ptr(), scratch.data_ptr(),
-             bits.data_ptr(), perm.data_ptr(), met.data_ptr(), sched.list_size,
-             sched.w_in, sched.w_out, sched.span, n_batch, fam.code,
-             torch.cuda.current_stream(dev).cuda_stream)
+             llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
+             met.data_ptr(), sched.list_size, sched.w_in, sched.w_out, sched.span,
+             n_batch, fam.code, PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+    if err == -2:  # the state exceeds the card's shared memory: say by how much
+        with torch.cuda.device(dev):
+            check_smem(lib, sched, fam)
     if err:
         raise RuntimeError(f"scl_subtree launch failed: CUDA error {err}")
-    LAUNCHES[fam.name] += 1
     return bits, perm, met
