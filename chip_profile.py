@@ -36,10 +36,16 @@ the pure-chunk rules (every pure chunk), the final join (large SCL: chunk
 gathers and top butterfly stages; large SC: the codeword transform), the
 tail (SCL: CRC-aided selection after decode_packed; SC: info extraction),
 and the glue above the kernels as the rest of the decode, with the kernel
-launches per decode. Last, K1's cycles per codeword by op kind and leaf
+launches per decode. Then K1's cycles per codeword by op kind and leaf
 phase, from a build of its source with clock64 probes (-DK1_PROFILE).
+Last, `scan_ops`: K4 (4 sweeps) and K5 (one sweep) timed at B = 181 and
+2048 on the scan4 path's inputs (K4 in both node-memory placements, both
+at 1 and 2 codewords a warp), then their cycles per chain by op kind,
+from a build of csrc/scan_sweep.cu with clock64 probes (-DSCAN_PROFILE).
 
-    python3 chip_profile.py
+    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops]
+
+runs the named parts (all without arguments).
 
 Exits non-zero without a CUDA device, or if a window shows no device time.
 """
@@ -124,6 +130,7 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops"}
     _build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -143,15 +150,21 @@ def main():
     scan = ScanDecoder(N_LEN, frozen, detector=det, iterations=4, device=dev)
     fss = FastSScanDecoder(N_LEN, frozen, detector=det, iterations=4, device=dev)
     print(json.dumps({"rerun_rows": int(failed.numel()), "batch": BATCH}))
-    for name, fn in (("adaptive", lambda: ad.decode(quant)),
-                     ("fast_int8", lambda: ad.fast.decode(quant)),
-                     ("rerun_scl8", lambda: ad.list.decode(sub)),
-                     ("scan4", lambda: scan.decode(llr)),
-                     ("fastsscan4", lambda: fss.decode(llr))):
-        profile(name, fn, CALLS, card, torch)
-    scl_paths(card, torch, dev, gen, frozen, quant, llr / AMPL)
-    large_paths(card, torch, dev, gen)
-    k1_ops(card, torch, dev, frozen, llr / AMPL)
+    if "paths" in parts:
+        for name, fn in (("adaptive", lambda: ad.decode(quant)),
+                         ("fast_int8", lambda: ad.fast.decode(quant)),
+                         ("rerun_scl8", lambda: ad.list.decode(sub)),
+                         ("scan4", lambda: scan.decode(llr)),
+                         ("fastsscan4", lambda: fss.decode(llr))):
+            profile(name, fn, CALLS, card, torch)
+    if "scl" in parts:
+        scl_paths(card, torch, dev, gen, frozen, quant, llr / AMPL)
+    if "large" in parts:
+        large_paths(card, torch, dev, gen)
+    if "k1_ops" in parts:
+        k1_ops(card, torch, dev, frozen, llr / AMPL)
+    if "scan_ops" in parts:
+        scan_ops(card, torch, scan, llr)
 
 
 def kernel_launches():
@@ -291,6 +304,28 @@ K1_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "leaf rate0", 4: "leaf rate1", 5: "
             14: "G at level 0"}
 
 
+def profile_build(name, macro):
+    """csrc/<name>.cu built with -D<macro> (its clock64 probes) into
+    build/lib<name>_profile-<hash>.so, loaded."""
+    import ctypes
+    import hashlib
+
+    from polar_codes_torch.ops import _build
+
+    nvcc = _build.nvcc_path()
+    src = _build.CSRC / f"{name}.cu"
+    flags = (*_build.NVCC_FLAGS, f"-D{macro}")
+    key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
+    out = _build.BUILD / f"lib{name}_profile-{key}.so"
+    if not out.exists():
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        run = subprocess.run([nvcc, *flags, "-o", str(out), str(src)], capture_output=True,
+                             text=True)
+        if run.returncode:
+            raise SystemExit(f"nvcc -D{macro} failed:\n{run.stdout}{run.stderr}")
+    return ctypes.CDLL(str(out))
+
+
 def k1_ops(card, torch, dev, frozen, llr):
     """Where a K1 call's time goes, per codeword: K1 built with -DK1_PROFILE
     (clock64 probes, summed by lane 0 of every warp; csrc/scl_subtree.cu)
@@ -300,25 +335,14 @@ def k1_ops(card, torch, dev, frozen, llr):
     "G" include their level-0 calls, the leaf kinds include their
     phases, "schedule" is the whole call after the launch)."""
     import ctypes
-    import hashlib
 
     from polar_codes_torch.models.detectors import CRC16
     from polar_codes_torch.models.scl import SCLDecoder
     from polar_codes_torch.models.tree import NodeKind
-    from polar_codes_torch.ops import _build, scl_kernel_bl
+    from polar_codes_torch.ops import scl_kernel_bl
     from polar_codes_torch.ops.large_kernel import _sub_leaf
 
-    nvcc = _build.nvcc_path()
-    src = _build.CSRC / "scl_subtree.cu"
-    flags = (*_build.NVCC_FLAGS, "-DK1_PROFILE")
-    key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
-    out = _build.BUILD / f"libscl_subtree_profile-{key}.so"
-    if not out.exists():
-        run = subprocess.run([nvcc, *flags, "-o", str(out), str(src)], capture_output=True,
-                             text=True)
-        if run.returncode:
-            raise SystemExit(f"nvcc -DK1_PROFILE failed:\n{run.stdout}{run.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = profile_build("scl_subtree", "K1_PROFILE")
     lib.scl_subtree_profile.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_ulonglong * 64)()
 
@@ -349,6 +373,90 @@ def k1_ops(card, torch, dev, frozen, llr):
             "ops_per_codeword": {v: buf[k + 32] / n_batch for k, v in K1_SLOTS.items()
                                  if buf[k + 32]},
             "card": card}), flush=True)
+
+
+SCAN_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "long op", 7: "subtree op", 4: "stage-in",
+              5: "stage-out", 6: "sweeps"}
+SCAN_BATCHES = (181, BATCH)
+SWEEPS = 4
+BURST = 10
+
+
+def scan_ops(card, torch, scan, llr):
+    """K4 and K5 on the scan4 path's schedule and LLRs (N = 1024, 2 dB):
+    CUDA-event medians of a call within BURST back-to-back calls (the
+    device's time, where one call alone also shows the host's launch) of
+    K4 (4 sweeps) and K5 (one sweep, on the memory of a first sweep) at
+    B = 181 and 2048, K4 also with its node memory forced on and off
+    chip, and both at 1 and 2 codewords a warp (the layout arguments of
+    ops/scan_kernel.py launch_fused and launch_step); then each call once
+    through a -DSCAN_PROFILE build (clock64 probes summed by lane 0 of
+    each warp, a chain of codewords_per_chain codewords), as cycles and
+    ops per chain: F, G and COMBINE of at most 32 items (half-length x
+    codewords a warp), "long op" every op of more, "subtree op" the sweep
+    of a length-8 subtree, "stage-in" the prologue up to the first op,
+    "sweeps" every op of every sweep, "stage-out" the betas' store. The
+    probes add ~90 cycles an op."""
+    import ctypes
+
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    def timed(fn):
+        return time_cuda(lambda: [fn() for _ in range(BURST)], reps=CALLS) / BURST
+
+    sched = scan.sched
+    flat = scan._flat(llr)
+    lib = _build.load("scan_sweep")
+    inputs = {}
+    for n_batch in SCAN_BATCHES:
+        x = flat[:, :n_batch].contiguous()
+        _, mem = sk.scan_step(sched, x, torch.zeros((sched.mem_rows, n_batch), device=x.device))
+        inputs[n_batch] = (x, mem)
+    for n_batch, (x, mem) in inputs.items():
+        row = {"scan_ops_times": f"N={sched.block_length}", "batch": n_batch,
+               "mem_on_chip_default": sk.mem_on_chip(sched),
+               "k4_ms": timed(lambda: sk.scan_fused(sched, x, SWEEPS)),
+               "k5_ms": timed(lambda: sk.scan_step(sched, x, mem))}
+        on_chip = sk.mem_on_chip(sched)
+        for chip in (True, False):
+            row[f"k4_ms_mem_{'on' if chip else 'off'}_chip"] = timed(
+                lambda: sk.launch_fused(lib, sched, x, SWEEPS, chip))
+        for per_warp in (1, 2):
+            row[f"k4_ms_{per_warp}_a_warp"] = timed(
+                lambda: sk.launch_fused(lib, sched, x, SWEEPS, on_chip, per_warp=per_warp))
+            row[f"k5_ms_{per_warp}_a_warp"] = timed(
+                lambda: sk.launch_step(lib, sched, x, mem, per_warp=per_warp))
+        row["card"] = card
+        print(json.dumps(row), flush=True)
+
+    lib = profile_build("scan_sweep", "SCAN_PROFILE")
+    lib.scan_sweep_profile.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 64)()
+    _build._LIBS["scan_sweep"] = lib  # the wrappers launch the probed build
+    try:
+        for n_batch, (x, mem) in inputs.items():
+            for name, fn in (("K4, 4 sweeps", lambda: sk.scan_fused(sched, x, SWEEPS)),
+                             ("K5, one sweep", lambda: sk.scan_step(sched, x, mem))):
+                fn()
+                torch.cuda.synchronize()
+                lib.scan_sweep_profile(buf)
+                fn()
+                torch.cuda.synchronize()
+                lib.scan_sweep_profile(buf)
+                chains = buf[4 + 32]
+                print(json.dumps({
+                    "scan_ops": name, "batch": n_batch, "codewords_per_chain": n_batch / chains,
+                    "cycles_per_chain": {v: buf[k] / chains for k, v in SCAN_SLOTS.items()
+                                         if buf[k + 32]},
+                    "ops_per_chain": {v: buf[k + 32] / chains for k, v in SCAN_SLOTS.items()
+                                      if buf[k + 32]},
+                    "cycles_per_op": {v: buf[k] / buf[k + 32] for k, v in SCAN_SLOTS.items()
+                                      if buf[k + 32] and k in (0, 1, 2, 3, 7)},
+                    "card": card}), flush=True)
+    finally:
+        del _build._LIBS["scan_sweep"]
 
 
 if __name__ == "__main__":

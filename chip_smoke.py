@@ -101,8 +101,22 @@ list state in shared memory), in every family:
      equal; K1's two N = 1024 CA-SCL-8 calls timed at B = 181 and 2048
      (and at 1, 2, 4 codewords a block), and the one-leaf span-256 calls
      of the large-N pure chunks
- 25. {"kernels": [...]}, every family of all seven TPU kernels
- 26. {"ok": true, "device": {...}}
+
+Slice 7, the SCAN sweep kernels K4 and K5 redesigned (a warp per one or
+two codewords, no block barrier):
+ 25. K4 and K5 against their plain versions at N in (4, 64, 1024, 2048,
+     4096) (Bhattacharyya, rate 1/2), B in (1, 3, 181, 2048), on Gaussian
+     and integer LLRs: K4 over 1, 2, 4 and 8 sweeps with its node memory
+     on chip and in device memory (where each fits), K5 over 8 chained
+     sweeps, betas and memory bit-equal (+inf, signed zeros); B = 3 and
+     181 also at 1 and 2 codewords a warp, 8 a block (idle warps,
+     codewords past the batch); SCAN and FastSSCAN decodes at (1024,
+     512), CRC32, 2 dB equal to decodes by the plain versions, BLER <
+     0.5; K4 and K5 timed at B = 181 and 2048,
+     a call alone and within a burst (K4 in both placements), and the
+     scan4 and fastsscan4 decodes
+ 26. {"kernels": [...]}, every family of all seven TPU kernels
+ 27. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -318,6 +332,15 @@ def main():
     k1_shapes_err = run_k1_shapes(card)
 
     # 25 ------------------------------------------------------------------
+    phase("25 K4 and K5 at N in (4 .. 4096), B in (1, 3, 181, 2048), 1-8 sweeps, "
+          "both memory placements")
+    scan_shapes = run_scan_shapes(card)
+
+    # 26 ------------------------------------------------------------------
+    for entry in slice2["kernels"]:  # K4 and K5: phase 25's calls too
+        if entry["name"] in scan_shapes:
+            entry["max_abs_err"] = max(entry["max_abs_err"], scan_shapes[entry["name"]])
+            entry["redesigned"] = SCAN_DESIGN
     for entry in slice4["kernels"]:  # K1 char and bf16: phase 24's calls too
         if entry["name"].startswith("scl_subtree["):
             fam = entry["name"][len("scl_subtree["):-1]
@@ -350,7 +373,7 @@ def main():
          "max_abs_err": max(k1_err, k1_shapes_err["float32"]), "ms": k1_ms,
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 26 ------------------------------------------------------------------
+    # 27 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1549,6 +1572,169 @@ def run_k1_shapes(card):
           "ratio_b181_b2048": sum(rows[181]) / sum(rows[B2]),
           "ms_b2048_by_codewords_per_block": per_block,
           f"one_leaf_span256_b{B3}_ms": one_leaf, "card": card})
+    return err
+
+
+# ---- the redesigned K4 and K5: lengths, batches, sweeps, layouts --------
+
+SEED7 = 20261021
+SCAN_DESIGN = "a warp per one or two codewords, no block barrier, leaf ops folded away"
+SCAN_LENGTHS = (4, 64, 1024, 2048, 4096)
+SCAN_BATCHES = (1, 3, 181, 2048)
+SCAN_SWEEPS = (1, 2, 4, 8)
+SCAN_LAYOUTS = ((8, 1), (4, 2))  # (warps a block, codewords a warp)
+BURST = 10  # back-to-back calls a timed sample
+
+
+def run_scan_shapes(card):
+    """Phase 25. K4 and K5 against their plain versions on Bhattacharyya
+    codes at rate 1/2 of every length in SCAN_LENGTHS, B in SCAN_BATCHES,
+    Gaussian and integer LLRs (ties, signed zeros). The reference is the
+    plain K5 chained over 8 sweeps from zero memory: after s steps its
+    betas are scan_fused_plain's over s sweeps (the same per-element
+    operations; tests/test_torch_scan.py), so K4 at each of SCAN_SWEEPS in
+    each memory placement that fits and K5 step by step (on its own
+    memory) are held to it, betas and memory bit for bit. B = 3 and 181
+    again at each of SCAN_LAYOUTS (8 codewords a block: idle warps, and
+    lanes of codewords past the batch). Then SCAN and FastSSCAN decodes
+    against decodes by the plain versions, and the times. Returns the
+    largest difference per kernel name (0)."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC32
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.scan import FastSScanDecoder, ScanDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    lib = _build.load("scan_sweep")
+    gen = torch.Generator(device=dev).manual_seed(SEED7)
+    err = {"scan_fused": 0.0, "scan_step": 0.0}
+    checked = {"scan_fused": 0, "scan_step": 0}
+    placements = {}
+
+    def hold(name, where, got, want):
+        err[name] = max(err[name], _equal(f"{name} {where}", got, want))
+        checked[name] += 1
+
+    def fused(sched, x, sweeps, on_chip, **layout):
+        return sk.launch_fused(lib, sched, x, sweeps, on_chip, **layout)
+
+    def fitting(sched, **layout):
+        """The node-memory placements whose state fits a block at the
+        layout; device memory must fit every length, and on chip every
+        length where it is the kernel's default."""
+        fits = []
+        for on_chip in (True, False):
+            try:
+                fused(sched, torch.zeros((sched.block_length, 1), device=dev), 1, on_chip,
+                      **layout)
+                fits.append(on_chip)
+            except NotImplementedError:
+                pass
+        want = [True, False] if sk.mem_on_chip(sched) else [False]
+        if not set(want) <= set(fits):
+            raise AssertionError(f"K4 at N = {sched.block_length}, {layout or 'default layout'}: "
+                                 f"placements {fits} lack one of {want}")
+        return fits
+
+    for n_len in SCAN_LENGTHS:
+        sched = ScanDecoder(n_len, frozen_bits(n_len, n_len // 2, 0.0, "BB"), device=dev).sched
+        fits = placements[n_len] = fitting(sched)
+        for n_batch in SCAN_BATCHES:
+            for kind in ("gauss", "ints"):
+                if kind == "ints":
+                    x = torch.randint(-2, 3, (n_len, n_batch), generator=gen,
+                                      device=dev).to(torch.float32)
+                else:
+                    x = torch.randn((n_len, n_batch), generator=gen, device=dev) * 1.5 + 0.5
+                mem_p = mem_k = torch.zeros((sched.mem_rows, n_batch), device=dev)
+                ref = {}
+                for step in range(1, max(SCAN_SWEEPS) + 1):
+                    mem_in = mem_p
+                    beta_p, mem_p = sk.scan_step_plain(sched, x, mem_p)
+                    ref[step] = beta_p
+                    where = f"N={n_len} B={n_batch} {kind} step {step}"
+                    beta_k, mem_k = sk.scan_step(sched, x, mem_k)
+                    hold("scan_step", where + " betas", beta_k, beta_p)
+                    hold("scan_step", where + " memory", mem_k, mem_p)
+                    if step == 2 and n_batch in (3, 181):  # idle warps, lanes past B
+                        for per_block, per_warp in SCAN_LAYOUTS:
+                            layout = {"per_block": per_block, "per_warp": per_warp}
+                            at = f" at {per_warp} a warp, {per_block} warps a block"
+                            got = sk.launch_step(lib, sched, x, mem_in, **layout)
+                            hold("scan_step", where + at + ", betas", got[0], beta_p)
+                            hold("scan_step", where + at + ", memory", got[1], mem_p)
+                            for on_chip in fitting(sched, **layout):
+                                hold("scan_fused", where + at + f", on chip {on_chip}",
+                                     fused(sched, x, step, on_chip, **layout), beta_p)
+                for sweeps in SCAN_SWEEPS:
+                    for on_chip in fits:
+                        hold("scan_fused", f"N={n_len} B={n_batch} {kind} {sweeps} sweeps, "
+                             f"memory on chip {on_chip}", fused(sched, x, sweeps, on_chip),
+                             ref[sweeps])
+    torch.cuda.synchronize()
+    emit({"scan_checked_calls": checked, "max_abs_err": err,
+          "k4_placements": {n: ["on chip" if p else "device memory" for p in fits]
+                            for n, fits in placements.items()},
+          "k4_default_on_chip": {n: sk.mem_on_chip(ScanDecoder(
+              n, frozen_bits(n, n // 2, 0.0, "BB"), device=dev).sched) for n in SCAN_LENGTHS}})
+    print(f"K4 and K5: {checked} calls bit-equal to the plain versions at N in "
+          f"{SCAN_LENGTHS}, B in {SCAN_BATCHES}, sweeps {SCAN_SWEEPS}")
+
+    det = CRC32()
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    enc = PolarEncoder(N_LEN, frozen, systematic=True, detector=det, device=dev)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * K_LEN / N_LEN)
+    info = torch.randint(0, 2, (B2, K_LEN), generator=gen, device=dev, dtype=torch.uint8)
+    sent = det.generate(info)
+    llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+    scan = ScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS, device=dev)
+    fss = FastSScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS, device=dev)
+    blers = {}
+    for name, dec, plain in (
+            ("scan4", scan, ScanDecoder(N_LEN, frozen, detector=det, iterations=SWEEPS,
+                                        device=dev, fused_fn=sk.scan_fused_plain)),
+            ("fastsscan4", fss, FastSScanDecoder(N_LEN, frozen, detector=det,
+                                                 iterations=SWEEPS, device=dev,
+                                                 step_fn=sk.scan_step_plain))):
+        got = dec.decode(llr)
+        _same_decisions(f"{name} decode", got, plain.decode(llr))
+        blers[name] = float((got[0] != sent).any(1).float().mean())
+    emit({"metric": "bler", "path": "scan_phase25", "value": blers, "blocks": B2,
+          "ebn0_db": EBN0_DB})
+    if not all(v < 0.5 for v in blers.values()):
+        raise AssertionError(f"SCAN BLER not below 0.5: {blers}")
+    print("SCAN and FastSSCAN decodes equal to decodes by the plain versions")
+
+    def burst(fn):
+        """Milliseconds a call of fn within BURST back-to-back calls: the
+        device time, where one call alone also shows the host's launch."""
+        return time_cuda(lambda: [fn() for _ in range(BURST)], reps=REPS) / BURST
+
+    sched = scan.sched
+    flat = scan._flat(llr)
+    times = {}
+    for n_batch in (181, B2):
+        x = flat[:, :n_batch].contiguous()
+        mem = sk.scan_step(sched, x, torch.zeros((sched.mem_rows, n_batch), device=dev))[1]
+        for name, fn in (("scan_step", lambda: sk.scan_step(sched, x, mem)),
+                         ("scan_fused", lambda: sk.scan_fused(sched, x, SWEEPS))):
+            times[f"{name}_b{n_batch}_ms"] = time_cuda(fn, reps=REPS)
+            times[f"{name}_b{n_batch}_burst_ms"] = burst(fn)
+        for on_chip in placements[N_LEN]:
+            where = "on_chip" if on_chip else "device_memory"
+            times[f"scan_fused_b{n_batch}_mem_{where}_burst_ms"] = burst(
+                lambda: fused(sched, x, SWEEPS, on_chip))
+    times["scan4_decode_ms"] = time_cuda(lambda: scan.decode(llr), reps=REPS)
+    times["fastsscan4_decode_ms"] = time_cuda(lambda: fss.decode(llr), reps=REPS)
+    emit({"kernel": "scan_fused, scan_step", "n": N_LEN, "sweeps_fused": SWEEPS,
+          "k4_default_on_chip": sk.mem_on_chip(sched), **times, "card": card})
     return err
 
 

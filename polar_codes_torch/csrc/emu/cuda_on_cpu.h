@@ -6,8 +6,8 @@
 // use is defined: one-dimensional launches, full-warp masks, dynamic and
 // static shared memory (a `__shared__` variable is a function-local
 // static, so one block runs at a time), __nv_bfloat16 with its two
-// conversions (round to nearest even), and a card whose opt-in shared
-// memory per block is the H100's. A barrier that waits 60 s aborts: a
+// conversions (round to nearest even), and a card with the H100's opt-in
+// shared memory per block and SM count. A barrier that waits 60 s aborts: a
 // divergent __syncwarp, shuffle or ballot, which deadlocks on the card
 // too.
 #pragma once
@@ -34,13 +34,17 @@ using std::min;
 #define __align__(n)
 #define __shared__ static
 
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -48,8 +52,9 @@ inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
-  *value = 232448;  // an H100's opt-in shared memory per block
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  // an H100's SMs and opt-in shared memory per block
+  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
   return cudaSuccess;
 }
 

@@ -19,7 +19,12 @@ package agree bit for bit.
 `scan_fused` and `scan_step` run the plain versions for tensors on the CPU
 and the CUDA kernel for tensors on the card, never one in place of the
 other. The plain versions walk the node tree themselves and do not read
-the op list, so the two versions check each other.
+the op list, so the two versions check each other. On the card a warp
+runs the sweeps of one or two codewords (csrc/scan_sweep.cu) on the
+schedule's `kernel_ops`; `launch_fused` and `launch_step` take the
+library to launch from, so that the tests can run the kernel's source
+built for the CPU (ops/_emu.py) on CPU tensors, and the node-memory
+placement and warp layout, which the wrappers leave to the kernel.
 """
 
 from __future__ import annotations
@@ -62,14 +67,16 @@ def mem_layout(tree: CodeNode) -> Tuple[Dict[CodeNode, int], int]:
 
 @dataclass(eq=False)
 class ScanSchedule:
-    """The SCAN tree flattened for the kernels: `ops` [n_ops, 5] int32
-    rows {op, level, length, offset, aux} in post-order (aux: the node's
-    memory row for F/G/COMBINE; 0 for a rate-0, 1 for a rate-1 leaf)."""
+    """The SCAN tree flattened: `ops` [n_ops, 5] int32 rows {op, level,
+    length, offset, aux} in post-order (aux: the node's memory row for
+    F/G/COMBINE; 0 for a rate-0, 1 for a rate-1 leaf), and `kernel_ops`,
+    the kernels' derived copy (see `kernel_ops`)."""
 
     tree: CodeNode
     ops: np.ndarray
     mem_offsets: Dict[CodeNode, int]
     mem_rows: int
+    kernel_ops: np.ndarray
     _device_ops: Dict[torch.device, torch.Tensor] = field(default_factory=dict, repr=False)
 
     @property
@@ -77,9 +84,10 @@ class ScanSchedule:
         return self.tree.length
 
     def device_ops(self, device: torch.device) -> torch.Tensor:
+        """`kernel_ops` on `device` (made once per device)."""
         ops = self._device_ops.get(device)
         if ops is None:
-            ops = torch.as_tensor(self.ops, device=device)
+            ops = torch.as_tensor(self.kernel_ops, device=device)
             self._device_ops[device] = ops
         return ops
 
@@ -107,7 +115,81 @@ def build_schedule(tree: CodeNode) -> ScanSchedule:
 
     emit(tree, 0)
     return ScanSchedule(tree=tree, ops=np.asarray(ops, np.int32).reshape(-1, 5),
-                        mem_offsets=offsets, mem_rows=rows)
+                        mem_offsets=offsets, mem_rows=rows,
+                        kernel_ops=kernel_ops(tree, offsets))
+
+
+CHILD_BRANCH, CHILD_RATE0, CHILD_RATE1, CHILD_NONE = range(4)
+OP_SUBTREE = 3  # a kernel op: the whole sweep of a branch node of length SUBTREE
+SUBTREE = 8
+
+
+def kernel_ops(tree: CodeNode, offsets: Dict[CodeNode, int]) -> np.ndarray:
+    """The schedule as csrc/scan_sweep.cu reads it: [n, 4] int32, the
+    ops in post-order, {word, alpha row, z, memory row}: word = op |
+    log2(length) << 2 | left child's kind << 6 | right child's kind << 8
+    (CHILD_BRANCH, or a leaf: CHILD_RATE0, beta +inf; CHILD_RATE1, beta
+    0); the alpha row is where the node's level starts in [2N] (level
+    d >= 1 at 2N - 2N / 2^d); z is the node's beta offset for G and
+    COMBINE, 0 for F.
+
+    A branch node of length SUBTREE is one op, OP_SUBTREE, that sweeps its
+    whole subtree in one lane's registers: word = OP_SUBTREE | the kinds
+    of its 14 descendants << 2 (2 bits each, in heap order: node p's
+    children are 2p and 2p + 1, the root 1, node p at bits 2p - 4;
+    CHILD_NONE where the node does not exist), z its beta offset, and the
+    memory row of its first branch node in post-order.
+
+    A leaf's alpha is never read (its beta is a constant), so the F that
+    feeds a leaf left child and the G that feeds a leaf right child are
+    left out, and so are the leaves: G and COMBINE take a leaf child's
+    constant beta from the word instead of reading it. Every value that
+    is computed is computed as in `_sweep`; the ones left out are not
+    read by anything."""
+    n = tree.length
+    rows = []
+
+    def kind(node: CodeNode) -> int:
+        if node.kind == NodeKind.BRANCH:
+            return CHILD_BRANCH
+        return CHILD_RATE0 if node.kind == NodeKind.RATE0 else CHILD_RATE1
+
+    def subtree_word(node: CodeNode) -> int:
+        word, heap = OP_SUBTREE, {1: node}
+        for p in range(2, 2 * SUBTREE):
+            parent = heap.get(p // 2)
+            child = None
+            if parent is not None and parent.kind == NodeKind.BRANCH:
+                child = parent.right if p % 2 else parent.left
+                heap[p] = child
+            word |= (CHILD_NONE if child is None else kind(child)) << (2 * p - 2)
+        return word
+
+    def first_row(node: CodeNode) -> int:
+        for child in (node.left, node.right):
+            if child.kind == NodeKind.BRANCH:
+                return first_row(child)
+        return offsets[node]
+
+    def emit(node: CodeNode, level: int):
+        if node.kind != NodeKind.BRANCH:
+            return
+        lk, rk = kind(node.left), kind(node.right)
+        word = (node.length.bit_length() - 1) << 2 | lk << 6 | rk << 8
+        alpha = 0 if level == 0 else 2 * n - (n >> (level - 1))
+        if node.length == SUBTREE:
+            rows.append([subtree_word(node), alpha, node.offset, first_row(node)])
+            return
+        if lk == CHILD_BRANCH:
+            rows.append([OP_F | word, alpha, 0, offsets[node]])
+            emit(node.left, level + 1)
+        if rk == CHILD_BRANCH:
+            rows.append([OP_G | word, alpha, node.offset, offsets[node]])
+            emit(node.right, level + 1)
+        rows.append([OP_COMBINE | word, alpha, node.offset, offsets[node]])
+
+    emit(tree, 0)
+    return np.asarray(rows, np.int32).reshape(-1, 4)
 
 
 # ---- the plain versions ----------------------------------------------------
@@ -171,26 +253,81 @@ def _check(name: str, sched: ScanSchedule, llr: torch.Tensor, *others) -> None:
             f"the SCAN kernels cover N up to {MAX_N}, got {sched.block_length}")
 
 
-def mem_on_chip(sched: ScanSchedule) -> bool:
-    """Whether K4 keeps the node memory in shared memory (else in a zeroed
-    [M, B] scratch that the wrapper allocates); the kernel's source
-    decides."""
-    fn = _build.load("scan_sweep").scan_sweep_mem_on_chip
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return bool(fn(sched.block_length, sched.mem_rows))
-
-
 def _bind(lib):
-    fused = lib.scan_sweep_fused
-    fused.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fused.restype = ctypes.c_int
-    step = lib.scan_sweep_step
-    step.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    step.restype = ctypes.c_int
+    """The library's entry points (fused, step), their types set."""
+    fused, step = lib.scan_sweep_fused, lib.scan_sweep_step
+    if fused.argtypes is None:  # first use of this library
+        fused.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fused.restype = ctypes.c_int
+        step.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        lib.scan_sweep_mem_on_chip.argtypes = [ctypes.c_int] * 3
+        lib.scan_sweep_mem_on_chip.restype = ctypes.c_int
+        lib.scan_sweep_smem_limit.argtypes = []
+        lib.scan_sweep_smem_limit.restype = ctypes.c_int
     return fused, step
+
+
+def mem_on_chip(sched: ScanSchedule) -> bool:
+    """Whether K4 keeps the node memory in shared memory (else in an
+    [M, B] scratch that the wrapper allocates), as the kernel source
+    chooses."""
+    lib = _build.load("scan_sweep")
+    _bind(lib)
+    return bool(lib.scan_sweep_mem_on_chip(sched.block_length, sched.kernel_ops.shape[0],
+                                           sched.mem_rows))
+
+
+def _stream(dev: torch.device):
+    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+
+
+def _raise(lib, name: str, sched: ScanSchedule, err: int, on_chip: bool) -> None:
+    if err == -2:
+        raise NotImplementedError(
+            f"{name} keeps each codeword's alpha levels and betas"
+            f"{' and node memory' if on_chip else ''} and the op list in shared memory: "
+            f"N = {sched.block_length} with {sched.kernel_ops.shape[0]} ops and M = "
+            f"{sched.mem_rows} exceeds the card's {lib.scan_sweep_smem_limit()} bytes "
+            f"per block")
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def launch_fused(lib, sched: ScanSchedule, llr: torch.Tensor, sweeps: int, on_chip: bool, *,
+                 per_block: int = 0, per_warp: int = 0) -> torch.Tensor:
+    """Launch K4 from the loaded library `lib` on checked tensors, the
+    node memory on chip or in a scratch; per_block warps a block (1 to 8)
+    and per_warp codewords a warp (1 or 2), 0 the kernel's choice."""
+    fused, _ = _bind(lib)
+    dev = llr.device
+    n_batch = llr.shape[1]
+    ops = sched.device_ops(dev)
+    scratch = torch.empty((1,) if on_chip else (sched.mem_rows, n_batch), device=dev)
+    beta = torch.empty_like(llr)
+    err = fused(ops.data_ptr(), ops.shape[0], llr.data_ptr(), beta.data_ptr(),
+                scratch.data_ptr(), sched.mem_rows, int(on_chip), sched.block_length,
+                n_batch, int(sweeps), per_block, per_warp, _stream(dev))
+    _raise(lib, "scan_fused", sched, err, on_chip)
+    return beta
+
+
+def launch_step(lib, sched: ScanSchedule, llr: torch.Tensor, mem: torch.Tensor, *,
+                per_block: int = 0, per_warp: int = 0):
+    """Launch K5 from the loaded library `lib` on checked tensors, the
+    layout as in `launch_fused`."""
+    _, step = _bind(lib)
+    dev = llr.device
+    ops = sched.device_ops(dev)
+    beta = torch.empty_like(llr)
+    mem_out = torch.empty_like(mem)
+    err = step(ops.data_ptr(), ops.shape[0], llr.data_ptr(), mem.data_ptr(),
+               beta.data_ptr(), mem_out.data_ptr(), sched.mem_rows, sched.block_length,
+               llr.shape[1], per_block, per_warp, _stream(dev))
+    _raise(lib, "scan_step", sched, err, False)
+    return beta, mem_out
 
 
 def scan_fused(sched: ScanSchedule, llr: torch.Tensor, sweeps: int) -> torch.Tensor:
@@ -199,20 +336,8 @@ def scan_fused(sched: ScanSchedule, llr: torch.Tensor, sweeps: int) -> torch.Ten
     if llr.device.type == "cpu":
         return scan_fused_plain(sched, llr, sweeps)
     _check("scan_fused", sched, llr)
-    fused, _ = _bind(_build.load("scan_sweep"))
-    dev = llr.device
-    n_batch = llr.shape[1]
-    ops = sched.device_ops(dev)
-    on_chip = mem_on_chip(sched)
-    scratch = (torch.empty(1, device=dev) if on_chip else
-               torch.zeros((sched.mem_rows, n_batch), device=dev))
-    beta = torch.empty_like(llr)
-    err = fused(ops.data_ptr(), ops.shape[0], llr.data_ptr(), beta.data_ptr(),
-                scratch.data_ptr(), sched.mem_rows, int(on_chip),
-                sched.block_length, n_batch, int(sweeps),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"scan_fused launch failed: CUDA error {err}")
+    lib = _build.load("scan_sweep")
+    beta = launch_fused(lib, sched, llr, sweeps, mem_on_chip(sched))
     LAUNCHES["fused"] += 1
     return beta
 
@@ -223,16 +348,6 @@ def scan_step(sched: ScanSchedule, llr: torch.Tensor, mem: torch.Tensor):
     if llr.device.type == "cpu":
         return scan_step_plain(sched, llr, mem)
     _check("scan_step", sched, llr, mem)
-    _, step = _bind(_build.load("scan_sweep"))
-    dev = llr.device
-    ops = sched.device_ops(dev)
-    beta = torch.empty_like(llr)
-    mem_out = torch.empty_like(mem)
-    err = step(ops.data_ptr(), ops.shape[0], llr.data_ptr(), mem.data_ptr(),
-               beta.data_ptr(), mem_out.data_ptr(), sched.mem_rows,
-               sched.block_length, llr.shape[1],
-               torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"scan_step launch failed: CUDA error {err}")
+    out = launch_step(_build.load("scan_sweep"), sched, llr, mem)
     LAUNCHES["step"] += 1
-    return beta, mem_out
+    return out
