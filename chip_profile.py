@@ -42,8 +42,13 @@ Last, `scan_ops`: K4 (4 sweeps) and K5 (one sweep) timed at B = 181 and
 2048 on the scan4 path's inputs (K4 in both node-memory placements, both
 at 1 and 2 codewords a warp), then their cycles per chain by op kind,
 from a build of csrc/scan_sweep.cu with clock64 probes (-DSCAN_PROFILE).
+Last, `k3_ops`: K3 (both families, the adaptive fast pass's root call)
+at B = 181 and 2048 and K2 at B = 1024, each a call alone, within a
+burst and its device time under the profiler; then K3's cycles per op
+kind from a build of csrc/fastssc_subtree.cu with clock64 probes
+(-DK3_PROFILE), where the source has them.
 
-    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops]
+    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops]
 
 runs the named parts (all without arguments).
 
@@ -130,7 +135,7 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops"}
+    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops"}
     _build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -165,6 +170,8 @@ def main():
         k1_ops(card, torch, dev, frozen, llr / AMPL)
     if "scan_ops" in parts:
         scan_ops(card, torch, scan, llr)
+    if "k3_ops" in parts:
+        k3_ops(card, torch, dev, gen, ad, enc, llr, quant)
 
 
 def kernel_launches():
@@ -457,6 +464,107 @@ def scan_ops(card, torch, scan, llr):
                     "card": card}), flush=True)
     finally:
         del _build._LIBS["scan_sweep"]
+
+
+K3_SLOTS = {0: "F", 1: "G", 2: "ZERO_R", 3: "COMBINE", 4: "RATE0", 5: "RATE1", 6: "REP",
+            7: "SPC"}
+K3_BATCHES = (181, BATCH)
+K2_BATCH = 1024
+
+
+def device_ms(fn, torch, tries=3):
+    """Device time of one call of fn: the summed durations of the device
+    events in a profiled window of CALLS calls, over CALLS. A window in
+    which the profiler recorded no device event (it happens now and then
+    after many profiler sessions in one process) is taken again, up to
+    `tries` windows."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof, torch)
+        if events:
+            return sum(e - s for _, s, e in events) / 1e3 / CALLS, len(events) / CALLS
+    raise SystemExit(f"k3_ops: the profiler recorded no device time in {tries} windows")
+
+
+def k3_ops(card, torch, dev, gen, ad, enc, llr, quant):
+    """K3's root call of the adaptive fast pass (N = 1024, the path's int8
+    LLRs; float32: the LLRs x10 unquantised) at B = 181 and 2048, and K2 on
+    the encoder's u-domain rows at B = 1024: milliseconds of a call alone
+    (CUDA events around one call, the host's wrapper and launch included),
+    within BURST back-to-back calls, and on the device (torch.profiler).
+    Then, where csrc/fastssc_subtree.cu has its clock64 probes, one call of
+    each K3 shape through a -DK3_PROFILE build: cycles and ops per codeword
+    by op kind, each from the op before it, in registers (every node of up
+    to 1024 positions; at 64 and more F, G and ZeroR run inside the lane)
+    or "shared" (nodes of 2048, not at these shapes); "op loop" the loop's
+    own work between register subtrees (fetches, loading a subtree's LLRs
+    is in its first op), "chain" the whole schedule, "stage-in" the
+    prologue, "stage-out" the barrier and the store. The probes add their
+    clock reads and two device-memory atomics to every op."""
+    import ctypes
+
+    from polar_codes_torch.ops import _build, butterfly_kernel
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    def burst(fn):
+        return time_cuda(lambda: [fn() for _ in range(BURST)], reps=CALLS) / BURST
+
+    sched = ad.fast.schedule(ad.fast.tree)
+    inputs = {}
+    for n_batch in K3_BATCHES:
+        inputs[("float32", n_batch)] = llr[:n_batch].T.contiguous()
+        inputs[("int8", n_batch)] = quant[:n_batch].T.contiguous()
+    for (family, n_batch), x in inputs.items():
+        fn = lambda x=x: fk.fastssc_subtree(sched, x, True)  # noqa: E731
+        dev_ms, kernels = device_ms(fn, torch)
+        print(json.dumps({"k3_times": f"fastssc_subtree[{family}]", "span": sched.span,
+                          "batch": n_batch, "alone_ms": time_cuda(fn, reps=CALLS),
+                          "burst_ms": burst(fn), "device_ms": dev_ms,
+                          "device_kernels_per_call": kernels, "card": card}), flush=True)
+    info = torch.randint(0, 2, (K2_BATCH, enc.info_length), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    u = enc.inject(enc.detector.generate(info)).contiguous()
+    mask = enc._mask_t
+    fn = lambda: butterfly_kernel.butterfly_encode(u, mask, True)  # noqa: E731
+    dev_ms, kernels = device_ms(fn, torch)
+    print(json.dumps({"k3_times": "butterfly_encode", "n": enc.block_length,
+                      "batch": K2_BATCH, "alone_ms": time_cuda(fn, reps=CALLS),
+                      "burst_ms": burst(fn), "device_ms": dev_ms,
+                      "device_kernels_per_call": kernels, "card": card}), flush=True)
+
+    lib = profile_build("fastssc_subtree", "K3_PROFILE")
+    if not hasattr(lib, "fastssc_subtree_profile"):
+        print(json.dumps({"k3_ops": "this source has no probes"}), flush=True)
+        return
+    lib.fastssc_subtree_profile.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 64)()
+    names = {**K3_SLOTS, **{k + 8: f"shared {v}" for k, v in K3_SLOTS.items()},
+             16: "stage-in", 17: "chain", 18: "stage-out", 19: "op loop"}
+    for (family, n_batch), x in inputs.items():
+        for _ in range(2):  # the second call's counts
+            lib.fastssc_subtree_profile(buf)
+            fk.launch(lib, sched, x, True)
+            torch.cuda.synchronize()
+        lib.fastssc_subtree_profile(buf)
+        chains = buf[17 + 32]
+        print(json.dumps({
+            "k3_ops": f"fastssc_subtree[{family}]", "batch": n_batch, "chains": chains,
+            "cycles_per_codeword": {v: buf[k] / chains for k, v in names.items()
+                                    if buf[k + 32]},
+            "ops_per_codeword": {v: buf[k + 32] / chains for k, v in names.items()
+                                 if buf[k + 32] and k != 17},
+            "cycles_per_op": {v: buf[k] / buf[k + 32] for k, v in names.items()
+                              if buf[k + 32] and k < 16},
+            "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -115,8 +115,20 @@ two codewords, no block barrier):
      0.5; K4 and K5 timed at B = 181 and 2048,
      a call alone and within a burst (K4 in both placements), and the
      scan4 and fastsscan4 decodes
- 26. {"kernels": [...]}, every family of all seven TPU kernels
- 27. {"ok": true, "device": {...}}
+
+Slice 8, the Fast-SSC subtree kernel K3 (both families) and the butterfly
+encoder K2 redesigned (K3: a warp per codeword, nodes of up to 1024
+positions in registers; K2: packed bits in registers, shuffles across
+lanes):
+ 26. K3 against its plain version at N = 2, 4, ..., 2048 (Bhattacharyya,
+     rate 1/2), B in (1, 3, 181, 2048), Gaussian and integer LLRs (in
+     char with -128 and +-127), both families and both output forms;
+     K2 at N = 2, 4, ..., 2048, B in (1, 3, 1024, 4096), systematic or
+     not, on random bits (frozen positions too); all bit-equal; K3's
+     root call timed at B = 181 and 2048 and K2 at B = 1024, a call
+     alone and within a burst
+ 27. {"kernels": [...]}, every family of all seven TPU kernels
+ 28. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -337,6 +349,15 @@ def main():
     scan_shapes = run_scan_shapes(card)
 
     # 26 ------------------------------------------------------------------
+    phase("26 K3 and K2 at N in (2 .. 2048), B in (1, 3, 181, 2048) and (1, 3, 1024, 4096)")
+    k3k2 = run_k3_k2_shapes(card)
+
+    # 27 ------------------------------------------------------------------
+    for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
+        if entry["name"] in k3k2["err"]:
+            entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
+            entry["burst_ms"] = k3k2["burst_ms"][entry["name"]]
+            entry["redesigned"] = K3_DESIGN
     for entry in slice2["kernels"]:  # K4 and K5: phase 25's calls too
         if entry["name"] in scan_shapes:
             entry["max_abs_err"] = max(entry["max_abs_err"], scan_shapes[entry["name"]])
@@ -359,8 +380,9 @@ def main():
          "launches": launches["butterfly_encode"],
          "launches_by_path": {"crc16_scl8": launches["butterfly_encode"],
                               "pcsim_adaptive": slice2["launches"]["butterfly_encode"]},
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         **bound(k2_bytes, k2_ops), "library_ms": None},
+         "max_abs_err": max(k2_err, k3k2["err"]["butterfly_encode"]), "ms": k2_ms,
+         "burst_ms": k3k2["burst_ms"]["butterfly_encode"], "redesigned": K2_DESIGN,
+         "plain_ms": k2_plain_ms, **bound(k2_bytes, k2_ops), "library_ms": None},
         {"name": "scl_subtree[float32]", "route": "cuda",
          "source": "polar_codes_torch/csrc/scl_subtree.cu",
          "redesigned": K1_DESIGN,
@@ -373,7 +395,7 @@ def main():
          "max_abs_err": max(k1_err, k1_shapes_err["float32"]), "ms": k1_ms,
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 27 ------------------------------------------------------------------
+    # 28 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1736,6 +1758,112 @@ def run_scan_shapes(card):
     emit({"kernel": "scan_fused, scan_step", "n": N_LEN, "sweeps_fused": SWEEPS,
           "k4_default_on_chip": sk.mem_on_chip(sched), **times, "card": card})
     return err
+
+
+SEED8 = 20261022
+K3_DESIGN = "a warp per codeword, nodes of up to 1024 positions in registers"
+K2_DESIGN = "packed bits in registers, shuffles across lanes"
+K3_LENGTHS = tuple(2 ** i for i in range(1, 12))  # 2 .. 2048
+K3_BATCHES = (1, 3, 181, 2048)
+K2_BATCHES = (1, 3, 1024, 4096)
+
+
+def run_k3_k2_shapes(card):
+    """Phase 26. K3 against its plain version on the Bhattacharyya code of
+    rate 1/2 at every length in K3_LENGTHS (its whole tree as one call),
+    B in K3_BATCHES, Gaussian and integer LLRs in [-2, 2] (REP sums of 0,
+    SPC ties, f at zeros; in float32 also values of magnitude 1e8 and 1,
+    whose REP sums depend on the order; in char -128 and +-127), both families,
+    both output forms; K2 at the same lengths, B in K2_BATCHES, systematic
+    or not, on random bits with the frozen positions set too; all bit for
+    bit. The kernel takes one layout (a warp per codeword, 8 a block), so
+    every shape runs it. Then K3's root call of the (1024, 512) code at
+    B = 181 and 2048 and K2 at B = 1024, alone and within a burst. Returns
+    {"err": largest difference per kernel name (0), "burst_ms": per
+    kernel name at the paths' batch}."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.models.tree import build_tree
+    from polar_codes_torch.ops import butterfly_kernel as bk
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED8)
+    names = {torch.float32: "fastssc_subtree[float32]", torch.int8: "fastssc_subtree[int8]"}
+    err = dict.fromkeys([*names.values(), "butterfly_encode"], 0.0)
+    checked = dict.fromkeys(err, 0)
+
+    def hold(name, where, got, want):
+        err[name] = max(err[name], _equal(f"{name} {where}", got, want))
+        checked[name] += 1
+
+    def llrs(n_len, n_batch, dtype):
+        gauss = torch.randn((n_len, n_batch), generator=gen, device=dev) * 2.0 + 0.5
+        ints = torch.randint(-2, 3, (n_len, n_batch), generator=gen, device=dev)
+        if dtype == torch.float32:
+            sign = torch.randint(0, 2, (n_len, n_batch), generator=gen, device=dev) * 2 - 1
+            far = torch.tensor([1e8, -1e8, 1.0, -0.5, 0.25, -3.0], device=dev)
+            order = far[torch.randint(0, 6, (n_len, n_batch), generator=gen, device=dev)]
+            for col, pattern in enumerate(([1e8, 1.0, -1e8, -0.5],  # -0.5 in order
+                                           [1e8] + [1.0] * 31 + [-1e8, -0.5] + [0.0] * 30)):
+                if col < n_batch:  # the second: +31 with its halves of 32 swapped
+                    order[:, col] = torch.tensor(pattern, device=dev).repeat(n_len)[:n_len]
+            return {"gauss": gauss * 10.0, "ints": ints.to(dtype) * sign,  # +-0.0
+                    "order": order}  # REP sums that round to another sign in another order
+        wide = torch.clamp(torch.round(gauss * 20.0), -128, 127)
+        for value, share in ((127, 0.1), (-127, 0.1), (-128, 0.05)):
+            wide[torch.rand((n_len, n_batch), generator=gen, device=dev) < share] = value
+        return {"gauss": wide.to(dtype), "ints": ints.to(dtype)}
+
+    scheds = {}
+    for n_len in K3_LENGTHS:
+        frozen = frozen_bits(n_len, n_len // 2, 0.0, "BB")
+        sched = scheds[n_len] = fk.build_schedule(build_tree(n_len, frozen))
+        for n_batch in K3_BATCHES:
+            for dtype, name in names.items():
+                for kind, x in llrs(n_len, n_batch, dtype).items():
+                    for root in (True, False):
+                        hold(name, f"N={n_len} B={n_batch} {kind} root={root}",
+                             fk.fastssc_subtree(sched, x, root),
+                             fk.fastssc_subtree_plain(sched, x, root))
+        mask = torch.zeros(n_len, dtype=torch.uint8, device=dev)
+        mask[list(frozen)] = 1
+        for n_batch in K2_BATCHES:
+            u = torch.randint(0, 2, (n_batch, n_len), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            for systematic in (True, False):
+                hold("butterfly_encode", f"N={n_len} B={n_batch} systematic={systematic}",
+                     bk.butterfly_encode(u, mask, systematic),
+                     bk.butterfly_encode_plain(u, mask, systematic))
+    torch.cuda.synchronize()
+    emit({"k3_k2_checked_calls": checked, "max_abs_err": err})
+    print(f"K3 and K2: {checked} calls bit-equal to the plain versions at N in "
+          f"{K3_LENGTHS[0]}..{K3_LENGTHS[-1]}")
+
+    def burst(fn):
+        """Milliseconds a call of fn within BURST back-to-back calls."""
+        return time_cuda(lambda: [fn() for _ in range(BURST)], reps=REPS) / BURST
+
+    sched = scheds[N_LEN]
+    times, bursts = {}, {}
+    for n_batch in (181, B2):
+        for dtype, name in names.items():
+            x = llrs(N_LEN, n_batch, dtype)["gauss"]
+            fn = lambda x=x: fk.fastssc_subtree(sched, x, True)  # noqa: E731
+            times[f"{name}_b{n_batch}_ms"] = time_cuda(fn, reps=REPS)
+            times[f"{name}_b{n_batch}_burst_ms"] = burst(fn)
+            if n_batch == B2:
+                bursts[name] = times[f"{name}_b{n_batch}_burst_ms"]
+    mask = torch.zeros(N_LEN, dtype=torch.uint8, device=dev)
+    mask[list(frozen_bits(N_LEN, K_LEN, 0.0, "BB"))] = 1
+    u = torch.randint(0, 2, (BATCH, N_LEN), generator=gen, device=dev, dtype=torch.uint8)
+    fn = lambda: bk.butterfly_encode(u, mask, True)  # noqa: E731
+    times[f"butterfly_encode_b{BATCH}_ms"] = time_cuda(fn, reps=REPS)
+    times[f"butterfly_encode_b{BATCH}_burst_ms"] = bursts["butterfly_encode"] = burst(fn)
+    emit({"kernel": "fastssc_subtree, butterfly_encode", "n": N_LEN, **times, "card": card})
+    return {"err": err, "burst_ms": bursts}
 
 
 def _check_tie(dec, dec_plain, llr, batch_idx, blk):

@@ -5,7 +5,8 @@
 // are barriers over the warp or block. Only what the kernels that run here
 // use is defined: one-dimensional launches, full-warp masks, dynamic and
 // static shared memory (a `__shared__` variable is a function-local
-// static, so one block runs at a time), __nv_bfloat16 with its two
+// static, so one block runs at a time), int4, uint2 and uint4 (8- and
+// 16-byte loads), __nv_bfloat16 with its two
 // conversions (round to nearest even), and a card with the H100's opt-in
 // shared memory per block and SM count. A barrier that waits 60 s aborts: a
 // divergent __syncwarp, shuffle or ballot, which deadlocks on the card
@@ -38,6 +39,12 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
@@ -131,6 +138,18 @@ template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
   return emu_shfl(v, emu_lane() ^ mask);
 }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int at = emu_lane() & (width - 1);
+  return emu_shfl(v, at >= static_cast<int>(delta) ? emu_lane() - static_cast<int>(delta)
+                                                   : emu_lane());
+}
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int at = emu_lane() & (width - 1);
+  return emu_shfl(v, at + static_cast<int>(delta) < width ? emu_lane() + static_cast<int>(delta)
+                                                         : emu_lane());
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
   return emu_exchange(pred ? 1u : 0u, [](const uint64_t* s) {
     unsigned r = 0;
@@ -145,6 +164,20 @@ inline int __reduce_min_sync(unsigned, int v) {
     int r = static_cast<int>(static_cast<uint32_t>(s[0]));
     for (int i = 1; i < 32; ++i) r = std::min(r, static_cast<int>(static_cast<uint32_t>(s[i])));
     return r;
+  });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_exchange(v, [](const uint64_t* s) {
+    unsigned r = static_cast<uint32_t>(s[0]);
+    for (int i = 1; i < 32; ++i) r = std::min(r, static_cast<unsigned>(s[i]));
+    return r;
+  });
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  return emu_exchange(static_cast<uint32_t>(v), [](const uint64_t* s) {
+    uint32_t r = 0;
+    for (int i = 0; i < 32; ++i) r += static_cast<uint32_t>(s[i]);
+    return static_cast<int>(r);
   });
 }
 

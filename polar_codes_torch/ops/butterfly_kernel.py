@@ -17,7 +17,7 @@ import torch
 from . import _build
 from .butterfly import butterfly_transform
 
-MAX_N = 2048  # one block of N/2 threads per codeword
+MAX_N = 2048  # a codeword's packed bits in at most one warp's registers
 LAUNCHES = 0  # kernel launches since the count was last reset
 
 
@@ -33,10 +33,26 @@ def butterfly_encode_plain(u01: torch.Tensor, frozen_mask: torch.Tensor,
 
 
 def _bind(lib):
+    """The library's entry point, its types set on first use."""
     fn = lib.butterfly_encode
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return fn
+
+
+def launch(lib, u01: torch.Tensor, frozen_mask: torch.Tensor, systematic: bool) -> torch.Tensor:
+    """Launch K2 from the loaded library `lib` (the nvcc build, or the CPU
+    build of ops/_emu.py on CPU tensors) on checked tensors."""
+    fn = _bind(lib)
+    dev = u01.device
+    out = torch.empty_like(u01)
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = fn(u01.data_ptr(), frozen_mask.data_ptr(), out.data_ptr(), u01.shape[0],
+             u01.shape[1], int(bool(systematic)), stream)
+    if err:
+        raise RuntimeError(f"butterfly_encode launch failed: CUDA error {err}")
+    return out
 
 
 def butterfly_encode(u01: torch.Tensor, frozen_mask: torch.Tensor,
@@ -53,19 +69,14 @@ def butterfly_encode(u01: torch.Tensor, frozen_mask: torch.Tensor,
         raise ValueError("butterfly_encode takes uint8 bits and a uint8 mask")
     if u01.dim() != 2 or not u01.is_contiguous() or not frozen_mask.is_contiguous():
         raise ValueError("butterfly_encode takes a contiguous [B, N] tensor")
-    n_batch, n_len = u01.shape
+    n_len = u01.shape[1]
     if n_len < 2 or n_len > MAX_N or n_len & (n_len - 1):
         raise NotImplementedError(
             f"the encode kernel covers power-of-2 N in [2, {MAX_N}], got {n_len}"
         )
     if frozen_mask.shape != (n_len,):
         raise ValueError(f"frozen mask must be [{n_len}]")
-    fn = _bind(_build.load("butterfly_encode"))
-    out = torch.empty_like(u01)
-    err = fn(u01.data_ptr(), frozen_mask.data_ptr(), out.data_ptr(), n_batch,
-             n_len, int(bool(systematic)), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"butterfly_encode launch failed: CUDA error {err}")
+    out = launch(_build.load("butterfly_encode"), u01, frozen_mask, systematic)
     global LAUNCHES
     LAUNCHES += 1
     return out

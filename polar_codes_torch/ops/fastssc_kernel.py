@@ -194,11 +194,30 @@ def fastssc_subtree_plain(sched: FastSSCSchedule, llr: torch.Tensor, root: bool)
 
 
 def _bind(lib):
+    """The library's entry point, its types set on first use."""
     fn = lib.fastssc_subtree
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return fn
+
+
+def launch(lib, sched: FastSSCSchedule, llr: torch.Tensor, root: bool) -> torch.Tensor:
+    """Launch K3 from the loaded library `lib` (the nvcc build, or the CPU
+    build of ops/_emu.py on CPU tensors) on a checked llr [span, B]."""
+    fn = _bind(lib)
+    dev = llr.device
+    ops = sched.device_ops(dev)
+    n_batch = llr.shape[1]
+    out = torch.empty((sched.span, n_batch), device=dev,
+                      dtype=torch.uint8 if root else llr.dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    err = fn(ops.data_ptr(), ops.shape[0], llr.data_ptr(), out.data_ptr(),
+             int(llr.dtype == torch.int8), int(bool(root)), sched.span, n_batch, stream)
+    if err:
+        raise RuntimeError(f"fastssc_subtree launch failed: CUDA error {err}")
+    return out
 
 
 def fastssc_subtree(sched: FastSSCSchedule, llr: torch.Tensor, root: bool):
@@ -219,16 +238,6 @@ def fastssc_subtree(sched: FastSSCSchedule, llr: torch.Tensor, root: bool):
     if sched.span > MAX_SPAN:
         raise NotImplementedError(
             f"the kernel covers spans up to {MAX_SPAN}, got {sched.span}")
-    fn = _bind(_build.load("fastssc_subtree"))
-    dev = llr.device
-    ops = sched.device_ops(dev)
-    n_batch = llr.shape[1]
-    out = torch.empty((sched.span, n_batch), device=dev,
-                      dtype=torch.uint8 if root else llr.dtype)
-    err = fn(ops.data_ptr(), ops.shape[0], llr.data_ptr(), out.data_ptr(),
-             int(name == "int8"), int(bool(root)), sched.span, n_batch,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"fastssc_subtree launch failed: CUDA error {err}")
+    out = launch(_build.load("fastssc_subtree"), sched, llr, root)
     LAUNCHES[name] += 1
     return out
