@@ -127,12 +127,31 @@ lanes):
      not, on random bits (frozen positions too); all bit-equal; K3's
      root call timed at B = 181 and 2048 and K2 at B = 1024, a call
      alone and within a burst
- 27. {"kernels": [...]}, every family of all seven TPU kernels
- 28. {"ok": true, "device": {...}}
+
+Slice 9, the simulator (`python -m polar_codes_torch.sim.cli`, pcsim's
+options and 23-column CSV) on the card, through sim.cli.main:
+ 29. the default job, `single -n 1024 -r 0.5 -l 8` (CRC32, -p 832, -a 10,
+     BB at 0 dB), Eb/N0 1, 2, 3 dB, 4 chunks of 2048 blocks each: 23
+     columns, 3 rows, BLER not rising with Eb/N0 and in [1e-4, 5e-2] at
+     2 dB, no more reported than block errors; K2, K3 char and K1 launched
+     in the job; each job's wall time and decode share; a job stopped after
+     2 of 4 chunks has checkpointed the counters of those 2 chunks rebuilt
+     by hand from their seeds (where every failed check is a wrong block),
+     and resumed, it equals the uninterrupted job
+ 30. one 2 dB job of 2 x 1024 blocks for each new option: `-e cmac32 -p 32`
+     (the CA-SCL tail checking CMAC on every path; its engine and host
+     share printed), `ask --bps 2`, `--channel rayleigh`, `-p 8`,
+     `--construction GA` and `5G`; each job's first chunk rebuilt, its first
+     64 blocks decoded on the card equal to a CPU decode
+ 31. the same job with `--devices 1` in a one-rank NCCL process group
+     (env://): its counters, all-reduced once a step, equal the job's alone
+ 32. {"kernels": [...]}, every family of all seven TPU kernels
+ 33. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -352,7 +371,10 @@ def main():
     phase("26 K3 and K2 at N in (2 .. 2048), B in (1, 3, 181, 2048) and (1, 3, 1024, 4096)")
     k3k2 = run_k3_k2_shapes(card)
 
-    # 27 ------------------------------------------------------------------
+    # 29-31 ---------------------------------------------------------------
+    sim = run_slice9(card)
+
+    # 32 ------------------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -366,6 +388,12 @@ def main():
         if entry["name"].startswith("scl_subtree["):
             fam = entry["name"][len("scl_subtree["):-1]
             entry["max_abs_err"] = max(entry["max_abs_err"], k1_shapes_err[fam])
+    for entry in slice2["kernels"] + slice4["kernels"]:  # the simulator's jobs
+        by_path = {path: job[entry["name"]] for path, job in
+                   [("pcsim_cli_default", sim["default"]), *sim["options"].items()]
+                   if job.get(entry["name"])}
+        if by_path:
+            entry.setdefault("launches_by_path", {}).update(by_path)
     k1_bytes = k1_ops = 0
     for sched, *_ in calls:
         nb, no = k1_work(sched, BATCH)
@@ -379,7 +407,8 @@ def main():
          "replaces": "polar_codes_tpu/ops/butterfly_kernel.py:61",
          "launches": launches["butterfly_encode"],
          "launches_by_path": {"crc16_scl8": launches["butterfly_encode"],
-                              "pcsim_adaptive": slice2["launches"]["butterfly_encode"]},
+                              "pcsim_adaptive": slice2["launches"]["butterfly_encode"],
+                              "pcsim_cli_default": sim["default"]["butterfly_encode"]},
          "max_abs_err": max(k2_err, k3k2["err"]["butterfly_encode"]), "ms": k2_ms,
          "burst_ms": k3k2["burst_ms"]["butterfly_encode"], "redesigned": K2_DESIGN,
          "plain_ms": k2_plain_ms, **bound(k2_bytes, k2_ops), "library_ms": None},
@@ -391,11 +420,14 @@ def main():
          "launches_by_path": {"crc16_scl8": launches["scl_subtree"],
                               "pcsim_adaptive": slice2["launches"]["scl_subtree"],
                               "large_scl": slice3["launches"]["scl_subtree"],
-                              "scl8_bf16_widening": slice4["launches"]["scl_subtree[float32]"]},
+                              "scl8_bf16_widening": slice4["launches"]["scl_subtree[float32]"],
+                              "pcsim_cli_default": sim["default"]["scl_subtree[float32]"],
+                              "pcsim_cli_cmac32": sim["options"]["cmac32_scl8_float32"][
+                                  "scl_subtree[float32]"]},
          "max_abs_err": max(k1_err, k1_shapes_err["float32"]), "ms": k1_ms,
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 28 ------------------------------------------------------------------
+    # 33 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1881,6 +1913,269 @@ def _check_tie(dec, dec_plain, llr, batch_idx, blk):
         raise AssertionError(
             f"block {batch_idx}:{blk}: kernel and plain decodes differ beyond a "
             f"float tie within {TOL}")
+
+
+# ---- slice 9: the simulator ------------------------------------------------
+
+B9, CHUNKS9, B9_OPT, CHUNKS9_OPT = 2048, 4, 1024, 2
+SIM_COLUMNS = 23
+
+
+def _sim(argv):
+    """Run the port's CLI (sim.cli.main) with argv on this script's device;
+    returns (its standard output, its CSV rows)."""
+    import contextlib
+    import csv
+    import io
+
+    from polar_codes_torch.sim import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + _platform())
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"sim.cli.main({argv}) returned {rc}")
+    path = argv[argv.index("-o") + 1] + f"_{argv[0]}.csv"
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if any(len(line.split(",")) != SIM_COLUMNS for line in lines):
+        raise AssertionError(f"{path}: a line without {SIM_COLUMNS} columns")
+    return out, list(csv.DictReader(lines))
+
+
+def _platform():
+    return ["--platform", "cpu"] if DEVICE == "cpu" else []
+
+
+def _job_shares(out):
+    """[(wall s, decode share, CMAC share or None)] per job from the CLI's lines."""
+    import re
+
+    return [(float(m.group(1)), float(m.group(2)),
+             float(m.group(3)) if m.group(3) else None)
+            for m in re.finditer(r"wall=([\d.]+)s decode_share=([\d.]+)"
+                                 r"(?: cmac_share=([\d.]+))?", out)]
+
+
+def _counters(row):
+    return {k: row[k] for k in ("Runs", "Errors", "BLER", "BER", "RER")}
+
+
+def run_slice9(card):
+    """Phases 29-31: the simulator's CLI on the card. Returns the launch
+    counts of its default job for the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from polar_codes_torch.dsp import Ask
+    from polar_codes_torch.ops import butterfly_kernel, scl_kernel_bl
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.sim import cli
+    from polar_codes_torch.sim.checkpoint import SweepCheckpoint
+    from polar_codes_torch.sim.montecarlo import MonteCarlo, chunk_seed
+
+    dev = torch.device(DEVICE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    try:
+        def reset_counts():
+            butterfly_kernel.LAUNCHES = 0
+            scl_kernel_bl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
+            fk.LAUNCHES.update(float32=0, int8=0)
+
+        def counts():
+            torch.cuda.synchronize()
+            return {"butterfly_encode": butterfly_kernel.LAUNCHES,
+                    "fastssc_subtree[int8]": fk.LAUNCHES["int8"],
+                    "fastssc_subtree[float32]": fk.LAUNCHES["float32"],
+                    "scl_subtree[float32]": scl_kernel_bl.LAUNCHES["float32"],
+                    "scl_subtree[char]": scl_kernel_bl.LAUNCHES["char"]}
+
+        def coders(argv):
+            args = cli.build_parser().parse_args(argv + _platform())
+            det = cli.parse_detector(args.error_detection)
+            return args, det, cli.make_coders(N_LEN, K_LEN, args, det)
+
+        def rebuild(mc, job_seed, chunk, ebn0):
+            """One chunk of a job, drawn by hand from its seed and decoded:
+            (info, llr, decoded, ok, counters)."""
+            info, llr = mc._make_llr(mc._generator(chunk_seed(job_seed, chunk)),
+                                     mc.esn0_linear(ebn0))
+            decoded, _, ok = mc.decoder.decode(llr)
+            wrong = (decoded != info).any(-1)
+            if (~ok & ~wrong).any():
+                raise AssertionError("a block whose check failed decoded right")
+            c = {k: int(v) for k, v in mc._count(info, decoded, ok).items()}
+            return info, llr, decoded, ok, c
+
+        # 29 --------------------------------------------------------------
+        phase("29 the simulator's default job: sim.cli single -n 1024 -r 0.5 -l 8, "
+              "CRC32, -p 832, -a 10, 1-3 dB")
+        base = ["single", "-n", str(N_LEN), "-r", "0.5", "-l", str(LIST)]
+        argv = base + ["--snr-min", "1", "--snr-max", "3", "--snr-count", "3",
+                       "-w", str(B9 * CHUNKS9 * N_LEN), "--batch", str(B9),
+                       "-o", f"{tmp}/sim"]
+        reset_counts()
+        t0 = time.perf_counter()
+        out, rows = _sim(argv)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        shares = _job_shares(out)
+        emit({"path": "pcsim_cli_default", "wall_s": wall, "launches": launches,
+              "jobs": [{"ebn0_db": float(r["Eb/N0"]), "bler": float(r["BLER"]),
+                        "wall_s": w, "decode_share": d, "decode_s": float(r["Time"])}
+                       for r, (w, d, _) in zip(rows, shares)], "card": card})
+        if len(rows) != 3 or len(shares) != 3:
+            raise AssertionError(f"expected 3 CSV rows and job lines, got {len(rows)}")
+        blers = [float(r["BLER"]) for r in rows]
+        if any(b > a for a, b in zip(blers, blers[1:])):
+            raise AssertionError(f"BLER rises with Eb/N0: {blers}")
+        if not 1e-4 <= blers[1] <= 5e-2:
+            raise AssertionError(f"BLER {blers[1]} at 2 dB outside [1e-4, 5e-2]")
+        for r in rows:
+            if int(r["Runs"]) != B9 * CHUNKS9 or float(r["RER"]) > float(r["BLER"]):
+                raise AssertionError(f"bad row: {r}")
+        for name in ("butterfly_encode", "fastssc_subtree[int8]", "scl_subtree[float32]"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched during the simulator's job")
+
+        # a job stopped after 2 of 4 chunks, chunks rebuilt by hand, resumed
+        one = base + ["--snr-count", "1", "--snr-max", str(EBN0_DB), "--batch", str(B9)]
+        ckpt = f"{tmp}/ckpt.npz"
+        _sim(one + ["-w", str(B9 * 2 * N_LEN), "--checkpoint", ckpt, "-o", f"{tmp}/half"])
+        cp = SweepCheckpoint(ckpt)
+        (job_id,) = cp.state
+        st = cp.job_state(job_id)
+        args, det, (enc, dec) = coders(one)
+        mc = MonteCarlo(enc, dec, batch=B9, amplification=args.amplification)
+        by_hand = {"runs": 0, "errors": 0, "biterrors": 0, "reported": 0}
+        for chunk in range(2):
+            c = rebuild(mc, 0, chunk, EBN0_DB)[4]
+            by_hand = {k: by_hand[k] + c[k] for k in by_hand}
+        if st["chunks_done"] != 2 or {k: st[k] for k in by_hand} != by_hand:
+            raise AssertionError(f"checkpoint {st} differs from the rebuilt chunks {by_hand}")
+        print(f"chunks 0-1 rebuilt by hand from their seeds: {by_hand}, as checkpointed")
+        stages = {"generate_ms": [], "decode_ms": [], "count_ms": []}
+        for chunk in range(2, 2 + REPS):  # one chunk's stages, host clock after a sync
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info, llr = mc._make_llr(mc._generator(chunk_seed(0, chunk)),
+                                     mc.esn0_linear(EBN0_DB))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            decoded, _, ok = dec.decode(llr)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            {k: int(v) for k, v in mc._count(info, decoded, ok).items()}
+            t3 = time.perf_counter()
+            for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+                stages[key].append(dt * 1e3)
+        emit({"chunk_stages": {k: sorted(v)[len(v) // 2] for k, v in stages.items()},
+              "chunk_stages_all": stages, "batch": B9, "card": card})
+        st.pop("complete")
+        st.pop("result")
+        cp.update(job_id, st)
+        _, (resumed,) = _sim(one + ["-w", str(B9 * 4 * N_LEN), "--checkpoint", ckpt,
+                                    "-o", f"{tmp}/resumed"])
+        _, (whole,) = _sim(one + ["-w", str(B9 * 4 * N_LEN), "-o", f"{tmp}/whole"])
+        if _counters(resumed) != _counters(whole):
+            raise AssertionError(f"resumed {_counters(resumed)} != whole {_counters(whole)}")
+        emit({"check": "resume", "resumed": _counters(resumed), "uninterrupted":
+              _counters(whole)})
+
+        # 30 --------------------------------------------------------------
+        phase("30 the new options on the card: cmac32, ask --bps 2, rayleigh, -p 8, "
+              "GA and 5G construction")
+        opt = ["--snr-count", "1", "--snr-max", str(EBN0_DB), "--batch", str(B9_OPT),
+               "-w", str(B9_OPT * CHUNKS9_OPT * N_LEN)]
+        jobs = {
+            "cmac32_scl8_float32": base + ["-e", "cmac32", "-p", "32"],
+            "ask_bps2": ["ask", "-n", str(N_LEN), "-r", "0.5", "-l", str(LIST), "--bps", "2"],
+            "rayleigh": base + ["--channel", "rayleigh"],
+            "p8_scl8_char": base + ["-p", "8"],
+            "construction_ga": base + ["--construction", "GA"],
+            "construction_5g": base + ["--construction", "5G"],
+        }
+        opt_launches = {}
+        for name, job in jobs.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            out, (row,) = _sim(job + opt + ["-o", f"{tmp}/{name}"])
+            wall = time.perf_counter() - t0
+            opt_launches[name] = counts()
+            (w, d, cm), = _job_shares(out)
+            args, det, (enc, dec) = coders(job + opt)
+            mc = MonteCarlo(enc, dec, batch=B9_OPT,
+                            amplification=args.amplification if args.precision != 32 else 1.0,
+                            channel=args.channel,
+                            modem=Ask(2) if args.simtype == "ask" else None)
+            _, llr, decoded, ok, _ = rebuild(mc, 0, 0, EBN0_DB)
+            args_cpu, det_cpu, (_, dec_cpu) = coders(job + opt + ["--platform", "cpu"])
+            got = dec.decode(llr[:64])
+            want = dec_cpu.decode(llr[:64].cpu())
+            for a, b in zip(got, want):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name}: card decode differs from the CPU decode")
+            if int(row["Runs"]) != B9_OPT * CHUNKS9_OPT or float(row["RER"]) > float(row["BLER"]):
+                raise AssertionError(f"{name}: bad row {row}")
+            rec = {"path": name, "bler": float(row["BLER"]), "rer": float(row["RER"]),
+                   "wall_s": wall, "job_wall_s": w, "decode_share": d,
+                   "launches": opt_launches[name], "card": card}
+            if cm is not None:
+                rec.update(cmac_share=cm, cmac_engine=det.engine)
+            emit(rec)
+        need = {"cmac32_scl8_float32": "scl_subtree[float32]", "p8_scl8_char": "scl_subtree[char]",
+                "ask_bps2": "fastssc_subtree[int8]", "rayleigh": "fastssc_subtree[int8]",
+                "construction_ga": "fastssc_subtree[int8]",
+                "construction_5g": "fastssc_subtree[int8]"}
+        for name, kernel in need.items():
+            if opt_launches[name][kernel] <= 0 or opt_launches[name]["butterfly_encode"] <= 0:
+                raise AssertionError(f"{name}: {kernel} or butterfly_encode never launched")
+        print("each option's first 64 blocks: card decode == CPU decode")
+
+        # 31 --------------------------------------------------------------
+        phase("31 the counter all-reduce in a one-rank process group")
+        import socket
+
+        import torch.distributed as dist
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+               "RANK": "0", "LOCAL_RANK": "0"}
+        os.environ.update(env)
+        reduces = []
+        all_reduce = dist.all_reduce
+
+        def counted(tensor, *a, **k):
+            reduces.append(tensor.device)
+            return all_reduce(tensor, *a, **k)
+
+        dist.all_reduce = counted
+        try:
+            _, (grouped,) = _sim(one + ["-w", str(B9 * 2 * N_LEN), "--devices", "1",
+                                        "-o", f"{tmp}/grouped"])
+            backend = dist.get_backend()
+            dist.destroy_process_group()
+        finally:
+            dist.all_reduce = all_reduce
+            for k in env:
+                os.environ.pop(k)
+        _, (alone,) = _sim(one + ["-w", str(B9 * 2 * N_LEN), "-o", f"{tmp}/alone"])
+        emit({"check": "all_reduce", "backend": backend, "all_reduces": len(reduces),
+              "grouped": _counters(grouped), "alone": _counters(alone)})
+        if _counters(grouped) != _counters(alone):
+            raise AssertionError("the one-rank group's counters differ from the job alone")
+        if len(reduces) != 3 or backend != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"expected 3 {backend} all-reduces (warm-up, 2 chunks), "
+                                 f"got {len(reduces)}")
+        return {"default": launches, "options": opt_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

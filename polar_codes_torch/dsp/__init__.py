@@ -1,7 +1,39 @@
-from .modem import Bpsk, bpsk_modulate, bpsk_demodulate
-from .channel import Awgn, awgn_sigma, add_awgn
+from .modem import (
+    Modem,
+    Bpsk,
+    Ask,
+    bpsk_modulate,
+    bpsk_demodulate,
+    ask_modulate,
+    ask_demodulate,
+)
+from .channel import (
+    Transmitter,
+    Awgn,
+    Rayleigh,
+    Scale,
+    awgn_sigma,
+    add_awgn,
+    apply_rayleigh,
+    awgn_from,
+    rayleigh_from,
+)
 
 __all__ = [
-    "Bpsk", "bpsk_modulate", "bpsk_demodulate",
-    "Awgn", "awgn_sigma", "add_awgn",
+    "Modem",
+    "Bpsk",
+    "Ask",
+    "bpsk_modulate",
+    "bpsk_demodulate",
+    "ask_modulate",
+    "ask_demodulate",
+    "Transmitter",
+    "Awgn",
+    "Rayleigh",
+    "Scale",
+    "awgn_sigma",
+    "add_awgn",
+    "apply_rayleigh",
+    "awgn_from",
+    "rayleigh_from",
 ]

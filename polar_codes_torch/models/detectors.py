@@ -8,12 +8,15 @@ computed in int32 (one masked parity per tail bit), so no float matmul and
 no TF32 setting can touch them.
 
 Ported: Dummy, CRC8, CRC16 (CCITT-FALSE), CRC32 (CRC-32C, reflected,
-little-endian tail) and the 5G NR CRC6/11/16/24C. CMAC is not ported yet.
+little-endian tail), the 5G NR CRC6/11/16/24C, and AES-128-CMAC, which is
+not affine: its tags are computed on the host (libcrypto through
+utils/hostcodec.py, else the pure-Python engine of utils/aes.py).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Dict, Tuple
 
 import numpy as np
@@ -90,6 +93,9 @@ class Detector:
 
     # ---- GF(2) affine map ---------------------------------------------
 
+    def _is_linear(self) -> bool:
+        return True
+
     def value_affine(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
         """(M [bits, D], m0 [bits]): checksum value bits = M.data + m0."""
         raise NotImplementedError
@@ -108,6 +114,8 @@ class Detector:
     @functools.lru_cache(maxsize=None)
     def affine_map(self, data_len: int) -> Tuple[np.ndarray, np.ndarray]:
         """(G [tail, D], g0 [tail]): tail bits = G.data + g0 (mod 2)."""
+        if not self._is_linear():
+            raise ValueError(f"{self.name} is not GF(2)-affine; host-side only")
         M, m0 = self.value_affine(data_len)
         P = self._place_matrix()
         return (P @ M) % 2, (P @ m0) % 2
@@ -273,6 +281,124 @@ class CRC32(Detector):
         return _cols_to_matrix(cols, 32), np.zeros(32, dtype=np.uint8)
 
 
+class CMAC(Detector):
+    """AES-128-CMAC (RFC 4493) truncated to its first `bits` bits, with the
+    reference's fixed key, as in the JAX package. It is not GF(2)-affine,
+    so affine_map and check_matrix raise. generate and check take tensors
+    on any device: they copy the data bits to the host, compute the tags
+    there and return the result on the caller's device (the JAX package
+    does the same through pure_callback). `host_seconds` adds up the time
+    those calls take, copies included."""
+
+    name = "cmac"
+
+    DEFAULT_KEY = bytes(
+        [0x8E, 0x73, 0xB0, 0xF7, 0xDA, 0x0E, 0x64, 0x52,
+         0xC8, 0x10, 0xF3, 0x2B, 0x80, 0x90, 0x79, 0xE5]
+    )
+
+    def __init__(self, bits: int = 32, key: bytes = DEFAULT_KEY):
+        if bits not in (8, 16, 32, 64, 128):
+            raise ValueError("CMAC INVALID SIZE!")
+        self.bits = bits
+        self.tail_bits = bits
+        self._key = key
+        self.host_seconds = 0.0
+
+    def _is_linear(self) -> bool:
+        return False
+
+    @property
+    def engine(self) -> str:
+        """The engine that computes the tags: "libcrypto" or "python"."""
+        from ..utils import hostcodec
+
+        return "libcrypto" if hostcodec.cmac_available() else "python"
+
+    def compute_np(self, data_bits: np.ndarray) -> np.ndarray:
+        data_bits = np.asarray(data_bits, dtype=np.uint8)
+        return self.tags_batch(data_bits[None, :])[0]
+
+    def tags_batch(self, data_bits: np.ndarray) -> np.ndarray:
+        """[R, D] {0,1} data bits -> [R, tail_bits] tag bits, in one
+        libcrypto call for all rows, else row by row in pure Python."""
+        data_bits = np.asarray(data_bits, dtype=np.uint8)
+        if data_bits.shape[-1] % 8:
+            raise ValueError("CMAC operates on whole bytes")
+        msgs = np.packbits(data_bits, axis=-1)
+        from ..utils import hostcodec
+
+        tags = hostcodec.cmac_rows(self._key, msgs)
+        if tags is None:
+            from ..utils.aes import aes_cmac
+
+            tags = np.stack([
+                np.frombuffer(aes_cmac(self._key, row.tobytes()), np.uint8)
+                for row in msgs
+            ])
+        tag_bits = np.unpackbits(tags, axis=-1)
+        return tag_bits[:, : self.tail_bits].astype(np.uint8)
+
+    def _host_rows(self, block_bits: torch.Tensor):
+        """[..., K] tensor -> ([rows, K] uint8 host array, data length)."""
+        flat = block_bits.detach().to("cpu", torch.uint8).reshape(-1, block_bits.shape[-1])
+        return flat.numpy(), block_bits.shape[-1] - self.tail_bits
+
+    def generate(self, block_bits: torch.Tensor) -> torch.Tensor:
+        """[..., K] {0,1} -> [..., K] with the tag in the tail."""
+        t0 = time.perf_counter()
+        flat, d = self._host_rows(block_bits)
+        out = flat.copy()
+        out[:, d:] = self.tags_batch(flat[:, :d])
+        res = torch.from_numpy(out).reshape(block_bits.shape).to(
+            block_bits.device, block_bits.dtype)
+        self.host_seconds += time.perf_counter() - t0
+        return res
+
+    def check(self, block_bits: torch.Tensor) -> torch.Tensor:
+        """[..., K] {0,1} -> bool [...]: the tail equals the tag."""
+        t0 = time.perf_counter()
+        flat, d = self._host_rows(block_bits)
+        ok = np.all(self.tags_batch(flat[:, :d]) == flat[:, d:], axis=-1)
+        res = torch.from_numpy(ok).reshape(block_bits.shape[:-1]).to(block_bits.device)
+        self.host_seconds += time.perf_counter() - t0
+        return res
+
+    def __hash__(self):
+        return hash(("cmac", self.bits, self._key))
+
+    def __eq__(self, other):
+        return (isinstance(other, CMAC) and self.bits == other.bits
+                and self._key == other._key)
+
+
+_CRC_REGISTRY: Dict[int, type] = {
+    0: Dummy,
+    6: CRC6NR,
+    8: CRC8,
+    11: CRC11NR,
+    16: CRC16,
+    24: CRC24NRC,
+    32: CRC32,
+}
+
+
+def make_detector(size: int = 0, kind: str = "crc") -> Detector:
+    """String-keyed factory, as the JAX package's: kind contains "crc"
+    ("nr" too selects the 5G variant at size 16) or "cmac"; the sizes are
+    the reference's."""
+    kind_l = kind.lower()
+    if "crc" in kind_l:
+        if size not in _CRC_REGISTRY:
+            raise ValueError("CRC INVALID SIZE!")
+        if size == 16 and "nr" in kind_l:
+            return CRC16NR()
+        return _CRC_REGISTRY[size]()
+    if "cmac" in kind_l:
+        return CMAC(size)
+    raise ValueError("Unknown Error detector requested!")
+
+
 _BY_NAME: Dict[str, type] = {
     cls.name: cls
     for cls in (Dummy, CRC8, CRC16, CRC32, CRC6NR, CRC11NR, CRC16NR, CRC24NRC)
@@ -280,7 +406,10 @@ _BY_NAME: Dict[str, type] = {
 
 
 def detector_by_name(name: str) -> Detector:
-    """The detector whose `name` attribute is `name` (e.g. "crc16")."""
+    """The detector whose `name` attribute is `name` (e.g. "crc16"); a
+    CMAC as "cmac" (32 bits) or "cmac<bits>" (e.g. "cmac16")."""
+    if name.startswith("cmac"):
+        return CMAC(int(name[4:] or 32))
     if name not in _BY_NAME:
-        raise NotImplementedError(f"detector {name!r} is not ported yet")
+        raise ValueError(f"unknown detector {name!r}")
     return _BY_NAME[name]()

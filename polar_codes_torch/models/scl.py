@@ -7,8 +7,10 @@ few wider levels above run here as torch glue in the same [w, S, B]
 layout (the JAX `xla_node`), and the decision bits travel as one packed
 int32 word per (position, codeword), bit l = path l. The tail then checks
 the CRC on the packed word (one masked XOR-reduction per tail bit, all
-paths at once), picks the best path whose CRC holds (the ML path if none
-does), shifts its codeword out of the word and gathers the info bits.
+paths at once; a detector that is not affine, CMAC, checks the unpacked
+info bits of every path instead), picks the best path whose check holds
+(the ML path if none does), shifts its codeword out of the word and
+gathers the info bits.
 
 Path metrics are LLR-based, higher is better; the list widens from one
 path at metric 0 until forks have produced L candidates. Gathers are real
@@ -164,9 +166,10 @@ class SCLDecoder:
         """For a linear CRC: (index [T, M] of the codeword positions each
         tail-bit check reads, padded with N, which points at a zero row;
         g0 [T]). The check A @ info + g0 = 0 lifted to the systematic
-        codeword."""
+        codeword. None without a tail, or for a detector that is not affine
+        (CMAC): the tail then checks the unpacked paths."""
         det = self.detector
-        if not det.tail_bits:
+        if not det.tail_bits or not det._is_linear():
             return None
         A, g0 = det.check_matrix(self.info_length - det.tail_bits)
         rows = [self.info_pos[np.flatnonzero(A[t])] for t in range(det.tail_bits)]
@@ -291,6 +294,12 @@ class SCLDecoder:
             for t, g in enumerate(g0):
                 bad = bad | (~parity[t] if g else parity[t])
             ok_all = (((bad[:, None] >> lanes) & 1) == 0) & active
+        elif self.detector.tail_bits:
+            # a detector that is not affine (CMAC): unpack the info bits of
+            # every path and check them all in one call, [L, B, K] -> [B, L]
+            info_word = word.index_select(0, self._info_pos_t)  # [K, B]
+            info_all = torch.stack([(info_word >> l) & 1 for l in range(n_list)], 0)
+            ok_all = self.detector.check(info_all.transpose(1, 2).to(torch.uint8)).T & active
         else:
             ok_all = active
         if self.detector.tail_bits:

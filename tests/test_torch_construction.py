@@ -1,5 +1,8 @@
 """The port's host-side code and elementwise rules against the JAX package:
-BB frozen sets, code trees, f/g, and the CRC family's generate/check."""
+frozen sets of every construction (BB, BE, 5G, GA, and DE through the
+dispatch; tests/test_torch_density_evolution.py holds DE's grid), code
+trees, f/g, and the CRC family's generate/check. Frozen sets must be
+equal."""
 
 import numpy as np
 import pytest
@@ -9,12 +12,15 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from polar_codes_tpu.construction import Construction as JaxConstruction  # noqa: E402
 from polar_codes_tpu.construction import frozen_bits as jax_frozen_bits  # noqa: E402
+from polar_codes_tpu.construction import split_frozen_bits as jax_split_frozen_bits  # noqa: E402
 from polar_codes_tpu.models import detectors as jdet  # noqa: E402
 from polar_codes_tpu.models.tree import build_tree as jax_build_tree  # noqa: E402
 from polar_codes_tpu.ops import fg as jfg  # noqa: E402
 
-from polar_codes_torch.construction import frozen_bits, info_indices  # noqa: E402
+from polar_codes_torch.construction import (  # noqa: E402
+    Construction, frozen_bits, info_indices, split_frozen_bits)
 from polar_codes_torch.models import detectors as tdet  # noqa: E402
 from polar_codes_torch.models.tree import build_tree  # noqa: E402
 from polar_codes_torch.ops import fg as tfg  # noqa: E402
@@ -32,10 +38,28 @@ def test_bb_frozen_bits_equal(n, k, snr):
         info_indices(n, got), np.setdiff1d(np.arange(n), got))
 
 
-def test_other_constructions_not_ported():
-    for method in ("BE", "5G", "GA", "DE"):
-        with pytest.raises(NotImplementedError):
-            frozen_bits(64, 32, 0.0, method)
+@pytest.mark.parametrize("method", ["BE", "5G", "GA"])
+@pytest.mark.parametrize("n,k,snr", GRID)
+def test_other_frozen_bits_equal(method, n, k, snr):
+    got = frozen_bits(n, k, snr, method)
+    np.testing.assert_array_equal(got, jax_frozen_bits(n, k, snr, method))
+    assert got.size == n - k
+
+
+@pytest.mark.parametrize("name", [
+    "BB", "bb", "Bhattacharyya", "BE", "beta", "5G", "5g-nr", "GA", "gauss", "DE",
+    "tv", "TalVardy", "unknown"])
+def test_frozen_bits_substring_dispatch(name, monkeypatch):
+    monkeypatch.delenv("AFF3CT_TV_PATH", raising=False)
+    np.testing.assert_array_equal(frozen_bits(64, 40, 1.0, name),
+                                  jax_frozen_bits(64, 40, 1.0, name))
+
+
+def test_split_frozen_bits_and_enum_equal():
+    frozen = frozen_bits(64, 32, 0.0)
+    for got, want in zip(split_frozen_bits(frozen, 32), jax_split_frozen_bits(frozen, 32)):
+        np.testing.assert_array_equal(got, want)
+    assert [c.value for c in Construction] == [c.value for c in JaxConstruction]
 
 
 def _flatten(node):
