@@ -29,6 +29,12 @@ and the large-N paths, Bhattacharyya at 0 dB, B = 128, 2 dB:
                    (K6 char on every chunk)
   large_scl_int8   the second likewise (K7 char on every chunk, no
                    sub-blocks)
+  large_scl_tree   the second with schedule="tree" (part `tree`): K7 on the
+                   mixed chunk-span subtrees, K1 on the pure leaves at their
+                   maximal span, f/g glue above
+and (part `depthfirst`) DepthFirstDecoder (SC-Flip, 8 trials, CRC16) at
+(1024, 512), B = 1024, 2 dB: a decode, and one SC pass alone (kernels
+per pass).
 For the SCL and large-N paths it also prints a per-layer split, each layer
 timed alone with CUDA events (median of CALLS) on the inputs it saw in one
 decode: the kernels (SCL: every K1 call; large-N: every mixed-chunk call),
@@ -48,7 +54,8 @@ burst and its device time under the profiler; then K3's cycles per op
 kind from a build of csrc/fastssc_subtree.cu with clock64 probes
 (-DK3_PROFILE), where the source has them.
 
-    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops]
+    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops] [tree]
+                            [depthfirst]
 
 runs the named parts (all without arguments).
 
@@ -135,7 +142,8 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops"}
+    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops",
+                                  "tree", "depthfirst"}
     _build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -172,6 +180,10 @@ def main():
         scan_ops(card, torch, scan, llr)
     if "k3_ops" in parts:
         k3_ops(card, torch, dev, gen, ad, enc, llr, quant)
+    if "tree" in parts:
+        tree_path(card, torch, dev, gen)
+    if "depthfirst" in parts:
+        depthfirst_path(card, torch, dev, gen, frozen)
 
 
 def kernel_launches():
@@ -303,6 +315,90 @@ def large_paths(card, torch, dev, gen):
             "final_join": timed(lambda: scl._join_chunks(*joins[0])),
             "tail": total_ms - packed_ms,
         }, launches)
+
+
+def tree_path(card, torch, dev, gen):
+    """The large-N tree schedule: (32768, 16384) CRC16 LargeSCLDecoder(L = 8,
+    chunk 256, sub-block 16, schedule="tree") at B = 128, profiled, then
+    split into K7 calls, K1 calls, the tail (CRC-aided selection) and the
+    glue (the rest of decode_packed: f, g, the perm gathers and joins)."""
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    n_len, k_len, chunk = LARGE_SCL
+    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+    det = CRC16()
+    enc = PolarEncoder(n_len, frozen, detector=det, device=dev)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+    info = torch.randint(0, 2, (B_LARGE, k_len), generator=gen, device=dev, dtype=torch.uint8)
+    llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+    tree = LargeSCLDecoder(n_len, frozen, list_size=8, detector=det, chunk=chunk, subblock=16,
+                           schedule="tree", device=dev)
+    profile("large_scl_tree", lambda: tree.decode(llr), CALLS, card, torch, B_LARGE)
+    k7_calls, k1_calls = [], []
+    tree.chunk_fn = lambda *a, **kw: k7_calls.append((a, kw)) or lk.masked_scl_chunk(*a, **kw)
+    tree.subtree_fn = lambda *a: k1_calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+    kernel_launches()
+    tree.decode(llr)
+    launches = kernel_launches()
+    tree.chunk_fn, tree.subtree_fn = lk.masked_scl_chunk, scl_kernel_bl.scl_subtree
+    total_ms = time_cuda(lambda: tree.decode(llr), reps=CALLS)
+    packed_ms = time_cuda(lambda: tree.decode_packed(llr), reps=CALLS)
+    k7 = sum(time_cuda(lambda c=c: lk.masked_scl_chunk(*c[0], **c[1]), reps=CALLS)
+             for c in k7_calls)
+    k1 = [time_cuda(lambda c=c: scl_kernel_bl.scl_subtree(*c), reps=CALLS) for c in k1_calls]
+    by_span = {}
+    for ms, c in zip(k1, k1_calls):
+        by_span[c[0].span] = by_span.get(c[0].span, 0.0) + ms
+    # the longest leaf at L = 32, whose input K1 reads from device memory
+    longest = max((c[0].node for c in k1_calls), key=lambda n: n.length)
+    sched = scl_kernel_bl.build_schedule(longest, 32, 32)
+    x = torch.randn((32, longest.length, B_LARGE), generator=gen, device=dev)
+    m = torch.randn((B_LARGE, 32), generator=gen, device=dev)
+    l32_ms = time_cuda(lambda: scl_kernel_bl.scl_subtree(sched, x, m), reps=CALLS)
+    print(json.dumps({"path": "large_scl_tree", "batch": B_LARGE, "decode_ms": total_ms,
+                      "chunk_kernels_ms": k7, "leaf_kernels_ms": sum(k1),
+                      "leaf_ms_by_span": by_span,
+                      f"k1_l32_{longest.kind.value}_span{longest.length}_ms": l32_ms,
+                      "glue_ms": packed_ms - k7 - sum(k1), "tail_ms": total_ms - packed_ms,
+                      "launches_per_decode": launches, "card": card}), flush=True)
+
+
+def depthfirst_path(card, torch, dev, gen, frozen):
+    """DepthFirstDecoder (SC-Flip, 8 trials, CRC16) at (1024, 512), B = 1024,
+    2 dB: a decode and one SC pass alone under the profiler, and the
+    rows whose first pass failed."""
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.depthfirst import DepthFirstDecoder
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+
+    det = CRC16()
+    enc = PolarEncoder(N_LEN, frozen, detector=det, device=dev)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * K_LEN / N_LEN)
+    info = torch.randint(0, 2, (1024, K_LEN), generator=gen, device=dev, dtype=torch.uint8)
+    llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+    df = DepthFirstDecoder(N_LEN, frozen, detector=det, trial_limit=8, device=dev)
+    ones = torch.ones((1024, df.info_length), device=dev)
+    profile("depthfirst_pass", lambda: df._pass(llr, ones), 2, card, torch, 1024)
+    profile("depthfirst_decode", lambda: df.decode(llr), 2, card, torch, 1024)
+    first_ok = det.check(df._extract(df._pass(llr, ones)[0]))
+
+    def nodes(n):
+        return 1 if n.left is None else 1 + nodes(n.left) + nodes(n.right)
+
+    print(json.dumps({"path": "depthfirst", "batch": 1024, "trials": 8,
+                      "first_pass_failures": int((~first_ok).sum()),
+                      "tree_nodes": nodes(df.tree), "info_leaves": df.info_length,
+                      "card": card}), flush=True)
 
 
 K1_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "leaf rate0", 4: "leaf rate1", 5: "leaf rep",

@@ -145,8 +145,34 @@ options and 23-column CSV) on the card, through sim.cli.main:
      64 blocks decoded on the card equal to a CPU decode
  31. the same job with `--devices 1` in a one-rank NCCL process group
      (env://): its counters, all-reduced once a step, equal the job's alone
- 32. {"kernels": [...]}, every family of all seven TPU kernels
- 33. {"ok": true, "device": {...}}
+
+Slice 10, the rest of the decoders: LargeSCLDecoder(schedule="tree")
+(K7 on the mixed chunk-span subtrees, K1 on the pure leaves at their
+maximal span, torch f/g glue above), DepthFirstDecoder (SC-Flip, torch
+only), ErrorLocator and its app, the Puncturer:
+ 32. K1 one-leaf schedules of every kind at spans 512-8192, L 2-32, B in
+     (1, 181, 1024), every family, on integer and Gaussian LLRs with rows
+     of one live path: staged in shared memory where the input fits, else
+     read from device memory; bits, perms and metrics equal
+ 33. the tree arm at (32768, 16384) CA-SCL-8 CRC16, chunk 256, sub-block
+     16, 4 x 128 blocks at 2 and 0.8 dB: K7 and K1 launches per decode as
+     the tree says, every CRC failure a wrong block, BLER <= 5e-2 at 2 dB
+     and CRC failures at 0.8 dB, one batch of each equal to the route
+     through the plain versions (bits equal, metrics within 1e-4), a
+     noiseless round trip; decode times beside the scan arm's; an L = 32
+     decode of 8 blocks whose longest leaves read device memory
+ 34. DepthFirstDecoder at (1024, 512) CRC16, 8 trials, 1024 blocks at 2
+     dB: the first 64 equal to a CPU decode, no more wrong blocks than
+     float32 Fast-SSC on the same LLRs, ms per decode; `sim.cli depthfirst
+     -n 1024 -r 0.5 -l 8`, one SNR point, two chunks of 1024
+ 35. ErrorLocator at N = 1024, B = 1024, 1, 2 and 3 dB: `first` and the
+     mask equal to the CPU's; `python -m polar_codes_torch.sim.
+     errorlocator_app -n 1024 -r 0.5 --snr-min 1 --snr-max 3 --snr-count
+     3`, 4 chunks of 1024 a point: its 7-column CSV, K2 once a chunk, ms
+     per chunk; a Puncturer (M = 1000 of N = 1024) round trip on the card
+     equal to the CPU's
+ 36. {"kernels": [...]}, every family of all seven TPU kernels
+ 37. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -375,6 +401,14 @@ def main():
     sim = run_slice9(card)
 
     # 32 ------------------------------------------------------------------
+    phase("32 K1 one-leaf schedules at spans 512-8192, L 2-32, B in (1, 181, 1024), every "
+          "family, staged and from device memory")
+    k1_long_err = run_k1_long(card)
+
+    # 33-35 ---------------------------------------------------------------
+    s10 = run_slice10(card)
+
+    # 36 ------------------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -384,10 +418,16 @@ def main():
         if entry["name"] in scan_shapes:
             entry["max_abs_err"] = max(entry["max_abs_err"], scan_shapes[entry["name"]])
             entry["redesigned"] = SCAN_DESIGN
-    for entry in slice4["kernels"]:  # K1 char and bf16: phase 24's calls too
+    for entry in slice4["kernels"]:  # K1 char and bf16: phases 24 and 32's calls too
         if entry["name"].startswith("scl_subtree["):
             fam = entry["name"][len("scl_subtree["):-1]
-            entry["max_abs_err"] = max(entry["max_abs_err"], k1_shapes_err[fam])
+            entry["max_abs_err"] = max(entry["max_abs_err"], k1_shapes_err[fam],
+                                       k1_long_err[fam])
+    for entry in slice3["kernels"]:  # K7: the tree arm's chunk-span subtrees
+        if entry["name"] == "masked_scl_chunk[float32]":
+            entry["launches_by_path"] = {
+                "large_scl": entry["launches"],
+                "large_scl_tree": s10["tree"]["masked_scl_chunk[float32]"]}
     for entry in slice2["kernels"] + slice4["kernels"]:  # the simulator's jobs
         by_path = {path: job[entry["name"]] for path, job in
                    [("pcsim_cli_default", sim["default"]), *sim["options"].items()]
@@ -408,7 +448,9 @@ def main():
          "launches": launches["butterfly_encode"],
          "launches_by_path": {"crc16_scl8": launches["butterfly_encode"],
                               "pcsim_adaptive": slice2["launches"]["butterfly_encode"],
-                              "pcsim_cli_default": sim["default"]["butterfly_encode"]},
+                              "pcsim_cli_default": sim["default"]["butterfly_encode"],
+                              "errorlocator_app": s10["errorlocator_app"]["butterfly_encode"],
+                              "pcsim_cli_depthfirst": s10["depthfirst_cli"]["butterfly_encode"]},
          "max_abs_err": max(k2_err, k3k2["err"]["butterfly_encode"]), "ms": k2_ms,
          "burst_ms": k3k2["burst_ms"]["butterfly_encode"], "redesigned": K2_DESIGN,
          "plain_ms": k2_plain_ms, **bound(k2_bytes, k2_ops), "library_ms": None},
@@ -423,11 +465,14 @@ def main():
                               "scl8_bf16_widening": slice4["launches"]["scl_subtree[float32]"],
                               "pcsim_cli_default": sim["default"]["scl_subtree[float32]"],
                               "pcsim_cli_cmac32": sim["options"]["cmac32_scl8_float32"][
-                                  "scl_subtree[float32]"]},
-         "max_abs_err": max(k1_err, k1_shapes_err["float32"]), "ms": k1_ms,
+                                  "scl_subtree[float32]"],
+                              "large_scl_tree": s10["tree"]["scl_subtree[float32]"]},
+         "tree_leaf_ms": s10["tree_leaf_ms"],
+         "max_abs_err": max(k1_err, k1_shapes_err["float32"], k1_long_err["float32"]),
+         "ms": k1_ms,
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 33 ------------------------------------------------------------------
+    # 37 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -2176,6 +2221,344 @@ def run_slice9(card):
         return {"default": launches, "options": opt_launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- slice 10: the rest of the decoders ------------------------------------
+
+SEED10 = 20261024
+K1_LONG_SPANS = (512, 1024, 2048, 4096, 8192)
+K1_LONG_BATCHES = (1, 181, 1024)
+B10, BATCHES10, B10_L32 = 128, 4, 8  # the tree arm's batch and batches; its L = 32 decode
+N_DF, K_DF, TRIALS_DF, B_DF = 1024, 512, 8, 1024
+EL_CHUNKS = 4  # chunks per SNR point of the error-locator app
+
+
+def _chunk_branches(node, chunk):
+    """Branch nodes of span `chunk` that the tree schedule reaches (K7's calls)."""
+    from polar_codes_torch.models.tree import NodeKind
+
+    if node.kind != NodeKind.BRANCH:
+        return 0
+    if node.length == chunk:
+        return 1
+    return _chunk_branches(node.left, chunk) + _chunk_branches(node.right, chunk)
+
+
+def run_k1_long(card):
+    """Phase 32. K1 one-leaf schedules of every kind a large-N tree walks
+    (rate-0, rate-1, rep, SPC) at spans K1_LONG_SPANS, L in K1_LISTS, B in
+    K1_LONG_BATCHES by turns, in every family, entered at w_in = L with
+    every other row one live path, on integer LLRs in [-2, 2] and Gaussian
+    ones by turns: bits, perms and metrics equal to the plain version. The
+    schedules whose input does not fit in shared memory beside the list
+    state read it from device memory; the phase fails unless both kinds ran
+    in every family. Returns the largest metric difference per family (0)."""
+    import torch
+
+    from polar_codes_torch.models.tree import NodeKind
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.ops.large_kernel import _sub_leaf
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED10)
+    lib = _build.load("scl_subtree")
+    kbl._bind(lib)
+    err = {"float32": 0.0, "char": 0.0, "bfloat16": 0.0}
+    placed = {(fam, kind): 0 for fam in err for kind in ("staged", "device memory")}
+    kinds = (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)
+    n = 0
+    for state in (torch.float32, torch.int16, torch.bfloat16):
+        fam = kbl.family(state)
+        for n_list in K1_LISTS:
+            for span in K1_LONG_SPANS:
+                direct = (lib.scl_subtree_smem(n_list, span, fam.code, 1)
+                          < n_list * span * state.itemsize)
+                where = "device memory" if direct else "staged"
+                for kind in kinds:
+                    n_batch = K1_LONG_BATCHES[n % len(K1_LONG_BATCHES)]
+                    sched = kbl.build_schedule(_sub_leaf(kind, span), n_list, n_list)
+                    shape = (n_list, span, n_batch)
+                    if n % 2:
+                        x = torch.randint(-2, 3, shape, generator=gen, device=dev)
+                    else:
+                        x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+                        x = torch.round(x * 10.0) if state == torch.int16 else x
+                    x = x.to(state)
+                    m = torch.randint(-3, 1, (n_batch, n_list), generator=gen,
+                                      device=dev).to(torch.float32)
+                    m[::2, 1:] = NEG
+                    got = kbl.scl_subtree(sched, x, m)
+                    want = kbl.scl_subtree_plain(sched, x, m)
+                    what = f"K1 {fam.name} one {kind.value} leaf, L={n_list}, span {span}, " \
+                           f"B={n_batch}, {where}"
+                    _equal(what + " bits", got[0], want[0])
+                    _equal(what + " perm", got[1], want[1])
+                    err[fam.name] = max(err[fam.name], _equal(what + " metrics", got[2], want[2]))
+                    placed[fam.name, where] += 1
+                    n += 1
+    torch.cuda.synchronize()
+    emit({"k1_one_leaf_calls": n, "by_family_and_placement":
+          {f"{f}/{w}": c for (f, w), c in placed.items()}, "max_abs_err": err, "card": card})
+    if not all(placed.values()):
+        raise AssertionError(f"a family ran no staged or no device-memory leaf: {placed}")
+    print(f"K1: {n} one-leaf calls at spans {K1_LONG_SPANS} equal to the plain version")
+    return err
+
+
+def run_slice10(card):
+    """Phases 33-35. Returns {"tree": launches of the tree arm's run,
+    "depthfirst_cli": and "errorlocator_app": those of the jobs, and
+    "tree_leaf_ms": K1's time on the tree arm's longest leaf}."""
+    import contextlib
+    import csv
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk, add_awgn, bpsk_modulate
+    from polar_codes_torch.models.depthfirst import DepthFirstDecoder
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.errorlocator import ErrorLocator
+    from polar_codes_torch.models.fastssc import FastSSCDecoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.models.puncturer import Puncturer
+    from polar_codes_torch.models.tree import NodeKind
+    from polar_codes_torch.ops import _build, butterfly_kernel
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.sim import errorlocator_app
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED10 + 1)
+    modem = Bpsk()
+    out = {}
+
+    def channel(encoder, ebn0_db, n_blocks):
+        k_len = encoder.info_length
+        info = torch.randint(0, 2, (n_blocks, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (ebn0_db / 10.0) * k_len / encoder.block_length)
+        llr = modem.demodulate(chan.transmit(modem.modulate(encoder.encode(info)), gen))
+        return encoder.detector.generate(info), llr
+
+    def reset_counts():
+        butterfly_kernel.LAUNCHES = 0
+        kbl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
+        lk.LAUNCHES.update(sc=0, scl=0, sc_char=0, scl_char=0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"butterfly_encode": butterfly_kernel.LAUNCHES,
+                "scl_subtree[float32]": kbl.LAUNCHES["float32"],
+                "masked_scl_chunk[float32]": lk.LAUNCHES["scl"]}
+
+    # 33 ------------------------------------------------------------------
+    phase("33 LargeSCLDecoder(schedule='tree'): (32768, 16384) CA-SCL-8 CRC16, chunk 256, "
+          "sub-block 16, B = 128, 2 dB and 0.8 dB; L = 32 from device memory")
+    det = CRC16()
+    f_scl = frozen_bits(N_SCL, K_SCL, 0.0, "BB")
+    enc = PolarEncoder(N_SCL, f_scl, systematic=True, detector=det, device=dev)
+    kw = dict(list_size=LIST, detector=det, chunk=CHUNK_SCL, subblock=SUB, device=dev)
+    tree = LargeSCLDecoder(N_SCL, f_scl, schedule="tree", **kw)
+    tree_plain = LargeSCLDecoder(N_SCL, f_scl, schedule="tree",
+                                 chunk_fn=lk.masked_scl_chunk_plain,
+                                 subtree_fn=kbl.scl_subtree_plain, **kw)
+    scan = LargeSCLDecoder(N_SCL, f_scl, carry_dtype=torch.bfloat16, **kw)
+    scan_f32 = LargeSCLDecoder(N_SCL, f_scl, **kw)
+    walked = [leaf for leaf in tree.sched_tree.leaves() if leaf.length >= CHUNK_SCL]
+    n_k1 = len(walked)
+    n_k7 = _chunk_branches(tree.sched_tree, CHUNK_SCL)
+    if n_k7 != int((tree.classes == 0).sum()):
+        raise AssertionError(f"{n_k7} chunk-span branch nodes, but "
+                             f"{int((tree.classes == 0).sum())} mixed chunks")
+    emit({"tree_leaves": {f"{k.value}": sorted(l.length for l in walked if l.kind == k)
+                          for k in (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP,
+                                    NodeKind.SPC)},
+          "k1_per_decode": n_k1, "k7_per_decode": n_k7})
+    batches = {e: [channel(enc, e, B10) for _ in range(BATCHES10)] for e in (EBN0_DB, EBN0_LOW)}
+    reset_counts()
+    outs = {e: [tree.decode(llr) for _, llr in b] for e, b in batches.items()}
+    launches = counts()
+    out["tree"] = launches
+    n_dec = 2 * BATCHES10
+    if (launches["masked_scl_chunk[float32]"] != n_dec * n_k7
+            or launches["scl_subtree[float32]"] != n_dec * n_k1):
+        raise AssertionError(f"tree arm launches {launches}, expected {n_k7} K7 and {n_k1} K1 "
+                             f"a decode over {n_dec} decodes")
+    for ebn0, b in batches.items():
+        wrong = fails = 0
+        scan_wrong = 0
+        for (sent, llr), o in zip(b, outs[ebn0]):
+            bad = (o[0] != sent).any(1)
+            if (~o[2] & ~bad).any():
+                raise AssertionError("tree arm: a block with a failed CRC decoded right")
+            wrong += int(bad.sum())
+            fails += int((~o[2]).sum())
+            scan_wrong += int((scan.decode(llr)[0] != sent).any(1).sum())
+        bler = wrong / (B10 * BATCHES10)
+        emit({"metric": "bler", "path": f"large_cascl8_tree_n{N_SCL}", "value": bler,
+              "blocks": B10 * BATCHES10, "block_errors": wrong, "crc_failures": fails,
+              "scan_arm_block_errors": scan_wrong, "ebn0_db": ebn0})
+        if ebn0 == EBN0_DB and bler > 5e-2:
+            raise AssertionError(f"tree arm BLER {bler} above 5e-2 at {EBN0_DB} dB")
+        if ebn0 == EBN0_LOW and fails == 0:
+            raise AssertionError(f"no CRC failure at {EBN0_LOW} dB: the fallback is not driven")
+        llr = b[0][1]  # the kernels' route against the plain versions' route
+        got, want = tree.decode_packed(llr), tree_plain.decode_packed(llr)
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"tree arm at {ebn0} dB: kernel and plain routes' bits differ")
+        torch.testing.assert_close(got[1], want[1], rtol=TOL, atol=TOL)
+        tree_plain.decode_packed = lambda _, w=want: w  # its decisions from the words it made
+        plain_out = tree_plain.decode(llr)
+        del tree_plain.decode_packed
+        _same_decisions(f"tree arm at {ebn0} dB", outs[ebn0][0], plain_out)
+    clean = 4.0 * modem.modulate(enc.encode(batches[EBN0_DB][0][0]))
+    if not torch.equal(tree.decode(clean)[0], batches[EBN0_DB][0][0]):
+        raise AssertionError("tree arm: noiseless round trip lost info bits")
+    llr = batches[EBN0_DB][0][1]
+    times = {"tree_ms": time_cuda(lambda: tree.decode(llr), reps=REPS),
+             "scan_bf16_carry_ms": time_cuda(lambda: scan.decode(llr), reps=REPS),
+             "scan_f32_carry_ms": time_cuda(lambda: scan_f32.decode(llr), reps=REPS)}
+    longest = max(walked, key=lambda l: l.length)
+    sched = kbl.build_schedule(longest, LIST, LIST)
+    x = torch.randn((LIST, longest.length, B10), generator=gen, device=dev) * 2.0 + 1.0
+    m = torch.randn((B10, LIST), generator=gen, device=dev) * 10.0
+    out["tree_leaf_ms"] = time_cuda(lambda: kbl.scl_subtree(sched, x, m), reps=REPS)
+    emit({"metric": "large_cascl8_tree_decode", "n": N_SCL, "batch": B10, **times,
+          "payload_mbps": B10 * (K_SCL - det.tail_bits) / times["tree_ms"] / 1e3,
+          "launches_per_decode": {"masked_scl_chunk": n_k7, "scl_subtree": n_k1},
+          f"k1_{longest.kind.value}_span{longest.length}_ms": out["tree_leaf_ms"],
+          "card": card})
+    # L = 32: the longest leaves exceed shared memory beside the list state
+    lib = _build.load("scl_subtree")
+    kbl._bind(lib)
+    if lib.scl_subtree_smem(32, longest.length, 0, 1) >= 32 * longest.length * 4:
+        raise AssertionError(f"the span-{longest.length} leaf fits staged at L = 32")
+    t32 = LargeSCLDecoder(N_SCL, f_scl, schedule="tree", **dict(kw, list_size=32))
+    sent, llr = batches[EBN0_LOW][0][0][:B10_L32], batches[EBN0_LOW][0][1][:B10_L32]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = t32.decode(llr)
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    launches32 = counts()
+    bad32 = (got[0] != sent).any(1)
+    if (~got[2] & ~bad32).any() or launches32["scl_subtree[float32]"] != n_k1:
+        raise AssertionError(f"tree arm L = 32: a failed check on a right block, or "
+                             f"launches {launches32}")
+    clean = 4.0 * modem.modulate(enc.encode(sent))
+    if not torch.equal(t32.decode(clean)[0], sent):
+        raise AssertionError("tree arm L = 32: noiseless round trip lost info bits")
+    emit({"path": "large_cascl32_tree", "batch": B10_L32, "ebn0_db": EBN0_LOW,
+          "block_errors": int(bad32.sum()),
+          "l8_block_errors": int((outs[EBN0_LOW][0][0][:B10_L32] != sent).any(1).sum()),
+          "first_decode_ms": ms32, "card": card})
+    print(f"tree arm: {n_k7} K7 and {n_k1} K1 calls a decode; kernel route == plain route; "
+          f"L = 32 decoded, its span-{longest.length} leaves from device memory")
+
+    # 34 ------------------------------------------------------------------
+    phase("34 DepthFirstDecoder (SC-Flip): (1024, 512) CRC16, 8 trials, B = 1024, 2 dB; "
+          "sim.cli depthfirst")
+    f_df = frozen_bits(N_DF, K_DF, 0.0, "BB")
+    enc_df = PolarEncoder(N_DF, f_df, systematic=True, detector=det, device=dev)
+    df = DepthFirstDecoder(N_DF, f_df, detector=det, trial_limit=TRIALS_DF, device=dev)
+    sc = FastSSCDecoder(N_DF, f_df, detector=det, device=dev)
+    sent, llr = channel(enc_df, EBN0_DB, B_DF)
+    t0 = time.perf_counter()
+    got = df.decode(llr)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    df_cpu = DepthFirstDecoder(N_DF, f_df, detector=CRC16(), trial_limit=TRIALS_DF,
+                               device="cpu")
+    for a, b in zip(got, df_cpu.decode(llr[:64].cpu())):
+        if not torch.equal(a[:64].cpu(), b):
+            raise AssertionError("DepthFirst: card decode differs from the CPU decode")
+    df_wrong = int((got[0] != sent).any(1).sum())
+    sc_out = sc.decode(llr)
+    sc_wrong = int((sc_out[0] != sent).any(1).sum())
+    first_fail = int((~sc_out[2]).sum())
+    if df_wrong > sc_wrong or (~got[2] & ~(got[0] != sent).any(1)).any():
+        raise AssertionError(f"DepthFirst: {df_wrong} wrong blocks, Fast-SSC {sc_wrong}, or a "
+                             "failed check on a right block")
+    df_ms = time_cuda(lambda: df.decode(llr), warmup=1, reps=3)
+    emit({"path": "depthfirst_scflip", "n": N_DF, "batch": B_DF, "trials": TRIALS_DF,
+          "ebn0_db": EBN0_DB, "block_errors": df_wrong, "fastssc_block_errors": sc_wrong,
+          "fastssc_crc_failures": first_fail, "decode_ms": df_ms, "first_decode_ms": first_ms,
+          "card": card})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s10_")
+    try:
+        reset_counts()
+        argv = ["depthfirst", "-n", str(N_DF), "-r", "0.5", "-l", str(TRIALS_DF),
+                "--snr-count", "1", "--snr-max", str(EBN0_DB), "--batch", str(B_DF),
+                "-w", str(2 * B_DF * N_DF), "-o", f"{tmp}/df"]
+        t0 = time.perf_counter()
+        text, (row,) = _sim(argv)
+        wall = time.perf_counter() - t0
+        out["depthfirst_cli"] = counts()
+        (w, d, _), = _job_shares(text)
+        emit({"path": "pcsim_cli_depthfirst", "bler": float(row["BLER"]), "runs": int(row["Runs"]),
+              "wall_s": wall, "job_wall_s": w, "decode_share": d,
+              "launches": out["depthfirst_cli"], "card": card})
+        if int(row["Runs"]) != 2 * B_DF or out["depthfirst_cli"]["butterfly_encode"] <= 0:
+            raise AssertionError(f"depthfirst job: {row}, launches {out['depthfirst_cli']}")
+
+        # 35 --------------------------------------------------------------
+        phase("35 ErrorLocator at N = 1024, B = 1024, 1-3 dB; the errorlocator app; "
+              "a Puncturer round trip")
+        enc_nonsys = PolarEncoder(N_DF, f_df, systematic=False, device=dev)
+        loc = ErrorLocator(N_DF, f_df, device=dev)
+        loc_cpu = ErrorLocator(N_DF, f_df, device="cpu")
+        located = {}
+        for ebn0 in (1.0, 2.0, 3.0):
+            info = torch.randint(0, 2, (B_DF, K_DF), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+            code = enc_nonsys.encode(info)
+            y = add_awgn(bpsk_modulate(code), gen, esn0_linear=10 ** (ebn0 / 10) * K_DF / N_DF)
+            first, mask = loc.locate(y, code)
+            first_c, mask_c = loc_cpu.locate(y.cpu(), code.cpu())
+            if not (torch.equal(first.cpu(), first_c) and torch.equal(mask.cpu(), mask_c)):
+                raise AssertionError(f"ErrorLocator at {ebn0} dB: card differs from the CPU")
+            located[ebn0] = int((first < N_DF).sum())
+        loc_ms = time_cuda(lambda: loc.locate(y, code), reps=REPS)
+        reset_counts()
+        app = ["-n", str(N_DF), "-r", "0.5", "--snr-min", "1", "--snr-max", "3",
+               "--snr-count", "3", "-w", str(EL_CHUNKS * B_DF * N_DF), "--batch", str(B_DF),
+               "-o", f"{tmp}/el"] + _platform()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = errorlocator_app.main(app)
+        torch.cuda.synchronize()
+        app_s = time.perf_counter() - t0
+        print(buf.getvalue(), end="")
+        out["errorlocator_app"] = counts()
+        with open(f"{tmp}/el_firsterror.csv") as f:
+            lines = f.read().splitlines()
+        rows = list(csv.DictReader(lines))
+        if (rc != 0 or any(len(line.split(",")) != 7 for line in lines)
+                or {r["frames"] for r in rows} != {str(EL_CHUNKS * B_DF)}
+                or out["errorlocator_app"]["butterfly_encode"] != 3 * EL_CHUNKS):
+            raise AssertionError(f"errorlocator app: rc {rc}, {len(rows)} rows, "
+                                 f"launches {out['errorlocator_app']}")
+        punct = Puncturer(1000, f_df)
+        x = torch.randn((B_DF, N_DF), generator=gen, device=dev)
+        back = punct.depuncture(punct.puncture(x))
+        if not torch.equal(back.cpu(), punct.depuncture(punct.puncture(x.cpu()))):
+            raise AssertionError("Puncturer: card round trip differs from the CPU")
+        emit({"path": "errorlocator", "frames_with_genie_error": located, "batch": B_DF,
+              "locate_ms": loc_ms, "app_s": app_s, "app_ms_per_chunk": app_s * 1e3 / (3 * EL_CHUNKS),
+              "app_csv_rows": len(rows), "launches": out["errorlocator_app"], "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("ErrorLocator and Puncturer on the card == on the CPU")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """polar_codes_torch — the PyTorch and CUDA port of polar_codes_tpu.
 
 The port mirrors the JAX package's layout (construction/, models/, ops/,
-dsp/, utils/, sim/, parallel/) and runs its paths — (N, K) CA-SCL with a
-CRC or CMAC, the simulator's adaptive decoder, Fast-SSC, SCAN and the
-large-N SC and SCL decoders, BPSK or ASK over AWGN or Rayleigh, and the
+dsp/, utils/, sim/, parallel/, tools/) and runs its paths — (N, K) CA-SCL
+with a CRC or CMAC, the simulator's adaptive decoder, Fast-SSC, SCAN,
+SC-Flip, the genie error locator, the puncturer and the large-N SC and
+SCL decoders (both schedules), BPSK or ASK over AWGN or Rayleigh, and the
 Monte-Carlo simulator with its pcsim CLI (python -m
 polar_codes_torch.sim.cli) — on an NVIDIA Hopper card through hand-written
 CUDA kernels under csrc/: the butterfly encoder (ops/butterfly_kernel.py),

@@ -49,9 +49,14 @@
 // F and G, or staged into the level region when the subtree is one leaf)
 // and written once (bits, perm, metrics). Per codeword that is
 // sizeof(Shared<L>) + 4 span + L span sizeof(state) bytes: 20 KB at
-// L = 8, span 512 in f32, 12 KB in int16 or bf16; a schedule whose
-// state exceeds the card's opt-in shared memory per block (only a
-// caller-chosen kernel_span can) is refused (-2). Inside an op:
+// L = 8, span 512 in f32, 12 KB in int16 or bf16. A one-leaf schedule
+// whose staged input would not fit (the large-N tree schedule's pure
+// leaves: L = 32 at span 2048 in f32 needs 256 KB) is not staged: its leaf
+// reads the input from device memory where it lies, element (l, i) at
+// llr[(l span + i) B + b], and needs sizeof(Shared<L>) + 4 span bytes. A
+// branched schedule whose state exceeds the card's opt-in shared memory
+// per block (only a caller-chosen kernel_span can) is refused (-2).
+// Inside an op:
 //   F, G      lanes over (path, element) pairs; G reads the parent through
 //             the left child's perm (levels live in separate regions, so
 //             no read aliases a write);
@@ -67,7 +72,9 @@
 //             each lane holding its candidates in registers for one pass
 //             over all the values;
 //             the decision bits with lanes over (position, slot), one
-//             ballot per 32 / L positions.
+//             ballot per 32 / L positions. The leaf is a template on where
+//             its input lies (shared memory, or device memory strided by
+//             B); its arithmetic and order are the same either way.
 //
 // What bounds it on an H100: the length of one codeword's dependent chain
 // of warp steps (each op closes with a __syncwarp), overlapped across the
@@ -78,7 +85,10 @@
 // 512): ~0.15-0.19 ms a call at B = 181, one codeword's chain of ~250-310k
 // cycles, of which the leaves' prunes ~20%, their other phases ~30%, F and
 // G ~15% (the level-0 ones read device memory strided by B), combines 5%;
-// 0.32-0.43 ms at B = 2048.
+// 0.32-0.43 ms at B = 2048. A one-leaf schedule read from device memory
+// (the rate-0 leaf of 2048 at L = 32, B = 128) takes 0.36 ms, against
+// 0.11 for the same leaf staged at L = 8 (chip_profile.py tree): each
+// path's lane walks its span in loads strided by B.
 //
 // Numerics: every sum is sequential over the span in f32, in the order of
 // the plain torch version (ops/scl_kernel_bl.py), and the build disables
@@ -101,8 +111,9 @@
 //     shared-memory attribute call), -1 for an unsupported list size,
 //     family or span, -2 when one codeword's state exceeds the card's
 //     opt-in shared memory per block.
-//   int scl_subtree_smem(int list_size, int span, int family)
-//     shared-memory bytes per codeword, or -1.
+//   int scl_subtree_smem(int list_size, int span, int family, int n_ops)
+//     shared-memory bytes per codeword of a schedule of n_ops ops (one op:
+//     one leaf, unstaged where staging does not fit), or -1.
 //   int scl_subtree_smem_limit(void)
 //     the current card's opt-in shared memory per block, in bytes.
 
@@ -218,11 +229,22 @@ struct Shared {
   int spc[32];               // SPC_TABLE
 };
 
+// Shared memory per codeword; `direct`: a one-leaf schedule whose leaf
+// reads its input from device memory (no level state).
 template <int L, class Fam>
-size_t warp_bytes(int span) {
+size_t warp_bytes(int span, bool direct) {
   const size_t n = sizeof(Shared<L>) + (size_t)span * sizeof(int) +
-                   (size_t)L * span * sizeof(typename Fam::State);
+                   (direct ? 0 : (size_t)L * span * sizeof(typename Fam::State));
   return (n + 15) & ~static_cast<size_t>(15);
+}
+
+int smem_limit();
+
+// Whether a schedule of n_ops ops reads its leaf from device memory: it is
+// one leaf, and its staged input would not fit.
+template <int L, class Fam>
+bool reads_direct(int n_ops, int span) {
+  return n_ops == 1 && warp_bytes<L, Fam>(span, false) > static_cast<size_t>(smem_limit());
 }
 
 // One warp's view of its codeword.
@@ -242,6 +264,18 @@ struct Warp {
 
   __device__ S* lvl(int d) const {
     return X + (d == 0 ? 0 : L * (span - (span >> (d - 1))));
+  }
+
+  // A leaf's input: path l of the span-len leaf at Xd (shared memory), or
+  // with D the subtree's input in device memory (the leaf is the whole
+  // subtree, len == span), and its element i as f32.
+  template <bool D>
+  __device__ const S* path(const S* Xd, int len, int l) const {
+    return D ? in + (size_t)l * len * batch : Xd + l * len;
+  }
+  template <bool D>
+  __device__ float at(const S* x, int i) const {
+    return Fam::load(D ? x[(size_t)i * batch] : x[i]);
   }
 
   // f from level d (span len) into level d + 1, for paths l < w
@@ -344,11 +378,11 @@ struct Warp {
   // (|x| bits, index) in one unsigned 64-bit word, which orders as the
   // pair (|x| >= 0); each lane scans a stride of the span, then the group
   // takes the minimum by shuffles.
-  template <int K>
+  template <int K, bool D>
   __device__ void weakest(const S* Xd, int len, int w) {
     const int lgg = 5 - (w > 1 ? 32 - __clz(w - 1) : 0);
     const int g = 1 << lgg, l = lane >> lgg, gl = lane & (g - 1);
-    const S* x = Xd + l * len;
+    const S* x = path<D>(Xd, len, l);
     unsigned long long prev = 0;
     int neg = 0;
 #pragma unroll
@@ -357,7 +391,7 @@ struct Warp {
       if (l < w) {
 #pragma unroll 4
         for (int i = gl; i < len; i += g) {
-          const float y = Fam::load(x[i]);
+          const float y = at<D>(x, i);
           if (k == 0) neg ^= Fam::hard(y);
           const unsigned long long key =
               (static_cast<unsigned long long>(__float_as_uint(fabsf(y))) << 32) |
@@ -382,19 +416,20 @@ struct Warp {
 
   // Candidate c of path l of a leaf of `kind`: its metric delta. Sums run
   // sequentially over the span, in the plain version's order.
+  template <bool D>
   __device__ float delta(int kind, const S* x, int len, int l, int c, int aux) const {
     if (kind == K_REP) {
       float acc = 0.f;
       if (c == 0) {
 #pragma unroll 8
-        for (int i = 0; i < len; ++i) acc = acc + fminf(Fam::load(x[i]), 0.f);
+        for (int i = 0; i < len; ++i) acc = acc + fminf(at<D>(x, i), 0.f);
         return acc;
       }
 #pragma unroll 8
-      for (int i = 0; i < len; ++i) acc = acc + fmaxf(Fam::load(x[i]), 0.f);
+      for (int i = 0; i < len; ++i) acc = acc + fmaxf(at<D>(x, i), 0.f);
       return -acc;
     }
-    if (kind == K_RATE1 && len == 1) return c == 0 ? 0.f : -fabsf(Fam::load(x[0]));
+    if (kind == K_RATE1 && len == 1) return c == 0 ? 0.f : -fabsf(at<D>(x, 0));
     if (kind == K_RATE1) {
       const float m0 = s.ms[0][l], m1 = s.ms[1][l];
       return c == 0 ? 0.f : c == 1 ? -m0 : c == 2 ? -m1 : -m0 - m1;
@@ -415,7 +450,7 @@ struct Warp {
     float sc = 0.f;
 #pragma unroll 8
     for (int i = 0; i < len; ++i) {
-      const float y = Fam::load(x[i]);
+      const float y = at<D>(x, i);
       sc = sc + (((mk >> i) & 1) ? -y : y);
     }
     return 0.5f * (sc - s.ms[0][l]);
@@ -475,15 +510,17 @@ struct Warp {
     }
   }
 
-  // LEAF: candidates, prune, decision bits, the survivors' metrics and perm
+  // LEAF: candidates, prune, decision bits, the survivors' metrics and perm;
+  // D: the input in device memory (a one-leaf schedule that is not staged)
+  template <bool D>
   __device__ void leaf(int d, int len, int off, int kind, int aux, int nc, int& w) {
     const S* Xd = lvl(d);
     if (kind == K_RATE0) {
       if (lane < w) {
-        const S* x = Xd + lane * len;
+        const S* x = path<D>(Xd, len, lane);
         float acc = 0.f;
 #pragma unroll 8
-        for (int i = 0; i < len; ++i) acc = acc + fminf(Fam::load(x[i]), 0.f);
+        for (int i = 0; i < len; ++i) acc = acc + fminf(at<D>(x, i), 0.f);
         s.M[lane] = s.M[lane] + acc;
         s.P[d][lane] = lane;
       }
@@ -493,15 +530,15 @@ struct Warp {
     }
     K1_CLOCK(tp);
     if (kind == K_RATE1 && len > 1) {
-      weakest<2>(Xd, len, w);
+      weakest<2, D>(Xd, len, w);
     } else if (kind == K_SPC) {
-      weakest<4>(Xd, len, w);
+      weakest<4, D>(Xd, len, w);
     } else if (kind == K_ENUM) {
       if (lane < w) {
-        const S* x = Xd + lane * len;
+        const S* x = path<D>(Xd, len, lane);
         float sa = 0.f;
 #pragma unroll 8
-        for (int i = 0; i < len; ++i) sa = sa + fabsf(Fam::load(x[i]));
+        for (int i = 0; i < len; ++i) sa = sa + fabsf(at<D>(x, i));
         s.ms[0][lane] = sa;
       }
       __syncwarp();
@@ -510,7 +547,7 @@ struct Warp {
     const int T = w * nc;
     for (int t = lane; t < T; t += 32) {
       const int l = t / nc, c = t - l * nc;
-      s.V[t] = s.M[l] + delta(kind, Xd + l * len, len, l, c, aux);
+      s.V[t] = s.M[l] + delta<D>(kind, path<D>(Xd, len, l), len, l, c, aux);
     }
     __syncwarp();
     K1_TICK(9, tp);
@@ -542,7 +579,7 @@ struct Warp {
         emask = masks[aux + c];
       }
     }
-    const S* xs = Xd + src * len;
+    const S* xs = path<D>(Xd, len, src);
     for (int base = 0; base < len; base += kPer) {
       const int i = base + (lane >> kLgL);
       int bit = 0;
@@ -552,7 +589,7 @@ struct Warp {
         } else if (kind == K_ENUM) {
           bit = (emask >> i) & 1;
         } else {
-          bit = Fam::hard(Fam::load(xs[i])) ^
+          bit = Fam::hard(at<D>(xs, i)) ^
                 (((fm & 1) && i == i0) | ((fm & 2) && i == i1) | ((fm & 4) && i == i2) |
                  ((fm & 8) && i == i3));
         }
@@ -577,7 +614,7 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
                    const int* __restrict__ spc_tab, const typename Fam::State* __restrict__ llr,
                    const float* __restrict__ met_in, int* __restrict__ bits,
                    int* __restrict__ perm_out, float* __restrict__ met_out, int w_in, int w_out,
-                   int span, int batch, int per_warp) {
+                   int span, int batch, int per_warp, int direct) {
   using S = typename Fam::State;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -592,7 +629,7 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
 
   if (lane < w_in) s.M[lane] = met_in[(size_t)b * w_in + lane];
   s.spc[lane] = spc_tab[lane];
-  if (ops[0] == OP_LEAF) {  // a one-leaf subtree reads its input from shared memory
+  if (ops[0] == OP_LEAF && !direct) {  // a one-leaf subtree reads its input from shared memory
     const int n = w_in * span;
     for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
       S v[kLoads];
@@ -623,8 +660,10 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
       wp.G(d, len, off, w);
     else if (code == OP_COMBINE)
       wp.combine(d, len, off, w);
+    else if (direct)
+      wp.template leaf<true>(d, len, off, op[4], op[5], op[6], w);
     else
-      wp.leaf(d, len, off, op[4], op[5], op[6], w);
+      wp.template leaf<false>(d, len, off, op[4], op[5], op[6], w);
     K1_TICK(code == OP_LEAF ? 3 + op[4] : code < 2 && d == 0 ? 13 + code : code, t0);
 #pragma unroll
     for (int q = 0; q < 7; ++q) op[q] = next[q];
@@ -652,7 +691,8 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
            const void* llr, const float* met, int* bits, int* perm, float* met_out, int w_in,
            int w_out, int span, int batch, int per_block, cudaStream_t stream) {
   using S = typename Fam::State;
-  const size_t per_warp = warp_bytes<L, Fam>(span);
+  const bool direct = reads_direct<L, Fam>(n_ops, span);
+  const size_t per_warp = warp_bytes<L, Fam>(span, direct);
   const size_t limit = static_cast<size_t>(smem_limit());
   if (per_warp > limit) return -2;
   // codewords per block: one while the batch leaves SMs idle, then four
@@ -672,7 +712,7 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
   }
   kernel<<<(batch + cw - 1) / cw, 32 * cw, smem, stream>>>(
       ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met, bits, perm, met_out,
-      w_in, w_out, span, batch, static_cast<int>(per_warp));
+      w_in, w_out, span, batch, static_cast<int>(per_warp), static_cast<int>(direct));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,14 +730,19 @@ int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x
   }
 }
 
+template <int L, class Fam>
+int bytes_at(int span, int n_ops) {
+  return static_cast<int>(warp_bytes<L, Fam>(span, reads_direct<L, Fam>(n_ops, span)));
+}
+
 template <class Fam>
-int bytes_of(int list_size, int span) {
+int bytes_of(int list_size, int span, int n_ops) {
   switch (list_size) {
-    case 2: return static_cast<int>(warp_bytes<2, Fam>(span));
-    case 4: return static_cast<int>(warp_bytes<4, Fam>(span));
-    case 8: return static_cast<int>(warp_bytes<8, Fam>(span));
-    case 16: return static_cast<int>(warp_bytes<16, Fam>(span));
-    case 32: return static_cast<int>(warp_bytes<32, Fam>(span));
+    case 2: return bytes_at<2, Fam>(span, n_ops);
+    case 4: return bytes_at<4, Fam>(span, n_ops);
+    case 8: return bytes_at<8, Fam>(span, n_ops);
+    case 16: return bytes_at<16, Fam>(span, n_ops);
+    case 32: return bytes_at<32, Fam>(span, n_ops);
     default: return -1;
   }
 }
@@ -730,12 +775,12 @@ extern "C" int scl_subtree(const void* ops, int n_ops, const void* enum_masks,
   }
 }
 
-extern "C" int scl_subtree_smem(int list_size, int span, int family) {
+extern "C" int scl_subtree_smem(int list_size, int span, int family, int n_ops) {
   if (bad_span(span)) return -1;
   switch (family) {
-    case 0: return bytes_of<FloatFamily>(list_size, span);
-    case 1: return bytes_of<CharFamily>(list_size, span);
-    case 2: return bytes_of<Bf16Family>(list_size, span);
+    case 0: return bytes_of<FloatFamily>(list_size, span, n_ops);
+    case 1: return bytes_of<CharFamily>(list_size, span, n_ops);
+    case 2: return bytes_of<Bf16Family>(list_size, span, n_ops);
     default: return -1;
   }
 }

@@ -1,2 +1,3 @@
-"""Codes, detectors, the encoder, and the SC, SCL, Fast-SSC, adaptive,
-SCAN and large-N decoders."""
+"""Codes, detectors, the encoder, the puncturer, and the SC, SCL,
+Fast-SSC, adaptive, SCAN, SC-Flip (depth-first) and large-N decoders and
+the genie error locator."""

@@ -35,9 +35,16 @@ inside, decisions llr < 0. Every chunk is then mixed (the closed forms and
 the sub-block rules would sum without the staged saturation), so an int8
 decode runs only the chunk kernels K6 or K7.
 
+LargeSCLDecoder(schedule="tree") walks the code tree instead (JAX
+`_decode_paths_tree`): leaves at their maximal pure span take the SSCL
+leaf rules through K1 on a one-leaf schedule, mixed subtrees of chunk span
+go to K7 as chunk offset / M, and the branch nodes above run f and g in
+float32 with the perms of their children gathered and composed in torch.
+It takes float32 only, needs fast_chunks, and ignores carry_dtype, as in
+the JAX package.
+
 The JAX constructors' `backend` and `unroll` arguments only shape the JAX
-program; the port has no counterpart. LargeSCLDecoder(schedule="tree") is
-not ported yet (ROADMAP Queue 1).
+program; the port has no counterpart.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
 from .scl import _NEG, SCLDecoder
 from .scl import SubtreeFn as SclSubtreeFn
+from .tree import CodeNode, NodeKind, build_tree
 
 ScChunkFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 SclChunkFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -290,8 +298,12 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
 
     chunk_fn decodes one mixed chunk (default: K7's wrapper; called as
     chunk_fn(llr, mask, metrics, sub_cls, family=...)) and subtree_fn one
-    pure chunk (default: K1's wrapper); pass `masked_scl_chunk_plain` and
-    `scl_subtree_plain` to run the plain versions on the card."""
+    pure chunk, or on the tree schedule one pure leaf (default: K1's
+    wrapper); pass `masked_scl_chunk_plain` and `scl_subtree_plain` to run
+    the plain versions on the card.
+
+    schedule is "scan" (None) or "tree" (the module docstring says what
+    each does)."""
 
     def __init__(
         self,
@@ -310,15 +322,16 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         chunk_fn: Optional[SclChunkFn] = None,
         subtree_fn: Optional[SclSubtreeFn] = None,
     ):
-        if schedule not in (None, "scan"):
-            if schedule == "tree" and dtype == torch.int8:
-                raise ValueError("schedule='tree' does not support dtype=int8; use "
-                                 "schedule='scan' (the int8-qualified path)")
-            if schedule == "tree":
-                raise NotImplementedError(
-                    "LargeSCLDecoder(schedule='tree') is not ported yet (ROADMAP "
-                    "Queue 1); the scan schedule is the port's")
+        schedule = "scan" if schedule is None else schedule
+        if schedule not in ("tree", "scan"):
             raise ValueError(f"unknown schedule {schedule}")
+        if schedule == "tree" and not fast_chunks:
+            raise ValueError(
+                "schedule='tree' uses SSCL fast-leaf rules and cannot honor "
+                "fast_chunks=False; use schedule='scan' for the exact per-bit decoder")
+        if schedule == "tree" and dtype == torch.int8:
+            raise ValueError("schedule='tree' does not support dtype=int8; use "
+                             "schedule='scan' (the int8-qualified path)")
         if list_size not in SCL_LISTS:
             raise NotImplementedError(
                 f"list_size={list_size}: the chunk kernels cover L in {SCL_LISTS}")
@@ -348,6 +361,13 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         self._leaf_scheds = {
             cls: build_schedule(_sub_leaf(kind, self.chunk), self.list_size, self.list_size)
             for cls, kind in _CLASS_KINDS.items()}
+        self.schedule = schedule
+        self.sched_tree = None
+        if schedule == "tree":
+            self.sched_tree = build_tree(block_length, self.frozen)
+            self._tree_scheds = {  # the leaves outside the chunk-span subtrees
+                leaf: build_schedule(leaf, self.list_size, self.list_size)
+                for leaf in self.sched_tree.leaves() if leaf.length >= self.chunk}
         self._syndrome = self._syndrome_consts()
 
     # ---- one chunk -------------------------------------------------------
@@ -379,6 +399,9 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         metrics = torch.full((n_batch, n_list), _NEG, device=flat.device)
         metrics[:, 0] = 0.0
         chan = flat[:, None, :].expand(n_batch, n_list, n_len)
+        if self.schedule == "tree":
+            word, _, metrics = self._tree_node(self.sched_tree, chan, metrics)
+            return word.T.contiguous(), metrics
         if self.n_chunks == 1:
             word, _, metrics = self._chunk(0, chan, metrics)
             return word.T.contiguous(), metrics
@@ -417,6 +440,34 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
                 bits[n_outer - climb - 1] = word
                 lag_b[n_outer - climb - 1] = ident
         return self._join_chunks(segs, perms).T.contiguous(), metrics
+
+    # ---- the tree schedule ---------------------------------------------
+
+    def _tree_node(self, node: CodeNode, llr: torch.Tensor, metrics: torch.Tensor):
+        """llr [B, L, span] f32 -> (word [B, span] i32, perm [B, L] i64,
+        metrics [B, L]): a leaf through K1, a mixed chunk through K7, a
+        longer branch node by f, g and its children."""
+        if node.kind != NodeKind.BRANCH:
+            word, perm, metrics = self.subtree_fn(
+                self._tree_scheds[node], llr.permute(1, 2, 0).contiguous(), metrics)
+            return word.T, perm.to(torch.int64), metrics
+        if node.length == self.chunk:
+            t = node.offset // self.chunk
+            sub = None if self._subs_t is None else self._subs_t[t]
+            word, perm, metrics = self.chunk_fn(llr.contiguous(), self._masks_t[t], metrics,
+                                                sub, family=self.family)
+            return word, perm.to(torch.int64), metrics
+        f_fn, g_fn = self._fg
+        half = node.length // 2
+        a, b = llr[..., :half], llr[..., half:]
+        left, p_left, metrics = self._tree_node(node.left, f_fn(a, b), metrics)
+        llr_g = _take_paths(llr, p_left)
+        lanes = torch.arange(self.list_size, device=left.device)[:, None]
+        left_bip = 1.0 - 2.0 * ((left[:, None] >> lanes) & 1).to(torch.float32)
+        right, p_right, metrics = self._tree_node(
+            node.right, g_fn(llr_g[..., :half], llr_g[..., half:], left_bip), metrics)
+        left = _take_word(left, p_right)
+        return torch.cat([left ^ right, right], dim=-1), _compose(p_left, p_right), metrics
 
     def _join_chunks(self, segs, perms) -> torch.Tensor:
         """Chunk segments (packed [B, M] words, each in the slot order of its

@@ -53,6 +53,14 @@ class CodeNode:
             return [self]
         return self.left.leaves() + self.right.leaves()
 
+    def describe(self, depth: int = 0) -> str:
+        """The tree as indented text, one node a line: kind[start:end]."""
+        pad = "  " * depth
+        line = f"{pad}{self.kind.value}[{self.offset}:{self.offset + self.length}]"
+        if self.kind != NodeKind.BRANCH:
+            return line
+        return "\n".join([line, self.left.describe(depth + 1), self.right.describe(depth + 1)])
+
 
 ALL_LEAF_KINDS = frozenset(
     {NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC})

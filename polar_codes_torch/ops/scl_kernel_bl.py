@@ -442,7 +442,7 @@ def _bind(lib):
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.scl_subtree_smem.argtypes = [ctypes.c_int] * 3
+        lib.scl_subtree_smem.argtypes = [ctypes.c_int] * 4
         lib.scl_subtree_smem.restype = ctypes.c_int
         lib.scl_subtree_smem_limit.argtypes = []
         lib.scl_subtree_smem_limit.restype = ctypes.c_int
@@ -452,9 +452,11 @@ def _bind(lib):
 def check_smem(lib, sched: SubtreeSchedule, fam) -> int:
     """Shared-memory bytes per codeword of `sched` in family `fam` on the
     current card; raises NotImplementedError when one codeword's state
-    exceeds the card's opt-in shared memory per block."""
+    exceeds the card's opt-in shared memory per block (a branched schedule;
+    a one-leaf schedule that does not fit staged reads its input from
+    device memory and needs no level state)."""
     _bind(lib)
-    need = lib.scl_subtree_smem(sched.list_size, sched.span, fam.code)
+    need = lib.scl_subtree_smem(sched.list_size, sched.span, fam.code, sched.ops.shape[0])
     limit = lib.scl_subtree_smem_limit()
     if need < 0 or need > limit:
         raise NotImplementedError(
@@ -471,10 +473,13 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     On the card one warp decodes one codeword with its list state (the
     LLRs of every tree level below the subtree's root, the packed bit
     words, the perms) in shared memory, PER_BLOCK codewords a block (0:
-    chosen from the batch). A schedule whose state does not fit in the
-    card's opt-in shared memory per block (L * span values of the state
-    type plus 4 * span bytes and the list's bookkeeping; only a
-    caller-chosen kernel_span can exceed it) raises NotImplementedError."""
+    chosen from the batch). A one-leaf schedule whose input does not fit
+    there as well is decoded from device memory (the large-N tree
+    schedule's longest pure leaves at L = 32). A branched schedule whose
+    state does not fit in the card's opt-in shared memory per block (L *
+    span values of the state type plus 4 * span bytes and the list's
+    bookkeeping; only a caller-chosen kernel_span can exceed it) raises
+    NotImplementedError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:

@@ -132,8 +132,12 @@ def make_coders(n_len, k_len, args, detector):
                   iterations=list_size, device=device)
         return enc, dec
     if simtype == "depthfirst":
-        raise NotImplementedError(
-            "the depth-first decoder (models/depthfirst.py) is not ported yet")
+        from ..models.depthfirst import DepthFirstDecoder
+
+        dec = DepthFirstDecoder(n_len, frozen, systematic=systematic,
+                                detector=detector, trial_limit=list_size,
+                                device=device)
+        return enc, dec
     dtype = torch.int8 if args.precision == 8 else torch.float32
     if list_size <= 1:
         dec = FastSSCDecoder(n_len, frozen, systematic=systematic,
@@ -302,11 +306,8 @@ def main(argv=None):
         for st in ("scan", "fastsscan", "depthfirst"):
             sub = argparse.Namespace(**vars(args))
             sub.simtype = st
-            try:
-                results += run_jobs(sub, [(n_len, int(n_len * rate), None, 1)],
-                                    write=False)
-            except (ImportError, NotImplementedError) as e:
-                print(f"compareall: skipping {st} ({e})")
+            results += run_jobs(sub, [(n_len, int(n_len * rate), None, 1)],
+                                write=False)
         _write_all(args, "compareall", results)
         return 0
     else:

@@ -11,7 +11,9 @@ construction.
 
 state keys:
     family        optional str: "scl" (default), "fastssc", "adaptive",
-                  "scan", "fastsscan", "large_sc" or "large_scl"
+                  "scan", "fastsscan", "large_sc", "large_scl",
+                  "depthfirst" or "errorlocator" (ErrorLocator in the
+                  decoder's place)
     frozen        int array, the frozen positions
     info_pos      int array, the info positions
     systematic    bool
@@ -24,9 +26,11 @@ state keys:
     fast_dtype    optional str, "float32" or "int8"     (fastssc, adaptive)
     list_schedule optional int sequence                 (adaptive)
     iterations    optional int                          (scan, fastsscan)
+    trial_limit   optional int (default 8)              (depthfirst)
     chunk         int, fast_chunks bool                 (large_sc, large_scl)
     subblock      optional int (None: no sub-blocks)    (large_scl)
     carry_dtype   optional str, "float32" or "bfloat16" (large_scl)
+    schedule      optional str, "scan" (default) or "tree" (large_scl)
     mask_chunks   optional [T, chunk] bool, classes optional [T] int,
                   sub_classes optional [T, chunk / subblock] int: the
                   chunk masks and class codes      (large_sc, large_scl)
@@ -34,8 +38,12 @@ state keys:
     affine_g0     [tail] uint8, affine_map(D)[1]        (with a CRC)
     leaves        optional [n, 3] int: (kind index, offset, length) per
                   leaf of the decoder's tree (the Fast-SSC tree for
-                  adaptive, the RATE0/RATE1 tree for SCAN), kind index
-                  into NodeKind order
+                  adaptive, the RATE0/RATE1 tree for SCAN, the RATE0-only
+                  tree for depthfirst, the tree schedule's tree for
+                  large_scl with schedule "tree"), kind index into NodeKind
+                  order
+    output_positions  optional int array with punctured_length int M: the
+                  positions a Puncturer(M, frozen) keeps
 """
 
 from __future__ import annotations
@@ -46,10 +54,13 @@ import numpy as np
 import torch
 
 from ..models.adaptive import AdaptiveDecoder
+from ..models.depthfirst import DepthFirstDecoder
 from ..models.detectors import detector_by_name
 from ..models.encoder import PolarEncoder
+from ..models.errorlocator import ErrorLocator
 from ..models.fastssc import FastSSCDecoder
 from ..models.large import LargeSCDecoder, LargeSCLDecoder
+from ..models.puncturer import Puncturer
 from ..models.scan import FastSScanDecoder, ScanDecoder
 from ..models.scl import SCLDecoder
 from ..models.tree import NodeKind
@@ -113,7 +124,13 @@ def _decoder(state: State, block_length: int, frozen: np.ndarray, detector,
             block_length, frozen, list_size=int(state["list_size"]), dtype=dtype,
             chunk=int(state["chunk"]), fast_chunks=bool(state["fast_chunks"]),
             subblock=None if sub is None else int(sub),
-            carry_dtype=None if carry is None else _CARRY_DTYPES[str(carry)], **common)
+            carry_dtype=None if carry is None else _CARRY_DTYPES[str(carry)],
+            schedule=str(state.get("schedule", "scan")), **common)
+    if family == "depthfirst":
+        return DepthFirstDecoder(block_length, frozen,
+                                 trial_limit=int(state.get("trial_limit", 8)), **common)
+    if family == "errorlocator":
+        return ErrorLocator(block_length, frozen, device=device)
     raise ValueError(f"unknown decoder family {family!r}")
 
 
@@ -137,7 +154,11 @@ def from_jax_state(state: State, device=DEFAULT_DEVICE) -> Tuple[PolarEncoder, o
         _same("affine_G", state["affine_G"], G)
         _same("affine_g0", state["affine_g0"], g0)
     if "leaves" in state:
-        _same("leaves", state["leaves"], leaf_table(dec.tree))
+        tree = getattr(dec, "sched_tree", None) or dec.tree
+        _same("leaves", state["leaves"], leaf_table(tree))
+    if "output_positions" in state:
+        _same("output_positions", state["output_positions"],
+              Puncturer(int(state["punctured_length"]), frozen).output_positions)
     for name in ("mask_chunks", "classes", "sub_classes"):
         if name in state:
             _same(name, state[name], getattr(dec, name))

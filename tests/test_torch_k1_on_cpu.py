@@ -134,6 +134,39 @@ def test_k1_source_on_cpu_one_leaf_span256(k1, family, n_list):
            live_one=True, widths=(None,))
 
 
+def _long_leaves(span):
+    """One leaf of each kind a large-N tree schedule walks, at `span`."""
+    return [_leaf(NodeKind.RATE0, span, range(span)), _leaf(NodeKind.RATE1, span, []),
+            _leaf(NodeKind.REP, span, range(span - 1)), _leaf(NodeKind.SPC, span, [0])]
+
+
+@pytest.mark.parametrize("family", DTYPES)
+def test_k1_source_on_cpu_one_leaf_long(k1, family):
+    """One-leaf schedules of every kind entered at w_in = L, at L = 8, span
+    512 and L = 16, span 1024 (staged into shared memory) and at L = 32,
+    span 2048 in float32 and 4096 in int16 and bf16, whose input does not
+    fit there (read from device memory); integer and Gaussian inputs by
+    turns, every other row with one live path."""
+    lib, fn = k1
+    dtype = DTYPES[family]
+    code = kbl.family(dtype).code
+    long_span = 2048 if dtype == torch.float32 else 4096
+    rng = np.random.default_rng(len(family))
+    for n_list, span in ((8, 512), (16, 1024), (32, long_span)):
+        staged = n_list * span * dtype.itemsize
+        assert (lib.scl_subtree_smem(n_list, span, code, 1) < staged) == (n_list == 32)
+        for i, node in enumerate(_long_leaves(span)):
+            sched = kbl.build_schedule(node, n_list, n_list)
+            kind = ("ints", "gauss")[(i + n_list) % 2]
+            llr, met = _inputs(rng, sched, 2, dtype, kind, live_one=True)
+            got = _run(k1, sched, llr, met, 2)
+            want = kbl.scl_subtree_plain(sched, llr, met)
+            where = f"{node.kind.value} span {span}, L {n_list}, {kind}"
+            assert torch.equal(got[0], want[0]), where + ": bits"
+            assert torch.equal(got[1], want[1]), where + ": perm"
+            assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), where
+
+
 @pytest.mark.parametrize("n_list", LISTS)
 @pytest.mark.parametrize("family", DTYPES)
 def test_k1_source_on_cpu_branched(k1, family, n_list):
@@ -143,17 +176,22 @@ def test_k1_source_on_cpu_branched(k1, family, n_list):
 
 
 def test_k1_refuses_state_beyond_shared_memory(k1):
-    """A span whose list state cannot fit one block's shared memory is
-    refused by the wrapper's check and by the kernel's launch."""
+    """A branched span whose list state cannot fit one block's shared
+    memory is refused by the wrapper's check and by the kernel's launch; a
+    one-leaf schedule of that span reads device memory instead."""
     lib, fn = k1
-    sched = kbl.build_schedule(_leaf(NodeKind.RATE1, 8192, []), 8, 8)
+    node = build_tree(8192, range(4096))
+    assert node.kind == NodeKind.BRANCH
+    sched = kbl.build_schedule(node, 8, 8)
     with pytest.raises(NotImplementedError, match="232448"):
         kbl.check_smem(lib, sched, kbl.family(torch.float32))
-    assert lib.scl_subtree_smem(8, 512, 0) <= 20480  # the default span fits ~10 a SM
+    assert lib.scl_subtree_smem(8, 512, 0, 3) <= 20480  # the default span fits ~10 a SM
+    leaf = kbl.build_schedule(_leaf(NodeKind.RATE1, 8192, []), 8, 8)
+    assert kbl.check_smem(lib, leaf, kbl.family(torch.float32)) < 48 * 1024
     ops, masks, spc = sched.device_consts(torch.device("cpu"))
     llr = torch.zeros((8, 8192, 1))
     met = torch.zeros((1, 8))
     out = torch.empty(8192, dtype=torch.int32)
-    assert fn(ops.data_ptr(), 1, masks.data_ptr(), spc.data_ptr(), llr.data_ptr(),
+    assert fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(), llr.data_ptr(),
               met.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 8, 8, 8,
               8192, 1, 0, 0, None) == -2

@@ -29,8 +29,9 @@ from polar_codes_torch.construction import frozen_bits  # noqa: E402
 from polar_codes_torch.models import detectors as tdet  # noqa: E402
 from polar_codes_torch.models import large  # noqa: E402
 from polar_codes_torch.models.encoder import PolarEncoder  # noqa: E402
+from polar_codes_torch.models.tree import NodeKind  # noqa: E402
 from polar_codes_torch.ops import large_kernel as lk  # noqa: E402
-from polar_codes_torch.utils.carry import from_jax_state  # noqa: E402
+from polar_codes_torch.utils.carry import from_jax_state, leaf_table  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NEG = -1.0e30
@@ -217,6 +218,41 @@ def test_large_scl_decode_matches_jax(carry, interpret):
     assert not ((got[0].numpy() != sent).any(1) & ok).any()
 
 
+@pytest.mark.parametrize("n_len,chunk,list_size", [(512, 64, 4), (1024, 128, 8)])
+def test_large_scl_tree_matches_jax(n_len, chunk, list_size):
+    """schedule="tree" against the JAX package's tree schedule at JAX's own
+    case (512, chunk 64, L = 4) and at (1024, chunk 128, L = 8), sub-block
+    16, CRC16, at a noise level where some blocks fail the CRC and some
+    pass on a path other than the best-metric one: the active paths'
+    codewords, flags and info bits equal, metrics within 1e-4. The JAX
+    reference runs its static-mask chunk recursion (backend "xla"), which
+    tests/test_large.py holds bit-equal to its Pallas chunk kernel on the
+    tree schedule; it is the faster of the two in interpret mode."""
+    det = tdet.CRC16()
+    frozen, sent, llr = _channel(n_len, n_len // 2, det, 1.25, 24, n_len + list_size)
+    kw = dict(list_size=list_size, detector=det, chunk=chunk)
+    jdec = jlarge.LargeSCLDecoder(n_len, frozen, backend="xla", schedule="tree",
+                                  **dict(kw, detector=jdet.CRC16()))
+    dec = large.LargeSCLDecoder(n_len, frozen, schedule="tree", device="cpu", **kw)
+    walked = {leaf.kind for leaf in dec.sched_tree.leaves() if leaf.length >= chunk}
+    assert NodeKind.RATE0 in walked and len(walked) >= 2  # rate-0 and a forking leaf
+    paths = dec.decode_paths(torch.as_tensor(llr))
+    jpaths = [np.asarray(a) for a in jdec.decode_paths(jnp.asarray(llr))]
+    active = jpaths[2]
+    np.testing.assert_array_equal(paths[2].numpy(), active)
+    np.testing.assert_array_equal(paths[0].numpy()[active], jpaths[0][active])
+    np.testing.assert_allclose(paths[1].numpy(), jpaths[1], **TOL)
+    jdec.decode_paths = lambda _: tuple(jnp.asarray(a) for a in jpaths)
+    got = dec.decode(torch.as_tensor(llr))
+    for a, b in zip(got, jdec.decode(jnp.asarray(llr))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ok = got[2].numpy()
+    assert (~ok).any() and ok.any()
+    assert not ((got[0].numpy() != sent).any(1) & ok).any()
+    best = paths[0].numpy()[np.arange(len(ok)), paths[1].numpy().argmax(1)]
+    assert (ok & (best != got[1].numpy()).any(1)).any()
+
+
 def test_one_chunk_and_noiseless_round_trip():
     """N equal to the chunk (no outer stages), and encode -> noiseless BPSK
     -> decode returning the info bits for every class of chunk."""
@@ -248,7 +284,7 @@ def test_one_chunk_and_noiseless_round_trip():
 
 # ---- carry and dispatch ------------------------------------------------------
 
-@pytest.mark.parametrize("family", ["large_sc", "large_scl"])
+@pytest.mark.parametrize("family", ["large_sc", "large_scl", "large_scl_tree"])
 def test_carry_large_families(family):
     n_len = 1024
     frozen = frozen_bits(n_len, 512, 0.0, "BB")
@@ -257,11 +293,17 @@ def test_carry_large_families(family):
         jdec = jlarge.LargeSCDecoder(n_len, frozen, detector=det, chunk=128,
                                      backend="xla")
         extra = dict(chunk=128, fast_chunks=True)
-    else:
+    elif family == "large_scl":
         jdec = jlarge.LargeSCLDecoder(n_len, frozen, list_size=8, detector=det,
                                       chunk=64, backend="xla", carry_dtype=jnp.bfloat16)
         extra = dict(chunk=64, fast_chunks=True, subblock=16, carry_dtype="bfloat16",
                      list_size=8, sub_classes=jdec._sub_classes)
+    else:  # the tree schedule: its leaves are those of the JAX tree schedule's tree
+        jdec = jlarge.LargeSCLDecoder(n_len, frozen, list_size=8, detector=det,
+                                      chunk=64, backend="xla", schedule="tree")
+        family = "large_scl"
+        extra = dict(chunk=64, fast_chunks=True, subblock=16, list_size=8,
+                     schedule="tree", leaves=leaf_table(jlarge.build_tree(n_len, jdec.frozen)))
     G, g0 = det.affine_map(jdec.info_length - det.tail_bits)
     state = dict(family=family, frozen=jdec.frozen, info_pos=jdec.info_pos,
                  systematic=True, detector="crc16", affine_G=np.asarray(G),
@@ -270,7 +312,11 @@ def test_carry_large_families(family):
     enc, dec = from_jax_state(state, device="cpu")
     assert type(dec) is (large.LargeSCDecoder if family == "large_sc"
                          else large.LargeSCLDecoder)
-    if family == "large_scl":
+    if "leaves" in extra:
+        assert dec.schedule == "tree"
+        with pytest.raises(ValueError, match="leaves"):
+            from_jax_state(dict(state, leaves=extra["leaves"][1:]), device="cpu")
+    elif family == "large_scl":
         assert dec.carry_dtype == torch.bfloat16 and dec.subblock == 16
     tampered = state["mask_chunks"].copy()
     tampered[3, 5] = ~tampered[3, 5]
@@ -308,12 +354,15 @@ def test_chunk_kernels_never_fall_back(monkeypatch):
 
 
 def test_unported_arms_raise():
-    """schedule="tree" is the one arm left to port; with int8 it raises
+    """schedule="tree" with int8 or with fast_chunks=False raises
     ValueError, as in the JAX package, which qualifies int8 on the scan
-    schedule only."""
+    schedule only and whose tree leaves are the SSCL fast-leaf rules."""
     frozen = frozen_bits(1024, 512, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        large.LargeSCLDecoder(1024, frozen, schedule="tree", device="cpu")
+    with pytest.raises(ValueError, match="fast_chunks=False"):
+        large.LargeSCLDecoder(1024, frozen, schedule="tree", fast_chunks=False,
+                              device="cpu")
+    with pytest.raises(ValueError, match="fast_chunks=False"):
+        jlarge.LargeSCLDecoder(1024, frozen, schedule="tree", fast_chunks=False)
     with pytest.raises(ValueError, match="int8"):
         large.LargeSCLDecoder(1024, frozen, schedule="tree", dtype=torch.int8,
                               device="cpu")

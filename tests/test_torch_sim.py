@@ -10,9 +10,9 @@
 - Checkpoint/resume: a resumed job equals an uninterrupted one, and a
   checkpoint file reads in both packages.
 - The CLI's job list (N, K, dSNR, C, L, Eb/N0, BPS, Runs, Amplification of
-  every CSV row) equal to the JAX CLI's for every simtype but depthfirst,
-  whose decoder is not ported (compareall skips it). The JAX run stubs its
-  per-chunk step (the rows do not depend on it); the port's runs for real.
+  every CSV row) equal to the JAX CLI's for every simtype. The JAX run
+  stubs its per-chunk step (the rows do not depend on it); the port's runs
+  for real. A small depthfirst job writes the JAX writer's columns.
 - One statistical check: `-l 1 -p 32` at (128, 64), 4096 blocks at 1 dB in
   each package, BLERs within 5 binomial sigma.
 - ASK with N not a multiple of --bps fails in both packages.
@@ -246,7 +246,7 @@ def _rows(path):
 
 
 SIMTYPES = ["single", "codelength", "designsnr", "listlength", "rate", "amplification",
-            "fixed", "scan", "fastsscan", "ask", "compareall"]
+            "fixed", "depthfirst", "scan", "fastsscan", "ask", "compareall"]
 
 
 @pytest.mark.parametrize("simtype", SIMTYPES)
@@ -256,8 +256,6 @@ def test_cli_job_list_equals_jax(simtype, tmp_path, monkeypatch):
     assert tcli.main([simtype, *TINY, "-o", str(tmp_path / "t")]) == 0
     name = f"{simtype}.csv"
     got, want = _rows(tmp_path / f"t_{name}"), _rows(tmp_path / f"j_{name}")
-    if simtype == "compareall":  # the JAX package's last rows (2 SNR points) are depthfirst's
-        want = want[:-2]
     assert got == want and len(got) >= 2
 
 
@@ -270,9 +268,20 @@ def test_cli_getcode_equals_jax(capsys):
         assert capsys.readouterr().out == want
 
 
-def test_depthfirst_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="depth-first"):
-        tcli.main(["depthfirst", *TINY, "-o", str(tmp_path / "t")])
+def test_depthfirst_cli_writes_jax_columns(tmp_path):
+    """pcsim-torch depthfirst: SC-Flip with -l trials, CRC8, 2 x 64 blocks
+    at 2 dB; the CSV has the JAX writer's header and 23 columns, and the
+    counters add up."""
+    args = ["depthfirst", "-n", "64", "-r", "0.5", "-e", "crc8", "-l", "4", "-p", "32",
+            "-w", str(128 * 64), "--batch", "64", "--snr-count", "1", "--snr-max", "2",
+            "--platform", "cpu"]
+    assert tcli.main(args + ["-o", str(tmp_path / "t")]) == 0
+    lines = open(tmp_path / "t_depthfirst.csv").read().splitlines()
+    assert lines[0] == jmc.CSV_HEADER
+    assert {len(line.split(",")) for line in lines} == {23}
+    (row,) = csv.DictReader(lines)
+    assert int(row["Runs"]) == 128 and int(row["Errors"]) <= 128
+    assert float(row["RER"]) <= float(row["BLER"]) < 1.0
 
 
 def test_ask_with_padding_fails_in_both(tmp_path):

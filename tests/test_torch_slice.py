@@ -19,8 +19,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from polar_codes_tpu.models import detectors as jdet  # noqa: E402
 from polar_codes_tpu.models.adaptive import AdaptiveDecoder as JaxAdaptive  # noqa: E402
+from polar_codes_tpu.models.depthfirst import DepthFirstDecoder as JaxDepthFirst  # noqa: E402
 from polar_codes_tpu.models.encoder import PolarEncoder as JaxEncoder  # noqa: E402
+from polar_codes_tpu.models.errorlocator import ErrorLocator as JaxErrorLocator  # noqa: E402
 from polar_codes_tpu.models.fastssc import FastSSCDecoder as JaxFastSSC  # noqa: E402
+from polar_codes_tpu.models.puncturer import Puncturer as JaxPuncturer  # noqa: E402
 from polar_codes_tpu.models.scan import FastSScanDecoder as JaxFastSScan  # noqa: E402
 from polar_codes_tpu.models.scan import ScanDecoder as JaxScan  # noqa: E402
 from polar_codes_tpu.models.scl import SCLDecoder as JaxSCLDecoder  # noqa: E402
@@ -29,7 +32,9 @@ from polar_codes_torch.construction import frozen_bits  # noqa: E402
 from polar_codes_torch.dsp import bpsk_modulate  # noqa: E402
 from polar_codes_torch.models import detectors as tdet  # noqa: E402
 from polar_codes_torch.models.adaptive import AdaptiveDecoder  # noqa: E402
+from polar_codes_torch.models.depthfirst import DepthFirstDecoder  # noqa: E402
 from polar_codes_torch.models.encoder import PolarEncoder  # noqa: E402
+from polar_codes_torch.models.errorlocator import ErrorLocator  # noqa: E402
 from polar_codes_torch.models.fastssc import FastSSCDecoder  # noqa: E402
 from polar_codes_torch.models.large import LargeSCDecoder, LargeSCLDecoder  # noqa: E402
 from polar_codes_torch.models.scan import FastSScanDecoder, ScanDecoder  # noqa: E402
@@ -163,31 +168,53 @@ def _jax_family_state(family, frozen):
         extra = {"fast_dtype": "int8", "list_size": jdec.list_size,
                  "list_schedule": list(jdec.list_schedule)}
         jdec.frozen, jdec.info_pos = jdec.fast.frozen, jdec.fast.info_pos
+    elif family == "depthfirst":
+        jdec = JaxDepthFirst(128, frozen, detector=det, trial_limit=5)
+        tree, extra = jdec.tree, {"trial_limit": jdec.trial_limit}
+    elif family == "errorlocator":
+        jdec = JaxErrorLocator(128, frozen)
+        jdec.info_pos = np.setdiff1d(np.arange(128), jdec.frozen)
+        jdec.info_length = jdec.info_pos.size
+        jpunct = JaxPuncturer(120, frozen)
+        tree, extra = None, {"punctured_length": jpunct.block_length,
+                             "output_positions": jpunct.output_positions}
     else:
         cls = JaxScan if family == "scan" else JaxFastSScan
         jdec = cls(128, frozen, detector=det, iterations=3)
         tree, extra = jdec.tree, {"iterations": jdec.iterations}
     G, g0 = det.affine_map(jdec.info_length - det.tail_bits)
+    if tree is not None:
+        extra["leaves"] = leaf_table(tree)
     return dict(family=family, frozen=np.asarray(jdec.frozen),
                 info_pos=np.asarray(jdec.info_pos), systematic=True,
-                detector=det.name, affine_G=G, affine_g0=g0,
-                leaves=leaf_table(tree), **extra)
+                detector=det.name, affine_G=G, affine_g0=g0, **extra)
 
 
 @pytest.mark.parametrize("family,cls", [
     ("fastssc", FastSSCDecoder), ("adaptive", AdaptiveDecoder),
-    ("scan", ScanDecoder), ("fastsscan", FastSScanDecoder)])
+    ("scan", ScanDecoder), ("fastsscan", FastSScanDecoder),
+    ("depthfirst", DepthFirstDecoder), ("errorlocator", ErrorLocator)])
 def test_carry_each_family(family, cls):
     frozen = frozen_bits(128, 64, 0.0)
     state = _jax_family_state(family, frozen)
     enc, dec = from_jax_state(state, device="cpu")
-    assert type(dec) is cls and dec.detector.name == "crc32"
-    np.testing.assert_array_equal(leaf_table(dec.tree), state["leaves"])
+    assert type(dec) is cls and enc.detector.name == "crc32"
+    if family == "errorlocator":  # the puncturer's positions, checked beside it
+        bad = state["output_positions"].copy()
+        bad[0] = 127
+        with pytest.raises(ValueError, match="output_positions"):
+            from_jax_state(dict(state, output_positions=bad), device="cpu")
+    else:
+        assert dec.detector.name == "crc32"
+        np.testing.assert_array_equal(leaf_table(dec.tree), state["leaves"])
     if family == "adaptive":
         assert dec.list_schedule == (2, 8) and dec.fast.dtype == torch.int8
+    if family == "depthfirst":
+        assert dec.trial_limit == 5
     if family in ("scan", "fastsscan"):
         assert dec.iterations == 3
-        # the Fast-SSC tree's leaves are not the SCAN tree's
+    if family in ("scan", "fastsscan", "depthfirst"):
+        # the Fast-SSC tree's leaves are not the SCAN or RATE0-only tree's
         fast = _jax_family_state("fastssc", frozen)["leaves"]
         with pytest.raises(ValueError, match="leaves"):
             from_jax_state(dict(state, leaves=fast), device="cpu")
@@ -205,8 +232,11 @@ def test_carry_each_family(family, cls):
     lambda f: FastSScanDecoder(64, f),
     lambda f: LargeSCDecoder(64, f, chunk=16),
     lambda f: LargeSCLDecoder(64, f, chunk=16),
+    lambda f: LargeSCLDecoder(64, f, chunk=16, schedule="tree"),
+    lambda f: DepthFirstDecoder(64, f),
+    lambda f: ErrorLocator(64, f),
 ], ids=["encoder", "scl", "scl1", "fastssc", "adaptive", "scan", "fastsscan",
-        "large_sc", "large_scl"])
+        "large_sc", "large_scl", "large_scl_tree", "depthfirst", "errorlocator"])
 def test_entry_points_default_to_the_card(make):
     """Without device=, every entry point lives on the card; with no card
     it raises and never drops to the CPU quietly."""
@@ -258,6 +288,9 @@ def test_port_imports_without_jax():
         "import polar_codes_torch.ops.butterfly_kernel, polar_codes_torch.utils.device\n"
         "import polar_codes_torch.dsp, polar_codes_torch.utils.carry\n"
         "import polar_codes_torch.utils.timing, polar_codes_torch.ops._build\n"
+        "import polar_codes_torch.models.depthfirst, polar_codes_torch.models.puncturer\n"
+        "import polar_codes_torch.models.errorlocator, polar_codes_torch.tools\n"
+        "import polar_codes_torch.sim.errorlocator_app, polar_codes_torch.sim.cli\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'polar_codes_tpu'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
