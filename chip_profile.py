@@ -53,9 +53,21 @@ at B = 181 and 2048 and K2 at B = 1024, each a call alone, within a
 burst and its device time under the profiler; then K3's cycles per op
 kind from a build of csrc/fastssc_subtree.cu with clock64 probes
 (-DK3_PROFILE), where the source has them.
+Last, `lists`: the (1024, 512) CRC16 CA-SCL decode at L in LISTS (float32,
+2 dB; B = 2048 up to L = 32, 1024 above), each profiled, with its K1 calls
+timed alone (CUDA events) per decode; then K3's root call of the (1024,
+512) code at B = 2048 in each family, alone and within a burst; a list
+size or family the tree refuses is printed as refused, so a copy of this
+script times an older tree too.
+Last, `k1_ab SRC.cu ...`: K1 built from each named source file (the same
+C interface: an older tree's `csrc/scl_subtree.cu`, or a variant) and
+timed in one process on the same calls, in rounds that alternate the
+order: the two calls of a float32 CA-SCL-8 decode at B = 2048 and 181 and
+the eight of a CA-SCL-32 decode at B = 2048, each call within a burst of
+BURST; with each build's registers and spills for L = 8 and 32.
 
     python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops] [tree]
-                            [depthfirst]
+                            [depthfirst] [lists] [k1_ab SRC.cu ...]
 
 runs the named parts (all without arguments).
 
@@ -142,8 +154,9 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    parts = set(sys.argv[1:]) or {"paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops",
-                                  "tree", "depthfirst"}
+    sources = [a for a in sys.argv[1:] if a.endswith(".cu")]
+    parts = {a for a in sys.argv[1:] if not a.endswith(".cu")} or {
+        "paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops", "tree", "depthfirst", "lists"}
     _build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -184,6 +197,10 @@ def main():
         tree_path(card, torch, dev, gen)
     if "depthfirst" in parts:
         depthfirst_path(card, torch, dev, gen, frozen)
+    if "lists" in parts:
+        list_sizes(card, torch, dev, frozen, llr / AMPL)
+    if "k1_ab" in parts:
+        k1_ab(card, torch, dev, frozen, llr / AMPL, sources)
 
 
 def kernel_launches():
@@ -225,6 +242,121 @@ def scl_paths(card, torch, dev, gen, frozen, quant, llr):
                           "k1_dtypes": [str(c[1].dtype) for c in calls],
                           "glue_ms": packed_ms - sum(k1), "tail_ms": total_ms - packed_ms,
                           "launches_per_decode": launches, "card": card}), flush=True)
+
+
+LISTS = (8, 3, 12, 32, 64)
+
+
+def list_sizes(card, torch, dev, frozen, llr):
+    """The float32 CRC16 CA-SCL decode at each L in LISTS: profiled (host
+    wall, device busy per decode), then its K1 calls timed alone."""
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.models.tree import build_tree
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    for n_list in LISTS:
+        x = llr if n_list <= 32 else llr[: BATCH // 2]
+        try:
+            dec = SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), device=dev)
+            dec.decode(x)
+        except NotImplementedError as err:
+            print(json.dumps({"path": f"scl{n_list}", "refused": str(err), "card": card}))
+            continue
+        profile(f"scl{n_list}", lambda: dec.decode(x), CALLS, card, torch, batch=x.shape[0])
+        calls = []
+        dec.subtree_fn = lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+        dec.decode_packed(x)
+        dec.subtree_fn = scl_kernel_bl.scl_subtree
+        k1 = [time_cuda(lambda c=c: scl_kernel_bl.scl_subtree(*c), reps=CALLS) for c in calls]
+        print(json.dumps({"path": f"scl{n_list}", "batch": x.shape[0],
+                          "decode_ms": time_cuda(lambda: dec.decode(x), reps=CALLS),
+                          "k1_ms_per_decode": sum(k1), "k1_calls_ms": k1,
+                          "spans": [c[0].span for c in calls], "card": card}), flush=True)
+    root = fk.build_schedule(build_tree(N_LEN, frozen))
+    for dtype in (torch.float32, torch.int8, torch.bfloat16):
+        x = (llr * AMPL).clamp(-127, 127).round().T.contiguous().to(dtype)
+        fn = lambda: fk.fastssc_subtree(root, x, True)  # noqa: E731
+        try:
+            fn()
+        except ValueError as err:
+            print(json.dumps({"kernel": f"fastssc_subtree[{dtype}]", "refused": str(err)}))
+            continue
+        print(json.dumps({"kernel": f"fastssc_subtree[{dtype}]", "batch": BATCH,
+                          "ms": time_cuda(fn, reps=CALLS),
+                          "burst_ms": time_cuda(lambda: [fn() for _ in range(BURST)],
+                                                reps=CALLS) / BURST, "card": card}), flush=True)
+
+
+def k1_ab(card, torch, dev, frozen, llr, sources, rounds=4):
+    """K1 from each source in `sources`, timed on the same calls in rounds
+    of alternating order; every build's outputs equal the first's."""
+    import ctypes
+    import hashlib
+    import re
+    from pathlib import Path
+
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import _build, scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    nvcc = _build.nvcc_path()
+    flags = (*_build.NVCC_FLAGS, "-Xptxas", "-v")
+    builds = []
+    for src in sources:
+        path = Path(src).resolve()
+        key = hashlib.sha256(path.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
+        out = _build.BUILD / f"libscl_subtree_ab-{key}.so"
+        proc = subprocess.Popen([nvcc, *flags, "-o", str(out), str(path)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds.append((src, out, proc))
+    libs = []
+    for src, out, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {src}:\n{log}")
+        report = {}
+        for entry in log.split("Compiling entry function")[1:]:
+            kind = re.search(r"scl_subtree_kernelILi(\d+)ENS_\d+(\w+?)FamilyE", entry)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", entry)
+            if kind and kind.group(1) in ("8", "32") and regs and spill:
+                report[f"L{kind.group(1)} {kind.group(2)}"] = (int(regs.group(1)),
+                                                            int(spill.group(1)),
+                                                            int(spill.group(2)))
+        print(json.dumps({"k1_ab_source": src, "ptxas": report}), flush=True)
+        libs.append(ctypes.CDLL(str(out)))
+
+    def calls_of(n_list, n_batch):
+        calls = []
+        dec = SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), device=dev,
+                         subtree_fn=lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a))
+        dec.decode_packed(llr[:n_batch])
+        return calls
+
+    sets = {"L8_b2048": calls_of(8, BATCH), "L8_b181": calls_of(8, 181),
+            "L32_b2048": calls_of(32, BATCH)}
+    for name, calls in sets.items():
+        want = [scl_kernel_bl.launch(libs[0], *c) for c in calls]
+        for lib, (src, _, _) in zip(libs[1:], builds[1:]):
+            for c, w in zip(calls, want):
+                got = scl_kernel_bl.launch(lib, *c)
+                if not all(torch.equal(a, b) for a, b in zip(got, w)):
+                    raise SystemExit(f"k1_ab: {src} differs from {sources[0]} on {name}")
+    times = {src: {name: [] for name in sets} for src in sources}
+    for rnd in range(rounds):
+        order = list(zip(sources, libs))
+        for src, lib in (order if rnd % 2 == 0 else order[::-1]):
+            for name, calls in sets.items():
+                ms = time_cuda(lambda: [scl_kernel_bl.launch(lib, *c)
+                                        for _ in range(BURST) for c in calls], reps=CALLS)
+                times[src][name].append(ms / BURST)
+    for src in sources:
+        print(json.dumps({"k1_ab": src, "ms_per_decode_in_burst": times[src],
+                          "card": card}), flush=True)
 
 
 def large_paths(card, torch, dev, gen):

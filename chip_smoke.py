@@ -171,8 +171,35 @@ only), ErrorLocator and its app, the Puncturer:
      3`, 4 chunks of 1024 a point: its 7-column CSV, K2 once a chunk, ms
      per chunk; a Puncturer (M = 1000 of N = 1024) round trip on the card
      equal to the CPU's
- 36. {"kernels": [...]}, every family of all seven TPU kernels
- 37. {"ok": true, "device": {...}}
+
+Slice 11, every list size and the bf16 Fast-SSC family: K1 at any L (a
+list size below a power of two in that capacity's instantiation; above 32
+paths W = L / 32 packed words), SCLDecoder at L = 64 and 128, the
+simulator's `listlength`, AdaptiveDecoder(list_schedule=(3, 12)); K3's bf16
+family under FastSSCDecoder(dtype=bfloat16) and
+AdaptiveDecoder(fast_dtype=bfloat16):
+ 36. K1 against its plain version at L = 3, 5, 12, 24, 64, 128, B in (1,
+     181, 2048), every family: every subtree call of an N = 1024 CA-SCL
+     decode on integer LLRs in [-2, 2], and one-leaf schedules of every
+     kind with rows of one live path; bits, perms and metrics equal; K1's
+     calls at L = 3 and 12 timed at B = 2048
+ 37. (1024, 512) CA-SCL-64 CRC16 at B = 1024, 1.5 dB, in float32, int8 and
+     bf16, and CA-SCL-128 at B = 256: decisions and packed words equal to
+     the plain route, metrics within 1e-4, every CRC failure a wrong
+     block, CA-SCL-64 no more wrong blocks than CA-SCL-8 plus 2; decode ms,
+     K1 ms and launches per decode
+ 38. `sim.cli listlength -n 1024 --l-min 16 --l-max 64`, one point of 1024
+     blocks a list size: 3 rows, K1 launched at L = 64;
+     AdaptiveDecoder(list_schedule=(3, 12)) at B = 2048 equal to its plain
+     route, K1 launched at L = 3 and 12
+ 39. K3 bf16 against its plain version at N = 2 .. 2048, B in (1, 3, 181,
+     2048), Gaussian, integer (zeros of either sign) and order-sensitive
+     LLRs, both output forms, bit-equal; FastSSCDecoder(bf16) at (1024,
+     512), B = 2048 and (2048, 1024), AdaptiveDecoder(fast_dtype=bf16) at
+     B = 2048, each equal to its plain route; K3 bf16 timed
+ 40. {"kernels": [...]}, every family of all seven TPU kernels, and K1 at
+     L = 3, 12, 64 (every family) and 128
+ 41. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -193,8 +220,11 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"# {name}", flush=True)
+    print(f"# {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def main():
@@ -409,6 +439,14 @@ def main():
     s10 = run_slice10(card)
 
     # 36 ------------------------------------------------------------------
+    phase("36 K1 at L in (3, 5, 12, 24, 64, 128), B in (1, 181, 2048), every family, on "
+          "ties and rows of one live path")
+    k1_lists = run_k1_lists(card)
+
+    # 37-39 ---------------------------------------------------------------
+    s11 = run_slice11(card)
+
+    # 40 ------------------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -471,8 +509,17 @@ def main():
          "max_abs_err": max(k1_err, k1_shapes_err["float32"], k1_long_err["float32"]),
          "ms": k1_ms,
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
-    ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"]})
-    # 37 ------------------------------------------------------------------
+    ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"] + s11["entries"] + [
+        {"name": f"scl_subtree[float32,L={n_list}]", "route": "cuda",
+         "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_NEW_DESIGN,
+         "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
+         "launches": s11["ad_counts"]["scl_subtree_by_list"][n_list],
+         "launches_by_path": {"adaptive_l3_l12": s11["ad_counts"]["scl_subtree_by_list"][n_list]},
+         "max_abs_err": k1_lists["err"]["float32"], "ms": k1_lists["timed"][n_list][0],
+         "plain_ms": k1_lists["timed"][n_list][1], **bound(*k1_lists["timed"][n_list][2:]),
+         "library_ms": None}
+        for n_list in (3, 12)] + [s11["k3"]]})
+    # 41 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -500,11 +547,15 @@ def bound(n_bytes, n_ops):
 def k1_work(sched, n_batch, llr_bytes=4):
     """(bytes, operations) of one K1 call: llr [w_in, span, B] (llr_bytes
     each: 4 for float32, 2 for the int16 char and bf16 states) and metrics
-    [B, w_in] f32 in; bits [span, B] i32, perm and metrics [B, w_out] out.
-    Operations: w x h per F/G/COMBINE at the list width of that point of
-    the schedule, w x span x candidates per leaf."""
+    [B, w_in] f32 in; bits [W, span, B] i32 (W = ceil(L / 32) words), perm
+    and metrics [B, w_out] out. Operations: w x h per F/G/COMBINE at the
+    list width of that point of the schedule, w x span x candidates per
+    leaf."""
+    from polar_codes_torch.ops.scl_kernel_bl import n_words
+
+    words = n_words(sched.list_size)
     n_bytes = n_batch * (llr_bytes * sched.w_in * sched.span
-                         + 4 * (sched.w_in + sched.span + 2 * sched.w_out))
+                         + 4 * (sched.w_in + words * sched.span + 2 * sched.w_out))
     n_ops, w = 0, sched.w_in
     for op, _, length, _, _, _, ncand, _ in sched.ops.tolist():
         if op == 3:  # LEAF
@@ -2559,6 +2610,372 @@ def run_slice10(card):
         shutil.rmtree(tmp, ignore_errors=True)
     print("ErrorLocator and Puncturer on the card == on the CPU")
     return out
+
+
+# ---- slice 11: every list size, K3 bf16 -----------------------------------
+
+SEED11 = 20261025
+K1_NEW_LISTS = (3, 5, 12, 24, 64, 128)
+K1_NEW_DESIGN = ("the capacity's instantiation at any list size below it; above 32 paths "
+                 "W packed words, a lane per path, the prune in passes")
+B11, B11_L128, EBN0_11 = 1024, 256, 1.5  # the CA-SCL-64 paths' batch; L = 128's; Eb/N0
+LL_LISTS = (16, 64)  # sim.cli listlength --l-min, --l-max
+
+
+def _fams():
+    import torch
+
+    # the decoder's dtype -> the LLR state K1 sees
+    return {torch.float32: torch.float32, torch.int8: torch.int16,
+            torch.bfloat16: torch.bfloat16}
+
+
+def run_k1_lists(card):
+    """Phase 36. K1 against its plain version at L in K1_NEW_LISTS (odd
+    sizes in a power-of-two instantiation; 64 and 128 with two and four
+    packed words), B in K1_BATCHES, every family: every subtree call of
+    an N = 1024 CA-SCL decode on integer LLRs in [-2, 2] (ties, signed
+    zeros), and at B = 181 one-leaf schedules of every kind entered at
+    w_in = L with every other row holding one live path; bits, perms and
+    metrics equal. Then K1's calls of the float32 decodes at L = 3 and 12
+    timed at B = 2048, beside their plain versions. Returns {"err": the
+    largest difference per family (0), "calls": number held, "timed": {L:
+    (ms, plain ms, bytes, operations) per decode}}."""
+    import numpy as np
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.models.tree import CodeNode, NodeKind
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.ops.large_kernel import _sub_leaf
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED11)
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    err = {"float32": 0.0, "char": 0.0, "bfloat16": 0.0}
+    checked = 0
+
+    def hold(where, sched, x, m, want):
+        nonlocal checked
+        got = kbl.scl_subtree(sched, x, m)
+        _equal(where + " bits", got[0], want[0])
+        _equal(where + " perm", got[1], want[1])
+        if not torch.isfinite(got[2]).all():
+            raise AssertionError(where + ": metrics not finite")
+        fam = kbl.family(x.dtype).name
+        err[fam] = max(err[fam], _equal(where + " metrics", got[2], want[2]))
+        checked += 1
+
+    def ints(shape, dtype):
+        return torch.randint(-2, 3, shape, generator=gen, device=dev).to(dtype)
+
+    timed = {}
+    for n_list in K1_NEW_LISTS:
+        for dtype, state in _fams().items():
+            for n_batch in K1_BATCHES:
+                calls = []
+
+                def record(sched, x, m):
+                    out = kbl.scl_subtree_plain(sched, x, m)
+                    calls.append((sched, x, m, out))
+                    return out
+
+                SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), dtype=dtype,
+                           device=dev, subtree_fn=record).decode_packed(
+                    ints((n_batch, N_LEN), dtype))
+                for sched, x, m, want in calls:
+                    hold(f"K1 {kbl.family(x.dtype).name} L={n_list} B={n_batch} span "
+                         f"{sched.span} at {sched.node.offset}, w {sched.w_in}", sched, x, m,
+                         want)
+                if n_batch == B2 and dtype == torch.float32 and n_list in (3, 12):
+                    timed[n_list] = _time_k1(calls, n_batch)
+                if n_batch != 181:
+                    continue
+                leaves = [_sub_leaf(k, 128) for k in
+                          (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)]
+                leaves += [CodeNode(0, 8, np.array([0, 1, 2, 4, 5]), NodeKind.ENUM),
+                           CodeNode(0, 1, np.zeros(0, np.int64), NodeKind.RATE1)]
+                for node in leaves:
+                    one = kbl.build_schedule(node, n_list, n_list)
+                    m1 = torch.randint(-3, 1, (n_batch, n_list), generator=gen,
+                                       device=dev).to(torch.float32)
+                    m1[::2, 1:] = NEG  # every other row: one live path
+                    x1 = ints((n_list, node.length, n_batch), state)
+                    hold(f"K1 L={n_list} one leaf {node.kind.value} span {node.length}", one,
+                         x1, m1, kbl.scl_subtree_plain(one, x1, m1))
+    torch.cuda.synchronize()
+    emit({"k1_lists_checked_calls": checked, "lists": K1_NEW_LISTS, "max_abs_err": err,
+          "timed_b2048": {str(k): v[:2] for k, v in timed.items()}, "card": card})
+    print(f"K1: {checked} calls equal to the plain version at L in {K1_NEW_LISTS}, "
+          f"B in {K1_BATCHES}, every family")
+    return {"err": err, "calls": checked, "timed": timed}
+
+
+def _time_k1(calls, n_batch):
+    """(kernel ms, plain ms, bytes, operations) of a decode's K1 calls
+    [(sched, x, m, ...)], each timed alone (CUDA events, median)."""
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    ms = plain = n_bytes = n_ops = 0
+    for sched, x, m, *_ in calls:
+        ms += time_cuda(lambda: kbl.scl_subtree(sched, x, m), reps=REPS)
+        plain += time_cuda(lambda: kbl.scl_subtree_plain(sched, x, m), warmup=1, reps=3)
+        nb, no = k1_work(sched, n_batch, x.element_size())
+        n_bytes += nb
+        n_ops += no
+    return ms, plain, n_bytes, n_ops
+
+
+def run_slice11(card):
+    """Phases 37-39. Returns {"entries": the new kernels-line entries}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.adaptive import AdaptiveDecoder
+    from polar_codes_torch.models.detectors import CRC16, CRC32
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.fastssc import FastSSCDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.models.tree import build_tree
+    from polar_codes_torch.ops import butterfly_kernel
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED11 + 1)
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    modem = Bpsk()
+    entries = []
+
+    def channel(det, n_blocks, ebn0_db=EBN0_11, n_len=N_LEN, k_len=K_LEN):
+        fz = frozen if n_len == N_LEN else frozen_bits(n_len, k_len, 0.0, "BB")
+        enc = PolarEncoder(n_len, fz, systematic=True, detector=det, device=dev)
+        info = torch.randint(0, 2, (n_blocks, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (ebn0_db / 10.0) * k_len / n_len)
+        llr = modem.demodulate(chan.transmit(modem.modulate(enc.encode(info)), gen))
+        return det.generate(info), llr
+
+    def reset_counts():
+        butterfly_kernel.LAUNCHES = 0
+        kbl.LAUNCHES.update(float32=0, char=0, bfloat16=0)
+        kbl.LIST_LAUNCHES.clear()
+        fk.LAUNCHES.update(float32=0, int8=0, bfloat16=0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"scl_subtree": dict(kbl.LAUNCHES),
+                "scl_subtree_by_list": dict(sorted(kbl.LIST_LAUNCHES.items())),
+                "fastssc_subtree": dict(fk.LAUNCHES)}
+
+    def wrong_and_checked(what, out, sent):
+        wrong = (out[0] != sent).any(1)
+        if (~out[2] & ~wrong).any():
+            raise AssertionError(f"{what}: a block with a failed CRC decoded right")
+        return int(wrong.sum()), int((~out[2]).sum())
+
+    # 37 ------------------------------------------------------------------
+    phase("37 (1024, 512) CA-SCL-64 CRC16 end to end at B = 1024, 1.5 dB, float32, int8 and "
+          "bf16; CA-SCL-128 at B = 256; kernel route == plain route")
+    det = CRC16()
+    sent, llr = channel(det, B11)
+    quant = torch.clamp(torch.round(llr * 10.0), -127, 127).to(torch.int8)
+    dec8 = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=det, device=dev)
+    wrong8, _ = wrong_and_checked("CA-SCL-8", dec8.decode(llr), sent)
+    runs = {}
+    for n_list, dtype, n_batch in ((64, torch.float32, B11), (64, torch.int8, B11),
+                                   (64, torch.bfloat16, B11), (128, torch.float32, B11_L128)):
+        fam = kbl.family(_fams()[dtype]).name
+        name = f"scl_subtree[{fam},L={n_list}]"
+        x = (quant if dtype == torch.int8 else llr)[:n_batch]
+        dec = SCLDecoder(N_LEN, frozen, list_size=n_list, detector=det, dtype=dtype,
+                         device=dev)
+        plain = SCLDecoder(N_LEN, frozen, list_size=n_list, detector=det, dtype=dtype,
+                           device=dev, subtree_fn=kbl.scl_subtree_plain)
+        reset_counts()
+        out = dec.decode(x)
+        launched = counts()
+        if not (launched["scl_subtree_by_list"].get(n_list) and launched["scl_subtree"][fam]):
+            raise AssertionError(f"{name}: K1 never launched at L = {n_list}: {launched}")
+        _same_decisions(name, out, plain.decode(x))
+        word, met = dec.decode_packed(x)
+        pword, pmet = plain.decode_packed(x)
+        _equal(f"{name} packed words", word, pword)
+        if word.shape != (kbl.n_words(n_list), N_LEN, n_batch):
+            raise AssertionError(f"{name}: words of shape {tuple(word.shape)}")
+        torch.testing.assert_close(met, pmet, rtol=TOL, atol=TOL)
+        wrong, failed = wrong_and_checked(name, out, sent[:n_batch])
+        if n_batch == B11 and dtype == torch.float32 and wrong > wrong8 + 2:
+            raise AssertionError(f"CA-SCL-64: {wrong} wrong blocks, CA-SCL-8 {wrong8}")
+        calls = []
+
+        def record(sched, xx, m):
+            calls.append((sched, xx, m))
+            return kbl.scl_subtree(sched, xx, m)
+
+        SCLDecoder(N_LEN, frozen, list_size=n_list, detector=det, dtype=dtype, device=dev,
+                   subtree_fn=record).decode_packed(x)
+        k1 = _time_k1(calls, n_batch)
+        dec_ms = time_cuda(lambda: dec.decode(x), warmup=1, reps=3)
+        runs[name] = {"launches": launched["scl_subtree"][fam], "calls": len(calls),
+                      "err": max_err(met, pmet), "k1": k1}
+        emit({"path": f"ca_scl{n_list}_{dtype}".replace("torch.", ""), "n": N_LEN,
+              "batch": n_batch, "ebn0_db": EBN0_11, "block_errors": wrong,
+              "crc_failures": failed, "scl8_block_errors": wrong8 if n_batch == B11 else None,
+              "decode_ms": dec_ms, "k1_ms_per_decode": k1[0], "k1_plain_ms_per_decode": k1[1],
+              "k1_launches_per_decode": len(calls), "launches": launched,
+              "max_abs_metric_err": runs[name]["err"], "card": card})
+    print("CA-SCL-64 (float32, int8, bf16) and CA-SCL-128: kernel route == plain route")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s11_")
+    try:
+        # 38 --------------------------------------------------------------
+        phase("38 sim.cli listlength -n 1024 --l-min 16 --l-max 64, one point; "
+              "AdaptiveDecoder(list_schedule=(3, 12)) at B = 2048")
+        reset_counts()
+        argv = ["listlength", "-n", str(N_LEN), "-r", "0.5", "--l-min", str(LL_LISTS[0]),
+                "--l-max", str(LL_LISTS[1]), "--snr-count", "1", "--snr-min", str(EBN0_11),
+                "--snr-max", str(EBN0_11), "--batch", str(B11), "-w", str(B11 * N_LEN),
+                "-o", f"{tmp}/ll"]
+        t0 = time.perf_counter()
+        text, rows = _sim(argv)
+        wall = time.perf_counter() - t0
+        ll_counts = counts()
+        lists = [int(r["L"]) for r in rows]
+        if (lists != [16, 32, 64] or any(int(r["Runs"]) != B11 for r in rows)
+                or not ll_counts["scl_subtree_by_list"].get(64)):
+            raise AssertionError(f"listlength: lists {lists}, rows {rows}, {ll_counts}")
+        emit({"path": "pcsim_cli_listlength", "lists": lists,
+              "bler": [float(r["BLER"]) for r in rows], "wall_s": wall,
+              "jobs": _job_shares(text), "launches": ll_counts, "card": card})
+
+        sent32, llr32 = channel(CRC32(), B2)
+        ad = AdaptiveDecoder(N_LEN, frozen, list_schedule=(3, 12), device=dev)
+        ad_plain = AdaptiveDecoder(N_LEN, frozen, list_schedule=(3, 12), device=dev,
+                                   fast_subtree_fn=fk.fastssc_subtree_plain,
+                                   list_subtree_fn=kbl.scl_subtree_plain)
+        reset_counts()
+        out = ad.decode(llr32)
+        ad_counts = counts()
+        rerun = list(ad.rerun_rows)
+        _same_decisions("adaptive (3, 12)", out, ad_plain.decode(llr32))
+        wrong, failed = wrong_and_checked("adaptive (3, 12)", out, sent32)
+        by_list = ad_counts["scl_subtree_by_list"]
+        if not (by_list.get(3) and by_list.get(12)):
+            raise AssertionError(f"adaptive (3, 12): K1 launches {by_list}, reruns {rerun}")
+        ad_ms = time_cuda(lambda: ad.decode(llr32), warmup=1, reps=5)
+        emit({"path": "adaptive_l3_l12", "batch": B2, "ebn0_db": EBN0_11, "rerun_rows": rerun,
+              "block_errors": wrong, "crc_failures": failed, "decode_ms": ad_ms,
+              "launches": ad_counts, "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("listlength and adaptive (3, 12) ran on K1 at L = 3, 12, 16, 32, 64")
+
+    # 39 ------------------------------------------------------------------
+    phase("39 K3 bf16 at N in (2 .. 2048), B in (1, 3, 181, 2048); FastSSCDecoder(bf16) and "
+          "AdaptiveDecoder(fast_dtype=bf16) at B = 2048, kernel route == plain route")
+    k3_err = 0.0
+    k3_checked = 0
+    for n_len in K3_LENGTHS:
+        sched = fk.build_schedule(
+            build_tree(n_len, frozen_bits(n_len, n_len // 2, 0.0, "BB")))
+        for n_batch in K3_BATCHES:
+            gauss = torch.randn((n_len, n_batch), generator=gen, device=dev) * 2.0 + 0.5
+            ints = torch.randint(-2, 3, (n_len, n_batch), generator=gen, device=dev).float()
+            ints = ints * (torch.randint(0, 2, ints.shape, generator=gen, device=dev) * 2 - 1)
+            far = torch.tensor([1e8, -1e8, 1.0, -0.5, 0.25, -3.0], device=dev)
+            order = far[torch.randint(0, 6, (n_len, n_batch), generator=gen, device=dev)]
+            order[:, 0] = torch.tensor([1e8, 1.0, -1e8, -0.5], device=dev).repeat(n_len)[:n_len]
+            for kind, x in (("gauss", gauss), ("ints", ints), ("order", order)):
+                x = x.to(torch.bfloat16)
+                for root in (True, False):
+                    k3_err = max(k3_err, _equal(
+                        f"K3 bf16 N={n_len} B={n_batch} {kind} root={root}",
+                        fk.fastssc_subtree(sched, x, root),
+                        fk.fastssc_subtree_plain(sched, x, root)))
+                    k3_checked += 1
+    print(f"K3 bf16: {k3_checked} calls bit-equal to the plain version")
+
+    sent32, llr32 = channel(CRC32(), B2)
+    fs = FastSSCDecoder(N_LEN, frozen, detector=CRC32(), dtype=torch.bfloat16, device=dev)
+    fs_plain = FastSSCDecoder(N_LEN, frozen, detector=CRC32(), dtype=torch.bfloat16,
+                              device=dev, subtree_fn=fk.fastssc_subtree_plain)
+    reset_counts()
+    out = fs.decode(llr32)
+    fs_counts = counts()
+    if fs_counts["fastssc_subtree"]["bfloat16"] != 1:
+        raise AssertionError(f"FastSSC bf16: K3 launches {fs_counts}")
+    _same_decisions("FastSSC bf16", out, fs_plain.decode(llr32))
+    fs_wrong, fs_failed = wrong_and_checked("FastSSC bf16", out, sent32)
+    sent2k, llr2k = channel(CRC32(), B2 // 4, EBN0_11, 2048, 1024)  # bf16 glue above 1024
+    fs2k = FastSSCDecoder(2048, frozen_bits(2048, 1024, 0.0, "BB"), detector=CRC32(),
+                          dtype=torch.bfloat16, device=dev)
+    fs2k_plain = FastSSCDecoder(2048, frozen_bits(2048, 1024, 0.0, "BB"), detector=CRC32(),
+                                dtype=torch.bfloat16, device=dev,
+                                subtree_fn=fk.fastssc_subtree_plain)
+    _same_decisions("FastSSC bf16 N = 2048", fs2k.decode(llr2k), fs2k_plain.decode(llr2k))
+    ad = AdaptiveDecoder(N_LEN, frozen, fast_dtype=torch.bfloat16, device=dev)
+    ad_plain = AdaptiveDecoder(N_LEN, frozen, fast_dtype=torch.bfloat16, device=dev,
+                               fast_subtree_fn=fk.fastssc_subtree_plain,
+                               list_subtree_fn=kbl.scl_subtree_plain)
+    reset_counts()
+    out = ad.decode(llr32)
+    adb_counts = counts()
+    _same_decisions("adaptive bf16", out, ad_plain.decode(llr32))
+    adb_wrong, adb_failed = wrong_and_checked("adaptive bf16", out, sent32)
+    if not (adb_counts["fastssc_subtree"]["bfloat16"] and adb_counts["scl_subtree"]["float32"]):
+        raise AssertionError(f"adaptive bf16: launches {adb_counts}")
+    x = llr32.T.contiguous().to(torch.bfloat16)
+    root = fs.schedule(fs.tree)  # the (1024, 512) code's one root call
+    k3_ms = time_cuda(lambda: fk.fastssc_subtree(root, x, True), reps=REPS)
+    k3_plain_ms = time_cuda(lambda: fk.fastssc_subtree_plain(root, x, True), warmup=1, reps=3)
+    k3_burst = time_cuda(lambda: [fk.fastssc_subtree(root, x, True) for _ in range(BURST)],
+                         reps=REPS) / BURST
+    fs_ms = time_cuda(lambda: fs.decode(llr32), reps=REPS)
+    adb_ms = time_cuda(lambda: ad.decode(llr32), reps=REPS)
+    emit({"path": "fastssc_bf16", "batch": B2, "ebn0_db": EBN0_11, "block_errors": fs_wrong,
+          "crc_failures": fs_failed, "decode_ms": fs_ms, "k3_ms": k3_ms,
+          "k3_burst_ms": k3_burst, "k3_plain_ms": k3_plain_ms, "launches": fs_counts,
+          "card": card})
+    emit({"path": "adaptive_bf16", "batch": B2, "ebn0_db": EBN0_11, "block_errors": adb_wrong,
+          "crc_failures": adb_failed, "decode_ms": adb_ms, "rerun_rows": list(ad.rerun_rows),
+          "launches": adb_counts, "card": card})
+    print("FastSSC bf16 (N = 1024, 2048) and adaptive bf16: kernel route == plain route")
+
+    src = "polar_codes_torch/csrc/scl_subtree.cu"
+    for name, run in runs.items():
+        n_list = int(name.split("L=")[1][:-1])
+        by_path = {"ca_scl": run["launches"]}
+        if name == "scl_subtree[float32,L=64]":
+            by_path["pcsim_cli_listlength"] = ll_counts["scl_subtree_by_list"][64]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "redesigned": K1_NEW_DESIGN,
+            "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
+            "launches": run["launches"], "launches_by_path": by_path,
+            "launches_per_decode": run["calls"], "list_size": n_list,
+            "max_abs_err": run["err"], "ms": run["k1"][0], "plain_ms": run["k1"][1],
+            **bound(run["k1"][2], run["k1"][3]), "library_ms": None})
+    return {"entries": entries, "ad_counts": ad_counts, "ll_counts": ll_counts,
+            "k3": {"name": "fastssc_subtree[bfloat16]", "route": "cuda",
+                   "source": "polar_codes_torch/csrc/fastssc_subtree.cu",
+                   "redesigned": K3_DESIGN,
+                   "replaces": "polar_codes_tpu/ops/fastssc_kernel.py:147",
+                   "launches": fs_counts["fastssc_subtree"]["bfloat16"],
+                   "launches_by_path": {
+                       "fastssc_bf16": fs_counts["fastssc_subtree"]["bfloat16"],
+                       "adaptive_bf16": adb_counts["fastssc_subtree"]["bfloat16"]},
+                   "max_abs_err": k3_err, "ms": k3_ms, "burst_ms": k3_burst,
+                   "plain_ms": k3_plain_ms, **bound(*k3_work(root, B2, 2, 1)),
+                   "library_ms": None}}
 
 
 if __name__ == "__main__":

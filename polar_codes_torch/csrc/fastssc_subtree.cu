@@ -1,6 +1,6 @@
 // Fast-SSC subtree decoder (K3): one call decodes a whole span <= 2048
-// subtree of the Fast-SSC code tree for a batch of codewords, in float32
-// or in the saturating char family.
+// subtree of the Fast-SSC code tree for a batch of codewords, in float32,
+// in bf16 or in the saturating char family.
 //
 // Replaces: polar_codes_tpu/ops/fastssc_kernel.py, build_fs_hybrid_decode,
 // subtree_call.kernel (the root call, u8 hard bits out) and
@@ -10,9 +10,9 @@
 // b + a).
 //
 // Interface, in the TPU kernel's batch-minor layout:
-//   llr [span, B] (f32, or int8 for the char family)
+//   llr [span, B] (f32, bf16, or int8 for the char family)
 //     -> root: bits [span, B] u8;
-//        below the glue: bipolar state [span, B] (+-1, f32 or int8)
+//        below the glue: bipolar state [span, B] (+-1, f32, bf16 or int8)
 //
 // The TPU kernel is specialised per subtree while tracing. Here the
 // subtree arrives as data, a post-order schedule of 5-int ops
@@ -23,9 +23,16 @@
 // One kernel per family and output form serves every subtree of every
 // code; nothing is generated per code.
 //
-// Families (fastssc_kernel.py _Float, _Char):
+// Families (fastssc_kernel.py _Float, _Bf16, _Char):
 //   float: f is the sign-XOR min-sum on the raw bits, g = b +- a, ZeroR a
 //          plain b + a, hard decision by the sign bit (-0.0 decides 1);
+//   bf16:  the TPU kernel's _Ops for a 16-bit float state: values held in
+//          bf16 in shared memory and device memory, in f32 in registers;
+//          f the product form (exact on the stored values, the float f's
+//          value bit for bit), g and ZeroR rounded to bf16 (nearest even)
+//          once each, as a store rounds them; leaves in f32 on the stored
+//          values, as the float family's (REP summed in span order,
+//          decisions by the sign bit);
 //   char:  integer LLRs held in int16 in shared memory and int32 in
 //          registers, f in product form (0 at zeros), f, g and ZeroR
 //          clipped to [-127, 127], hard decision llr < 0 (0 decides 0).
@@ -91,11 +98,13 @@
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int fastssc_subtree(const int *ops, int n_ops, const void *llr,
-//                       void *out, int char_mode, int root, int span,
+//                       void *out, int family, int root, int span,
 //                       int batch, cudaStream_t stream)
+// family: 0 float32, 1 char (int8), 2 bf16.
 // Returns the cudaGetLastError() of the launch (or of the shared-memory
-// attribute call), or -1 for a span the kernel does not take.
+// attribute call), or -1 for a span or family the kernel does not take.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -162,6 +171,9 @@ struct FloatFamily {
   using In = float;
   using State = float;
   using Reg = float;
+  // a state value in a register and back
+  __device__ static float load(float x) { return x; }
+  __device__ static float store(float x) { return x; }
   __device__ static float f(float a, float b) {
     const unsigned ai = __float_as_uint(a), bi = __float_as_uint(b);
     const unsigned sign = (ai ^ bi) & 0x80000000u;
@@ -193,21 +205,46 @@ struct FloatFamily {
     }
     return acc;
   }
-  // REP over a node of len >= 32 in shared memory: lane 0 in span order
-  __device__ static float rep_smem(const float* X, int len, int lane) {
+  // REP over a node of len >= 32 in shared memory (state type T, read as
+  // f32 by Fam::load): lane 0 in span order
+  template <class Fam, class T>
+  __device__ static float rep_smem_of(const T* X, int len, int lane) {
     float acc = 0.f;
     if (lane == 0) {
       int i = 0;
       for (; i + 8 <= len; i += 8) {
         float t[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) t[u] = X[i + u];
+        for (int u = 0; u < 8; ++u) t[u] = Fam::load(X[i + u]);
 #pragma unroll
         for (int u = 0; u < 8; ++u) acc = acc + t[u];
       }
-      for (; i < len; ++i) acc = acc + X[i];
+      for (; i < len; ++i) acc = acc + Fam::load(X[i]);
     }
     return __shfl_sync(kFull, acc, 0);
+  }
+  __device__ static float rep_smem(const float* X, int len, int lane) {
+    return rep_smem_of<FloatFamily>(X, len, lane);
+  }
+};
+
+// bf16 state (the TPU kernel's _Ops for a 16-bit float state): values in
+// registers as f32, each f, g and ZeroR result rounded to bf16 once, as a
+// store rounds it (f is exact: its result is one of the inputs'
+// magnitudes); leaves compute in f32 on the stored values, the REP sum in
+// span order, decisions by the sign bit: the float family's leaves.
+struct Bf16Family : FloatFamily {
+  using In = __nv_bfloat16;
+  using State = __nv_bfloat16;
+  using Reg = float;
+  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+  __device__ static float load(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
+  __device__ static float g(float a, float b, int bit) { return round(bit ? b - a : b + a); }
+  __device__ static float zero_r(float a, float b) { return round(b + a); }
+  __device__ static __nv_bfloat16 bipolar(int bit) { return __float2bfloat16_rn(bit ? -1.f : 1.f); }
+  __device__ static float rep_smem(const __nv_bfloat16* X, int len, int lane) {
+    return rep_smem_of<Bf16Family>(X, len, lane);
   }
 };
 
@@ -215,6 +252,8 @@ struct CharFamily {
   using In = int8_t;
   using State = short;
   using Reg = int;
+  __device__ static int load(short x) { return x; }
+  __device__ static short store(int x) { return static_cast<short>(x); }
   __device__ static int clip(int v) { return max(-127, min(127, v)); }
   // sign(a) sign(b) min(|a|, |b|) clipped to 127 (only a -128 input
   // needs it): 0 where a or b is 0, as the product form gives
@@ -432,7 +471,7 @@ __device__ __forceinline__ unsigned reg_tree(const uint8_t* kinds, int node,
   using R = typename Fam::Reg;
   if (kP == top) {
 #pragma unroll
-    for (int j = 0; j < kP; ++j) x[j] = X[32 * j + lane];
+    for (int j = 0; j < kP; ++j) x[j] = Fam::load(X[32 * j + lane]);
   }
   if constexpr (kP == 1) {
     return reg32<Fam>(kinds, node, x[0], lane, clk);
@@ -486,7 +525,7 @@ __device__ __forceinline__ void reg_subtree(const uint8_t* kinds, int root,
     return;
   }
   // a span below 32: its root is heap node 32 / span
-  const R x0 = lane < lr ? static_cast<R>(X[lane]) : R(0);
+  const R x0 = lane < lr ? Fam::load(X[lane]) : R(0);
   uint32_t kw[16];
   load_kinds(kinds, 1, kw);
   R v[6] = {};
@@ -526,19 +565,19 @@ __device__ __forceinline__ void big_batch(int code, const typename Fam::State* X
   int l[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
-    a[u] = X[first + 32 * u];
-    b[u] = X[first + 32 * u + h];
+    a[u] = Fam::load(X[first + 32 * u]);
+    b[u] = Fam::load(X[first + 32 * u + h]);
     l[u] = code == C_G ? B[first + 32 * u] : 0;
   }
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     const int t = first + 32 * u;
     if (code == C_F) {
-      Y[t] = static_cast<S>(Fam::f(a[u], b[u]));
+      Y[t] = Fam::store(Fam::f(a[u], b[u]));
     } else if (code == C_G) {
-      Y[t] = static_cast<S>(Fam::g(a[u], b[u], l[u]));
+      Y[t] = Fam::store(Fam::g(a[u], b[u], l[u]));
     } else {
-      Y[t] = static_cast<S>(Fam::zero_r(a[u], b[u]));
+      Y[t] = Fam::store(Fam::zero_r(a[u], b[u]));
       B[t] = 0;  // the all-frozen left child's bits
     }
   }
@@ -563,7 +602,7 @@ __device__ __forceinline__ void big_op(unsigned w, typename Fam::State* x, uint8
   if (code == C_R0) {
     for (int i = lane; i < len; i += 32) B[i] = 0;
   } else if (code == C_R1) {
-    for (int i = lane; i < len; i += 32) B[i] = static_cast<uint8_t>(Fam::hard(X[i]));
+    for (int i = lane; i < len; i += 32) B[i] = static_cast<uint8_t>(Fam::hard(Fam::load(X[i])));
   } else if (code == C_REP) {
     const int hb = Fam::hard(Fam::rep_smem(X, len, lane));
     for (int i = lane; i < len; i += 32) B[i] = static_cast<uint8_t>(hb);
@@ -571,7 +610,7 @@ __device__ __forceinline__ void big_op(unsigned w, typename Fam::State* x, uint8
     int par = 0, at = 0x7fffffff;
     unsigned best = kNoKey;
     for (int i = lane; i < len; i += 32) {
-      const R v = X[i];
+      const R v = Fam::load(X[i]);
       par ^= Fam::hard(v);
       const unsigned k = Fam::key(v);
       if (k < best) {
@@ -583,7 +622,7 @@ __device__ __forceinline__ void big_op(unsigned w, typename Fam::State* x, uint8
     const unsigned weakest = __reduce_min_sync(kFull, best);
     const int flip = odd ? __reduce_min_sync(kFull, best == weakest ? at : 0x7fffffff) : -1;
     for (int i = lane; i < len; i += 32)
-      B[i] = static_cast<uint8_t>(Fam::hard(X[i]) ^ (i == flip));
+      B[i] = static_cast<uint8_t>(Fam::hard(Fam::load(X[i])) ^ (i == flip));
   }
 }
 
@@ -622,7 +661,7 @@ fastssc_kernel(const int* __restrict__ ops_g, int n_ops,
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
         const int s = s0 + u * (kThreads / kWarps);
-        v[u] = s < span ? static_cast<S>(src[static_cast<size_t>(s) * batch]) : S(0);
+        if (s < span) v[u] = static_cast<S>(src[static_cast<size_t>(s) * batch]);
       }
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
@@ -711,16 +750,23 @@ int launch(const int* ops, int n_ops, const void* llr, void* out, int span, int 
 }  // namespace
 
 extern "C" int fastssc_subtree(const void* ops, int n_ops, const void* llr,
-                               void* out, int char_mode, int root, int span,
+                               void* out, int family, int root, int span,
                                int batch, void* stream) {
   if (span < 1 || span > kMaxSpan || (span & (span - 1))) return -1;
   if (batch <= 0) return 0;
   auto o = static_cast<const int*>(ops);
   auto st = static_cast<cudaStream_t>(stream);
-  if (char_mode) {
-    return root ? launch<CharFamily, true>(o, n_ops, llr, out, span, batch, st)
-                : launch<CharFamily, false>(o, n_ops, llr, out, span, batch, st);
+  switch (family) {
+    case 0:
+      return root ? launch<FloatFamily, true>(o, n_ops, llr, out, span, batch, st)
+                  : launch<FloatFamily, false>(o, n_ops, llr, out, span, batch, st);
+    case 1:
+      return root ? launch<CharFamily, true>(o, n_ops, llr, out, span, batch, st)
+                  : launch<CharFamily, false>(o, n_ops, llr, out, span, batch, st);
+    case 2:
+      return root ? launch<Bf16Family, true>(o, n_ops, llr, out, span, batch, st)
+                  : launch<Bf16Family, false>(o, n_ops, llr, out, span, batch, st);
+    default:
+      return -1;
   }
-  return root ? launch<FloatFamily, true>(o, n_ops, llr, out, span, batch, st)
-              : launch<FloatFamily, false>(o, n_ops, llr, out, span, batch, st);
 }

@@ -9,8 +9,11 @@
 // the emitter's three arithmetic families.
 //
 // Interface, in the TPU kernel's layouts:
-//   llr [w_in, span, B] (state type), metrics [B, w_in] f32, family
-//     -> bits [span, B] i32 (bit l of a word = path l's decision),
+//   llr [w_in, span, B] (state type), metrics [B, w_in] f32, family,
+//   list size L (2 <= L <= 128)
+//     -> bits [W, span, B] i32, W = ceil(L / 32) words (bit l % 32 of word
+//        l / 32 = path l's decision; W = 1 is the TPU kernel's bitplane
+//        form [span, B], W > 1 stands for its unpacked-path family),
 //        perm [B, w_out] i32 (output slot -> input slot), metrics [B, w_out]
 // Three families, instantiations of one template (family code in brackets):
 //   float32 (0): f32 state, f the sign-XOR min-sum on the raw float bits,
@@ -34,8 +37,13 @@
 // candidates, prune, decision bits). A leaf's prune is the path fork: it
 // yields the perm that G and COMBINE apply. ENUM leaves read their
 // codeword table as one bitmask per candidate at enum_masks[aux]; the SPC
-// flip tables come in spc_tab. One kernel per list size and family serves
-// every subtree of every code; nothing is generated per code.
+// flip tables come in spc_tab. One kernel per family and list capacity (a
+// power of two from 4 to 128) serves every subtree of every code at every
+// list size up to that capacity: the list size is a launch argument, the
+// prune keeps exactly that many paths, and the slots above it never
+// become live. The list sizes 2, 4, 8, 16 and 32 have a kernel each whose
+// list size is a constant of the build (the capacity's kernel is ~4%
+// slower at L = 8). Nothing is generated per code.
 //
 // Mapping: one warp decodes one codeword, warp-synchronous (__syncwarp,
 // shuffles and ballots between ops, no __syncthreads), one codeword (warp)
@@ -48,8 +56,9 @@
 // and the SPC table; device memory is read once (the input level 0, by the first
 // F and G, or staged into the level region when the subtree is one leaf)
 // and written once (bits, perm, metrics). Per codeword that is
-// sizeof(Shared<L>) + 4 span + L span sizeof(state) bytes: 20 KB at
-// L = 8, span 512 in f32, 12 KB in int16 or bf16. A one-leaf schedule
+// sizeof(Shared<L>) + 4 W span + L span sizeof(state) bytes, L the
+// capacity: 20 KB at L = 8, span 512 in f32, 12 KB in int16 or bf16; 48 KB
+// at L = 64 and 96 KB at L = 128, span 128 (the JAX package's span there). A one-leaf schedule
 // whose staged input would not fit (the large-N tree schedule's pure
 // leaves: L = 32 at span 2048 in f32 needs 256 KB) is not staged: its leaf
 // reads the input from device memory where it lies, element (l, i) at
@@ -61,20 +70,26 @@
 //             the left child's perm (levels live in separate regions, so
 //             no read aliases a write);
 //   COMBINE   lanes over positions, each forking its left bit word
-//             through the right child's perm (held in registers); the perm
-//             composition on lanes < w;
+//             through the right child's perm (held in registers; above 32
+//             paths each fork bit read from its word in shared memory, all
+//             W words before any is written); the perm composition on
+//             lanes < w (32 paths a lane pass);
 //   LEAF      the `weakest` magnitudes (rate-1, SPC) by groups of 32 / w
-//             lanes per path: 2 or 4 rounds of an arg-min over packed
+//             lanes per path (above 32 paths, 32 paths at a time, a lane
+//             each): 2 or 4 rounds of an arg-min over packed
 //             (|x|, index) keys, each lane scanning a stride of the span,
 //             then shuffles; the SPC parity rides along as an XOR; each candidate's value on its
 //             own lane (path l, candidate c at code l*C + c), every metric
 //             sum sequential over the span on one lane; the prune by rank,
 //             each lane holding its candidates in registers for one pass
-//             over all the values;
+//             over all the values (above 32 paths, 32 candidates a lane a
+//             pass, as many passes as the candidates need);
 //             the decision bits with lanes over (position, slot), one
-//             ballot per 32 / L positions. The leaf is a template on where
-//             its input lies (shared memory, or device memory strided by
-//             B); its arithmetic and order are the same either way.
+//             ballot per 32 / L positions (above 32 paths, one ballot per
+//             position and word, lane = slot 32 k + lane). The leaf is a
+//             template on where its input lies (shared memory, or device
+//             memory strided by B); its arithmetic and order are the same
+//             either way.
 //
 // What bounds it on an H100: the length of one codeword's dependent chain
 // of warp steps (each op closes with a __syncwarp), overlapped across the
@@ -88,7 +103,10 @@
 // 0.32-0.43 ms at B = 2048. A one-leaf schedule read from device memory
 // (the rate-0 leaf of 2048 at L = 32, B = 128) takes 0.36 ms, against
 // 0.11 for the same leaf staged at L = 8 (chip_profile.py tree): each
-// path's lane walks its span in loads strided by B.
+// path's lane walks its span in loads strided by B. At L = 64, span 128,
+// B = 1024 the 8 calls of an N = 1024 decode take 6.7-6.9 ms in every
+// family, and at L = 128, B = 256, 9.0 ms (chip_smoke.py phase 37).
+// Capacities of 32 and more use 167 registers a thread, 16 and less 48-93.
 //
 // Numerics: every sum is sequential over the span in f32, in the order of
 // the plain torch version (ops/scl_kernel_bl.py), and the build disables
@@ -106,11 +124,12 @@
 //                   int *bits, int *perm, float *met_out, int list_size,
 //                   int w_in, int w_out, int span, int batch, int family,
 //                   int per_block, cudaStream_t stream)
-//     per_block: codewords (warps) per block, 1, 2 or 4; 0 picks from the
-//     batch. Returns cudaGetLastError() after the launch (or of the
-//     shared-memory attribute call), -1 for an unsupported list size,
-//     family or span, -2 when one codeword's state exceeds the card's
-//     opt-in shared memory per block.
+//     bits holds W = ceil(list_size / 32) words per position ([W, span,
+//     B]). per_block: codewords (warps) per block, 1, 2 or 4; 0 picks from
+//     the batch. Returns cudaGetLastError() after the launch (or of the
+//     shared-memory attribute call), -1 for an unsupported list size
+//     (outside 2..128), family or span, -2 when one codeword's state
+//     exceeds the card's opt-in shared memory per block.
 //   int scl_subtree_smem(int list_size, int span, int family, int n_ops)
 //     shared-memory bytes per codeword of a schedule of n_ops ops (one op:
 //     one leaf, unstaged where staging does not fit), or -1.
@@ -229,11 +248,15 @@ struct Shared {
   int spc[32];               // SPC_TABLE
 };
 
+// int32 words a packed position holds for a list of capacity L
+template <int L>
+constexpr int kWords = L > 32 ? L / 32 : 1;
+
 // Shared memory per codeword; `direct`: a one-leaf schedule whose leaf
 // reads its input from device memory (no level state).
 template <int L, class Fam>
 size_t warp_bytes(int span, bool direct) {
-  const size_t n = sizeof(Shared<L>) + (size_t)span * sizeof(int) +
+  const size_t n = sizeof(Shared<L>) + (size_t)kWords<L> * span * sizeof(int) +
                    (direct ? 0 : (size_t)L * span * sizeof(typename Fam::State));
   return (n + 15) & ~static_cast<size_t>(15);
 }
@@ -247,20 +270,53 @@ bool reads_direct(int n_ops, int span) {
   return n_ops == 1 && warp_bytes<L, Fam>(span, false) > static_cast<size_t>(smem_limit());
 }
 
-// One warp's view of its codeword.
-template <int L, class Fam>
+// A candidate slot's survivor in a leaf: the path it descends from, its
+// candidate, and what its decision bits need (flip mask and positions, or
+// the ENUM codeword's bitmask).
+struct Slot {
+  int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
+};
+
+// One warp's view of its codeword. L is the list's capacity (a power of
+// two), nl the list size (nl <= L): slots at or above nl never become live.
+// kExact: the list fills its capacity (nl == L), a constant of the build.
+template <int L, class Fam, bool kExact>
 struct Warp {
   using S = typename Fam::State;
+  static constexpr int NW = kWords<L>;  // packed words a position
   static constexpr int kLgL = L == 2 ? 1 : L == 4 ? 2 : L == 8 ? 3 : L == 16 ? 4 : 5;
-  static constexpr int kPer = 32 / L;  // positions per ballot
-  static constexpr unsigned kMask = L == 32 ? kAll : (1u << L) - 1u;
+  static constexpr int kPer = L >= 32 ? 1 : 32 / L;  // positions per ballot
+  static constexpr unsigned kMask = L >= 32 ? kAll : (1u << L) - 1u;
 
   Shared<L>& s;
-  int* W;          // [span] packed bit words
+  int* W;          // [NW][span] packed bit words (word k of position i at W[k span + i])
   S* X;            // levels d >= 1, or the staged input of a one-leaf subtree
   const S* in;     // the input level 0: element (l, i) at in[(l * span + i) * batch]
   const int* masks;
-  int span, batch, lane;
+  int span, batch, lane, nl_arg;
+
+  // the list size
+  __device__ int nl() const { return kExact ? L : nl_arg; }
+
+  // f(l) for each path l < w this lane holds: one below 32 paths, else
+  // every 32nd
+  template <class F>
+  __device__ void each_path(int w, F f) const {
+    if constexpr (NW == 1) {
+      if (lane < w) f(lane);
+    } else {
+      for (int l = lane; l < w; l += 32) f(l);
+    }
+  }
+
+  // path l's decision bit at position i
+  __device__ int bit_of(int i, int l) const {
+    if constexpr (NW == 1) {
+      return (W[i] >> l) & 1;
+    } else {
+      return (W[(l >> 5) * span + i] >> (l & 31)) & 1;
+    }
+  }
 
   __device__ S* lvl(int d) const {
     return X + (d == 0 ? 0 : L * (span - (span >> (d - 1))));
@@ -333,7 +389,7 @@ struct Warp {
 #pragma unroll
         for (int q = 0; q < kLoads; ++q) {
           const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
-          if (t < n) Y[t] = Fam::store(Fam::g(a[q], c[q], (W[off + i] >> l) & 1));
+          if (t < n) Y[t] = Fam::store(Fam::g(a[q], c[q], bit_of(off + i, l)));
         }
       }
     } else {
@@ -342,10 +398,10 @@ struct Warp {
       for (int t = lane; t < n; t += 32) {
         const int l = t >> lh, i = t & (h - 1);
         const S* x = Xd + p[l] * len + i;
-        Y[t] = Fam::store(Fam::g(Fam::load(x[0]), Fam::load(x[h]), (W[off + i] >> l) & 1));
+        Y[t] = Fam::store(Fam::g(Fam::load(x[0]), Fam::load(x[h]), bit_of(off + i, l)));
       }
     }
-    if (lane < w) s.P[d][lane] = p[lane];
+    each_path(w, [&](int l) { s.P[d][l] = p[l]; });
     __syncwarp();
   }
 
@@ -354,20 +410,34 @@ struct Warp {
   __device__ void combine(int d, int len, int off, int w) {
     const int h = len >> 1;
     const int* p = s.P[d + 1];  // right child's perm
-    int pj[L];
+    if constexpr (NW == 1) {
+      int pj[L];
 #pragma unroll
-    for (int j = 0; j < L; ++j) pj[j] = j < w ? p[j] : 0;
-    for (int i = lane; i < h; i += 32) {
-      const int lw = W[off + i];
-      int fork = 0;
+      for (int j = 0; j < L; ++j) pj[j] = j < w ? p[j] : 0;
+      for (int i = lane; i < h; i += 32) {
+        const int lw = W[off + i];
+        int fork = 0;
 #pragma unroll
-      for (int j = 0; j < L; ++j) fork |= (j < w ? (lw >> pj[j]) & 1 : 0) << j;
-      W[off + i] = fork ^ W[off + h + i];
+        for (int j = 0; j < L; ++j) fork |= (j < w ? (lw >> pj[j]) & 1 : 0) << j;
+        W[off + i] = fork ^ W[off + h + i];
+      }
+    } else {  // each word of the fork gathers 32 slots' bits from any word
+      for (int i = lane; i < h; i += 32) {
+        int fork[NW];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          fork[k] = 0;
+          for (int j = 0; j < 32 && 32 * k + j < w; ++j)
+            fork[k] |= bit_of(off + i, p[32 * k + j]) << j;
+        }
+#pragma unroll
+        for (int k = 0; k < NW; ++k) W[k * span + off + i] = fork[k] ^ W[k * span + off + h + i];
+      }
     }
-    int c = 0;
-    if (lane < w) c = s.P[d][p[lane]];
+    int c[NW];
+    each_path(w, [&](int l) { c[l >> 5] = s.P[d][p[l]]; });
     __syncwarp();
-    if (lane < w) s.P[d][lane] = c;
+    each_path(w, [&](int l) { s.P[d][l] = c[l >> 5]; });
     __syncwarp();
   }
 
@@ -378,10 +448,22 @@ struct Warp {
   // (|x| bits, index) in one unsigned 64-bit word, which orders as the
   // pair (|x| >= 0); each lane scans a stride of the span, then the group
   // takes the minimum by shuffles.
+  // Above 32 paths, 32 at a time, a lane each.
   template <int K, bool D>
   __device__ void weakest(const S* Xd, int len, int w) {
-    const int lgg = 5 - (w > 1 ? 32 - __clz(w - 1) : 0);
-    const int g = 1 << lgg, l = lane >> lgg, gl = lane & (g - 1);
+    if constexpr (NW == 1) {
+      weakest_of<K, D>(Xd, len, w, 0);
+    } else {
+      for (int base = 0; base < w; base += 32) weakest_of<K, D>(Xd, len, w, base);
+    }
+    __syncwarp();
+  }
+
+  template <int K, bool D>
+  __device__ void weakest_of(const S* Xd, int len, int w, int base) {
+    const int wc = NW == 1 ? w : (w - base < 32 ? w - base : 32);
+    const int lgg = 5 - (wc > 1 ? 32 - __clz(wc - 1) : 0);
+    const int g = 1 << lgg, l = base + (lane >> lgg), gl = lane & (g - 1);
     const S* x = path<D>(Xd, len, l);
     unsigned long long prev = 0;
     int neg = 0;
@@ -411,7 +493,6 @@ struct Warp {
     }
     for (int o = g >> 1; o > 0; o >>= 1) neg ^= __shfl_xor_sync(kAll, neg, o);
     if (gl == 0 && l < w) s.par[l] = neg;
-    __syncwarp();
   }
 
   // Candidate c of path l of a leaf of `kind`: its metric delta. Sums run
@@ -456,12 +537,13 @@ struct Warp {
     return 0.5f * (sc - s.ms[0][l]);
   }
 
-  // Top-min(L, T) of the T candidate values in s.V into s.pc / s.pv (slot
+  // Top-min(nl, T) of the T candidate values in s.V into s.pc / s.pv (slot
   // -> code, value): a candidate's slot is its rank under (value desc,
-  // code asc); while T <= L every candidate keeps its code as its slot.
+  // code asc); while T <= nl every candidate keeps its code as its slot.
   // Returns the new width.
   __device__ int prune(int T) {
-    if (T <= L) {
+    const int nl = this->nl();
+    if (T <= nl) {
       for (int t = lane; t < T; t += 32) {
         s.pc[t] = t;
         s.pv[t] = s.V[t];
@@ -476,38 +558,79 @@ struct Warp {
         rank<4>(T);
       else if (per <= 8)
         rank<(L < 8 ? L : 8)>(T);
-      else
+      else if constexpr (L <= 32)
         rank<L>(T);
+      else  // passes of 32 candidates a lane over all T values
+        for (int base = 0; base < T; base += 32 * 32) rank<32>(T, base);
     }
     __syncwarp();
-    return T < L ? T : L;
+    return T < nl ? T : nl;
   }
 
-  // The ranks of candidates lane + 32 r (r < R), each counting the
+  // The ranks of candidates base + lane + 32 r (r < R), each counting the
   // candidates that beat it, in one pass over all T values; slot = rank.
   template <int R>
-  __device__ void rank(int T) {
+  __device__ void rank(int T, int base = 0) {
+    const int nl = this->nl();
     float v[R];
     int n[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      v[r] = lane + 32 * r < T ? s.V[lane + 32 * r] : 0.f;
+      v[r] = base + lane + 32 * r < T ? s.V[base + lane + 32 * r] : 0.f;
       n[r] = 0;
     }
 #pragma unroll 4
     for (int u = 0; u < T; ++u) {
       const float o = s.V[u];
 #pragma unroll
-      for (int r = 0; r < R; ++r) n[r] += (o > v[r]) | ((o == v[r]) & (u < lane + 32 * r));
+      for (int r = 0; r < R; ++r)
+        n[r] += (o > v[r]) | ((o == v[r]) & (u < base + lane + 32 * r));
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int t = lane + 32 * r;
-      if (t < T && n[r] < L) {
+      const int t = base + lane + 32 * r;
+      if (t < T && n[r] < nl) {
         s.pc[n[r]] = t;
         s.pv[n[r]] = v[r];
       }
     }
+  }
+
+  // Slot j's survivor after a prune of w2 slots (j < w2), for its bits
+  __device__ Slot slot(int j, int w2, int kind, int len, int aux, int nc) const {
+    Slot t;
+    if (j < w2) {
+      const int code = s.pc[j];
+      t.src = code / nc;
+      t.c = code - t.src * nc;
+      if (kind == K_RATE1 && len == 1) {
+        t.fm = t.c == 1;
+        t.i0 = 0;
+      } else if (kind == K_RATE1) {
+        t.fm = (t.c == 1 || t.c == 3) | ((t.c == 2 || t.c == 3) << 1);
+        t.i0 = s.is[0][t.src];
+        t.i1 = s.is[1][t.src];
+      } else if (kind == K_SPC) {
+        t.fm = s.spc[(s.par[t.src] ? 8 : 0) + t.c];
+        t.i0 = s.is[0][t.src];
+        t.i1 = s.is[1][t.src];
+        t.i2 = s.is[2][t.src];
+        t.i3 = s.is[3][t.src];
+      } else if (kind == K_ENUM) {
+        t.emask = masks[aux + t.c];
+      }
+    }
+    return t;
+  }
+
+  // slot t's decision at position i of its path's input xs
+  template <bool D>
+  __device__ int slot_bit(const Slot& t, int kind, const S* xs, int i) const {
+    if (kind == K_REP) return t.c != 0;
+    if (kind == K_ENUM) return (t.emask >> i) & 1;
+    return Fam::hard(at<D>(xs, i)) ^
+           (((t.fm & 1) && i == t.i0) | ((t.fm & 2) && i == t.i1) | ((t.fm & 4) && i == t.i2) |
+            ((t.fm & 8) && i == t.i3));
   }
 
   // LEAF: candidates, prune, decision bits, the survivors' metrics and perm;
@@ -516,15 +639,17 @@ struct Warp {
   __device__ void leaf(int d, int len, int off, int kind, int aux, int nc, int& w) {
     const S* Xd = lvl(d);
     if (kind == K_RATE0) {
-      if (lane < w) {
-        const S* x = path<D>(Xd, len, lane);
+      each_path(w, [&](int l) {
+        const S* x = path<D>(Xd, len, l);
         float acc = 0.f;
 #pragma unroll 8
         for (int i = 0; i < len; ++i) acc = acc + fminf(at<D>(x, i), 0.f);
-        s.M[lane] = s.M[lane] + acc;
-        s.P[d][lane] = lane;
-      }
-      for (int i = lane; i < len; i += 32) W[off + i] = 0;
+        s.M[l] = s.M[l] + acc;
+        s.P[d][l] = l;
+      });
+#pragma unroll
+      for (int k = 0; k < NW; ++k)
+        for (int i = lane; i < len; i += 32) W[k * span + off + i] = 0;
       __syncwarp();
       return;
     }
@@ -534,13 +659,13 @@ struct Warp {
     } else if (kind == K_SPC) {
       weakest<4, D>(Xd, len, w);
     } else if (kind == K_ENUM) {
-      if (lane < w) {
-        const S* x = path<D>(Xd, len, lane);
+      each_path(w, [&](int l) {
+        const S* x = path<D>(Xd, len, l);
         float sa = 0.f;
 #pragma unroll 8
         for (int i = 0; i < len; ++i) sa = sa + fabsf(at<D>(x, i));
-        s.ms[0][lane] = sa;
-      }
+        s.ms[0][l] = sa;
+      });
       __syncwarp();
     }
     K1_TICK(8, tp);
@@ -554,67 +679,49 @@ struct Warp {
     const int w2 = prune(T);
     K1_TICK(10, tp);
 
-    // decision bits of the surviving paths, packed one plane per path:
-    // lane (position base + lane / L, slot lane % L)
-    const int j = lane & (L - 1);
-    int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
-    if (j < w2) {
-      const int code = s.pc[j];
-      src = code / nc;
-      c = code - src * nc;
-      if (kind == K_RATE1 && len == 1) {
-        fm = c == 1;
-        i0 = 0;
-      } else if (kind == K_RATE1) {
-        fm = (c == 1 || c == 3) | ((c == 2 || c == 3) << 1);
-        i0 = s.is[0][src];
-        i1 = s.is[1][src];
-      } else if (kind == K_SPC) {
-        fm = s.spc[(s.par[src] ? 8 : 0) + c];
-        i0 = s.is[0][src];
-        i1 = s.is[1][src];
-        i2 = s.is[2][src];
-        i3 = s.is[3][src];
-      } else if (kind == K_ENUM) {
-        emask = masks[aux + c];
+    if constexpr (NW == 1) {
+      // decision bits of the surviving paths, packed one plane per path:
+      // lane (position base + lane / L, slot lane % L)
+      const int j = lane & (L - 1);
+      const Slot t = slot(j, w2, kind, len, aux, nc);
+      const S* xs = path<D>(Xd, len, t.src);
+      for (int base = 0; base < len; base += kPer) {
+        const int i = base + (lane >> kLgL);
+        const int bit = j < w2 && i < len ? slot_bit<D>(t, kind, xs, i) : 0;
+        const unsigned b = __ballot_sync(kAll, bit);
+        if (lane < kPer && base + lane < len)
+          W[off + base + lane] = static_cast<int>((b >> (lane * L)) & kMask);
       }
-    }
-    const S* xs = path<D>(Xd, len, src);
-    for (int base = 0; base < len; base += kPer) {
-      const int i = base + (lane >> kLgL);
-      int bit = 0;
-      if (j < w2 && i < len) {
-        if (kind == K_REP) {
-          bit = c != 0;
-        } else if (kind == K_ENUM) {
-          bit = (emask >> i) & 1;
-        } else {
-          bit = Fam::hard(at<D>(xs, i)) ^
-                (((fm & 1) && i == i0) | ((fm & 2) && i == i1) | ((fm & 4) && i == i2) |
-                 ((fm & 8) && i == i3));
+    } else {
+      // word k: lane = slot 32 k + lane, one ballot a position
+#pragma unroll 1
+      for (int k = 0; k < NW; ++k) {
+        const int j = 32 * k + lane;
+        const Slot t = slot(j, w2, kind, len, aux, nc);
+        const S* xs = path<D>(Xd, len, t.src);
+        for (int i = 0; i < len; ++i) {
+          const unsigned b = __ballot_sync(kAll, j < w2 ? slot_bit<D>(t, kind, xs, i) : 0);
+          if ((i & 31) == lane) W[k * span + off + i] = static_cast<int>(b);
         }
       }
-      const unsigned b = __ballot_sync(kAll, bit);
-      if (lane < kPer && base + lane < len)
-        W[off + base + lane] = static_cast<int>((b >> (lane * L)) & kMask);
     }
     K1_TICK(11, tp);
-    if (lane < w2) {
-      s.M[lane] = s.pv[lane];
-      s.P[d][lane] = s.pc[lane] / nc;
-    }
+    each_path(w2, [&](int l) {
+      s.M[l] = s.pv[l];
+      s.P[d][l] = s.pc[l] / nc;
+    });
     __syncwarp();
     w = w2;
   }
 };
 
-template <int L, class Fam>
+template <int L, class Fam, bool kExact>
 __global__ void __launch_bounds__(32 * kMaxPerBlock)
 scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict__ enum_masks,
                    const int* __restrict__ spc_tab, const typename Fam::State* __restrict__ llr,
                    const float* __restrict__ met_in, int* __restrict__ bits,
-                   int* __restrict__ perm_out, float* __restrict__ met_out, int w_in, int w_out,
-                   int span, int batch, int per_warp, int direct) {
+                   int* __restrict__ perm_out, float* __restrict__ met_out, int list_size,
+                   int w_in, int w_out, int span, int batch, int per_warp, int direct) {
   using S = typename Fam::State;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -623,11 +730,11 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
   unsigned char* mine = smem + (size_t)warp * per_warp;
   Shared<L>& s = *reinterpret_cast<Shared<L>*>(mine);
   int* W = reinterpret_cast<int*>(mine + sizeof(Shared<L>));
-  S* X = reinterpret_cast<S*>(W + span);
+  S* X = reinterpret_cast<S*>(W + kWords<L> * span);
   K1_CLOCK(tk);
-  Warp<L, Fam> wp{s, W, X, llr + b, enum_masks, span, batch, lane};
+  Warp<L, Fam, kExact> wp{s, W, X, llr + b, enum_masks, span, batch, lane, list_size};
 
-  if (lane < w_in) s.M[lane] = met_in[(size_t)b * w_in + lane];
+  wp.each_path(w_in, [&](int l) { s.M[l] = met_in[(size_t)b * w_in + l]; });
   s.spc[lane] = spc_tab[lane];
   if (ops[0] == OP_LEAF && !direct) {  // a one-leaf subtree reads its input from shared memory
     const int n = w_in * span;
@@ -670,11 +777,11 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
   }
 
   K1_TICK(12, tk);
-  for (int i = lane; i < span; i += 32) bits[(size_t)i * batch + b] = W[i];
-  if (lane < w_out) {
-    perm_out[(size_t)b * w_out + lane] = s.P[0][lane];
-    met_out[(size_t)b * w_out + lane] = s.M[lane];
-  }
+  for (int i = lane; i < kWords<L> * span; i += 32) bits[(size_t)i * batch + b] = W[i];
+  wp.each_path(w_out, [&](int l) {
+    perm_out[(size_t)b * w_out + l] = s.P[0][l];
+    met_out[(size_t)b * w_out + l] = s.M[l];
+  });
 }
 
 int smem_limit() {
@@ -686,10 +793,11 @@ int smem_limit() {
   return optin;
 }
 
-template <int L, class Fam>
+template <int L, class Fam, bool kExact>
 int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
-           const void* llr, const float* met, int* bits, int* perm, float* met_out, int w_in,
-           int w_out, int span, int batch, int per_block, cudaStream_t stream) {
+           const void* llr, const float* met, int* bits, int* perm, float* met_out,
+           int list_size, int w_in, int w_out, int span, int batch, int per_block,
+           cudaStream_t stream) {
   using S = typename Fam::State;
   const bool direct = reads_direct<L, Fam>(n_ops, span);
   const size_t per_warp = warp_bytes<L, Fam>(span, direct);
@@ -700,7 +808,7 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
   cw = cw > kMaxPerBlock ? kMaxPerBlock : cw;
   while (cw > 1 && cw * per_warp > limit) cw >>= 1;
   const size_t smem = cw * per_warp;
-  auto kernel = scl_subtree_kernel<L, Fam>;
+  auto kernel = scl_subtree_kernel<L, Fam, kExact>;
   static int raised[kMaxDevices] = {};  // the kernel's shared-memory limit set per card
   int dev = 0;
   cudaGetDevice(&dev);
@@ -712,22 +820,47 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
   }
   kernel<<<(batch + cw - 1) / cw, 32 * cw, smem, stream>>>(
       ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met, bits, perm, met_out,
-      w_in, w_out, span, batch, static_cast<int>(per_warp), static_cast<int>(direct));
+      list_size, w_in, w_out, span, batch, static_cast<int>(per_warp), static_cast<int>(direct));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The list capacity that serves list_size: the next power of two from 2
+// to 128 (0 outside).
+int capacity(int list_size) {
+  if (list_size < 2 || list_size > 128) return 0;
+  int cap = 2;
+  while (cap < list_size) cap <<= 1;
+  return cap;
 }
 
 template <class Fam>
 int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x,
              const float* mi, int* bt, int* pr, float* mo, int list_size, int w_in,
              int w_out, int span, int batch, int pb, cudaStream_t st) {
+#define K1_LAUNCH(CAP, EXACT)                                                              \
+  launch<CAP, Fam, EXACT>(o, n_ops, e, sp, x, mi, bt, pr, mo, list_size, w_in, w_out, span, \
+                          batch, pb, st)
+  // the list sizes of 32 paths or fewer that fill their capacity keep the
+  // list size a constant of their build (~4% faster at L = 8 than the run-
+  // time list size, chip_profile.py k1_ab); every other size runs in its
+  // capacity's instantiation with the list size at run time
   switch (list_size) {
-    case 2: return launch<2, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
-    case 4: return launch<4, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
-    case 8: return launch<8, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
-    case 16: return launch<16, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
-    case 32: return launch<32, Fam>(o, n_ops, e, sp, x, mi, bt, pr, mo, w_in, w_out, span, batch, pb, st);
+    case 2: return K1_LAUNCH(2, true);
+    case 4: return K1_LAUNCH(4, true);
+    case 8: return K1_LAUNCH(8, true);
+    case 16: return K1_LAUNCH(16, true);
+    case 32: return K1_LAUNCH(32, true);
+  }
+  switch (capacity(list_size)) {
+    case 4: return K1_LAUNCH(4, false);
+    case 8: return K1_LAUNCH(8, false);
+    case 16: return K1_LAUNCH(16, false);
+    case 32: return K1_LAUNCH(32, false);
+    case 64: return K1_LAUNCH(64, false);
+    case 128: return K1_LAUNCH(128, false);
     default: return -1;
   }
+#undef K1_LAUNCH
 }
 
 template <int L, class Fam>
@@ -737,12 +870,14 @@ int bytes_at(int span, int n_ops) {
 
 template <class Fam>
 int bytes_of(int list_size, int span, int n_ops) {
-  switch (list_size) {
+  switch (capacity(list_size)) {
     case 2: return bytes_at<2, Fam>(span, n_ops);
     case 4: return bytes_at<4, Fam>(span, n_ops);
     case 8: return bytes_at<8, Fam>(span, n_ops);
     case 16: return bytes_at<16, Fam>(span, n_ops);
     case 32: return bytes_at<32, Fam>(span, n_ops);
+    case 64: return bytes_at<64, Fam>(span, n_ops);
+    case 128: return bytes_at<128, Fam>(span, n_ops);
     default: return -1;
   }
 }

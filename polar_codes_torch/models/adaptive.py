@@ -27,8 +27,9 @@ class AdaptiveDecoder:
     """Fast-SSC + CA-SCL fallback for one (N, frozen set) code.
 
     list_schedule escalates stage by stage: the CRC failures of stage i
-    are re-decoded at stage i + 1, e.g. (2, 8); the default is
-    (list_size,). fast_subtree_fn and list_subtree_fn pass a subtree
+    are re-decoded at stage i + 1, e.g. (2, 8) or (3, 12): any list
+    sizes; the default is (list_size,). fast_dtype (float32, int8 or
+    bfloat16) is the Fast-SSC pass's family; the list stages run float32. fast_subtree_fn and list_subtree_fn pass a subtree
     function to the Fast-SSC pass and to every list stage (the plain
     versions, to run them on the card)."""
 

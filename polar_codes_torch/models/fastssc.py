@@ -8,10 +8,15 @@ above run here as torch glue in the same [span, B] layout (the JAX
 `xla_node`), with the ZeroR shortcut. Leaves longer than `kernel_span` go
 to the kernel whole.
 
-Two families, as in the reference's float/char split:
-  dtype=torch.float32 — f on the raw bits, decisions by the sign bit;
-  dtype=torch.int8    — LLRs in [-127, 127], saturating fip_char
-                        arithmetic, decisions llr < 0.
+Three families, as in the JAX package:
+  dtype=torch.float32  — f on the raw bits, decisions by the sign bit;
+  dtype=torch.bfloat16 — LLRs rounded to bf16 on entry, bf16 state (f, g
+                         and ZeroR rounded once on store, leaves in
+                         float32), decisions by the sign bit; the glue
+                         above kernel_span runs in bf16 too, as the JAX
+                         hybrid's does;
+  dtype=torch.int8     — LLRs in [-127, 127], saturating fip_char
+                         arithmetic, decisions llr < 0.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ class FastSSCDecoder:
         n = block_length.bit_length() - 1
         if (1 << n) != block_length:
             raise ValueError(f"block length {block_length} is not a power of 2")
-        self._fam = family(dtype)  # raises for a dtype other than float32 or int8
+        self._fam = family(dtype)  # raises for a dtype other than float32, bf16 or int8
         self.block_length = block_length
         self.frozen = np.sort(np.asarray(frozen_bit_positions, dtype=np.int64))
         self.info_pos = info_indices(block_length, self.frozen)

@@ -4,13 +4,14 @@ The port of polar_codes_tpu/models/scl.py SCLDecoder for the path its
 fast decode takes (`_decode_pallas_fast`): the tree levels up to
 `kernel_span` run in the SCL subtree kernel K1 (ops/scl_kernel_bl.py), the
 few wider levels above run here as torch glue in the same [w, S, B]
-layout (the JAX `xla_node`), and the decision bits travel as one packed
-int32 word per (position, codeword), bit l = path l. The tail then checks
-the CRC on the packed word (one masked XOR-reduction per tail bit, all
-paths at once; a detector that is not affine, CMAC, checks the unpacked
-info bits of every path instead), picks the best path whose check holds
-(the ML path if none does), shifts its codeword out of the word and
-gathers the info bits.
+layout (the JAX `xla_node`), and the decision bits travel packed, one
+int32 word per (position, codeword) with bit l = path l for L <= 32, and
+W = ceil(L / 32) words [W, S, B] above (path l: bit l % 32 of word l //
+32). The tail then checks the CRC on the packed words (one masked
+XOR-reduction per tail bit and word, all paths at once; a detector that
+is not affine, CMAC, checks the unpacked info bits of every path
+instead), picks the best path whose check holds (the ML path if none
+does), shifts its codeword out of its word and gathers the info bits.
 
 Path metrics are LLR-based, higher is better; the list widens from one
 path at metric 0 until forks have produced L candidates. Gathers are real
@@ -28,13 +29,13 @@ Three families, as in the JAX package (`dtype`):
 K1 runs each family as its own instantiation (ops/scl_kernel_bl.py).
 
 L = 1 is plain SC: it decodes through the Fast-SSC decoder (kernel K3,
-models/fastssc.py, float32 or int8), as the JAX package does, and recovers
-the path metric in its telescoped codeword form.
+models/fastssc.py, in the decoder's dtype), as the JAX package does, and
+recovers the path metric in its telescoped codeword form. Any other L
+decodes through K1, whose kernel takes lists up to scl_kernel_bl.MAX_LIST.
 
 The batch-first and batch-last XLA paths of the JAX package are not
 ported: the plain version of K1 plus this glue is the port's reference,
 and the JAX package's paths remain the parity reference of the tests.
-L > 32 is a later slice.
 """
 
 from __future__ import annotations
@@ -47,13 +48,15 @@ import torch
 from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform
 from ..ops.scl_kernel_bl import (
-    MAX_LIST,
     SubtreeSchedule,
     build_schedule,
     family,
+    n_words,
     packed_bipolar,
+    plane,
     scl_subtree,
     take_packed,
+    unpack,
 )
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
@@ -96,8 +99,7 @@ class SCLDecoder:
     version on the card explicitly. At list_size=1 the decoder is the
     Fast-SSC decoder, and subtree_fn is K3's (`fastssc_subtree_plain`).
     dtype is torch.float32, torch.int8 or torch.bfloat16 (the module
-    docstring says what each does); list_size=1 takes float32 or int8,
-    the families of K3.
+    docstring says what each does).
     """
 
     def __init__(
@@ -117,15 +119,10 @@ class SCLDecoder:
         n = block_length.bit_length() - 1
         if (1 << n) != block_length:
             raise ValueError(f"block length {block_length} is not a power of 2")
-        if not 1 <= list_size <= MAX_LIST:
-            raise NotImplementedError(
-                f"list_size={list_size}: the packed bit word holds at most "
-                f"{MAX_LIST} paths")
+        if list_size < 1:
+            raise ValueError(f"list_size={list_size}: a list holds at least one path")
         if dtype not in _STATE_DTYPES:
             raise ValueError(f"SCLDecoder takes float32, int8 or bfloat16 LLRs, got {dtype}")
-        if list_size == 1 and dtype == torch.bfloat16:
-            raise ValueError("list_size=1 decodes through Fast-SSC, whose kernel K3 "
-                             "has float32 and int8 families only")
         if max_enum_k is None:
             max_enum_k = 4
         if list_size == 1:  # ENUM leaves would be less greedy than SC
@@ -159,6 +156,11 @@ class SCLDecoder:
         self._schedules = {}
         self._info_pos_t = torch.as_tensor(self.info_pos, device=self.device)
         self._syndrome = self._syndrome_consts()
+
+    @property
+    def words(self) -> int:
+        """int32 words of a packed position (one up to 32 paths)."""
+        return n_words(self.list_size)
 
     # ---- constants -------------------------------------------------------
 
@@ -202,10 +204,10 @@ class SCLDecoder:
     # ---- glue above kernel_span ----------------------------------------------
 
     def _glue_node(self, node: CodeNode, llr, metrics):
-        """llr [w, S, B], metrics [B, w] -> (word [S, B] i32, perm [B, w'],
-        metrics [B, w']). Subtrees of span <= kernel_span, and leaves longer
-        than it, go to the subtree function whole; a bf16 call that widens
-        the list goes in float32."""
+        """llr [w, S, B], metrics [B, w] -> (word [S, B] or [W, S, B] i32,
+        perm [B, w'], metrics [B, w']). Subtrees of span <= kernel_span, and
+        leaves longer than it, go to the subtree function whole; a bf16 call
+        that widens the list goes in float32."""
         if node.length <= self.kernel_span or node.kind != NodeKind.BRANCH:
             sched = self.schedule(node, llr.shape[0])
             if sched.w_out != sched.w_in and llr.dtype == torch.bfloat16:
@@ -220,14 +222,15 @@ class SCLDecoder:
         llr_g = torch.gather(llr, 0, idx)
         a, b = llr_g[:, :half], llr_g[:, half:]
         right, p_right, metrics = self._glue_node(
-            node.right, fam.g(a, b, packed_bipolar(left, w_mid)), metrics)
+            node.right, fam.g(a, b, packed_bipolar(left, w_mid, self.words)), metrics)
         w_out = metrics.shape[-1]
-        left = take_packed(left, p_right.T, w_out)
+        left = take_packed(left, p_right.T, w_out, self.words)
         perm = torch.gather(p_left, 1, p_right.to(torch.int64))
-        return torch.cat([left ^ right, right], dim=0), perm, metrics
+        return torch.cat([left ^ right, right], dim=-2), perm, metrics
 
     def decode_packed(self, llr: torch.Tensor):
-        """llr [B, N] -> (packed codeword word [N, B] i32, metrics [B, L])."""
+        """llr [B, N] -> (packed codeword words [N, B] i32, or [W, N, B]
+        above 32 paths; metrics [B, L])."""
         flat = self._check_input(llr)
         n_batch = flat.shape[0]
         metrics = torch.zeros((n_batch, 1), dtype=torch.float32, device=flat.device)
@@ -260,7 +263,7 @@ class SCLDecoder:
             return (codeword[..., None, :], metric[..., None],
                     torch.ones(lead + (1,), dtype=torch.bool, device=llr.device))
         word, metrics = self.decode_packed(llr)
-        planes = torch.stack([(word >> l) & 1 for l in range(self.list_size)], 0)
+        planes = unpack(word, self.list_size, self.words)
         codewords = planes.permute(2, 0, 1).to(torch.uint8)
         codewords = codewords.reshape(lead + (self.list_size, self.block_length))
         metrics = metrics.reshape(lead + (self.list_size,))
@@ -278,27 +281,30 @@ class SCLDecoder:
             return info, codeword, self.detector.check(info)
         word, metrics = self.decode_packed(llr)
         active = metrics > _ACTIVE_THRESHOLD
-        n_list = self.list_size
-        lanes = torch.arange(n_list, device=word.device)
+        n_list, words = self.list_size, self.words
         if not self.systematic:
             # info bits live in the u domain: re-encode every path
-            planes = torch.stack([(word >> l) & 1 for l in range(n_list)], 0)
+            planes = unpack(word, n_list, words)
             u = butterfly_transform(planes.permute(2, 0, 1))
             info_all = u.index_select(-1, self._info_pos_t)
             ok_all = self.detector.check(info_all) & active
         elif self._syndrome is not None:
             idx, g0 = self._syndrome
-            ext = torch.cat([word, torch.zeros_like(word[:1])], dim=0)
-            parity = _xor_reduce(ext[idx])  # [T, B]; bit l = path l's parity
-            bad = torch.zeros_like(parity[0])
+            ext = torch.cat([word, torch.zeros_like(word[..., :1, :])], dim=-2)
+            taken = ext.reshape(words, -1, ext.shape[-1])[:, idx]  # [W, T, M, B]
+            # [W, T, B]: bit l % 32 of word l // 32 = path l's parity
+            parity = _xor_reduce(taken.flatten(0, 1)).unflatten(0, taken.shape[:2])
+            bad = torch.zeros_like(parity[:, 0])
             for t, g in enumerate(g0):
-                bad = bad | (~parity[t] if g else parity[t])
-            ok_all = (((bad[:, None] >> lanes) & 1) == 0) & active
+                bad = bad | (~parity[:, t] if g else parity[:, t])
+            lanes = torch.arange(n_list, device=word.device)
+            fails = (bad[lanes >> 5] >> (lanes & 31)[:, None]) & 1  # [L, B]
+            ok_all = (fails.T == 0) & active
         elif self.detector.tail_bits:
             # a detector that is not affine (CMAC): unpack the info bits of
             # every path and check them all in one call, [L, B, K] -> [B, L]
-            info_word = word.index_select(0, self._info_pos_t)  # [K, B]
-            info_all = torch.stack([(info_word >> l) & 1 for l in range(n_list)], 0)
+            info_word = word.index_select(-2, self._info_pos_t)  # [K, B] or [W, K, B]
+            info_all = unpack(info_word, n_list, words)
             ok_all = self.detector.check(info_all.transpose(1, 2).to(torch.uint8)).T & active
         else:
             ok_all = active
@@ -310,7 +316,7 @@ class SCLDecoder:
         else:
             sel = metrics.argmax(dim=-1)
             detector_ok = torch.ones_like(sel, dtype=torch.bool)
-        codeword = ((word >> sel[None, :]) & 1).T.to(torch.uint8)
+        codeword = plane(word, sel, words).T.to(torch.uint8)
         if self.systematic:
             info = codeword.index_select(1, self._info_pos_t)
         else:

@@ -5,17 +5,20 @@ Counterpart of polar_codes_tpu/ops/fastssc_kernel.py: one call decodes a
 whole span <= kernel_span subtree of the Fast-SSC tree for a batch of
 codewords, in the TPU kernel's batch-minor layout,
 
-    llr [span, B] (float32, or int8 for the char family)
+    llr [span, B] (float32, bfloat16, or int8 for the char family)
         -> root call:   bits [span, B] uint8          (the TPU `kernel`)
            below glue:  bipolar state [span, B] +-1   (the TPU `kernel_bits`)
 
-in one of two families, chosen by the LLRs' dtype: float32 (f on the raw
-bits, hard decision by the sign bit, ZeroR a plain b + a) or the
-saturating char family on int8 LLRs (f in product form, f, g and ZeroR
-clipped to [-127, 127], hard decision llr < 0). The TPU
-kernel is traced per subtree; here `build_schedule` flattens the subtree
-once on the host into a post-order op list (F, G, ZERO_R, COMBINE, LEAF),
-and one CUDA kernel per family runs any schedule.
+in one of three families, chosen by the LLRs' dtype: float32 (f on the
+raw bits, hard decision by the sign bit, ZeroR a plain b + a), bfloat16
+(the TPU kernel's `_Ops` for a 16-bit float state: f in product form, g =
+b +- a and ZeroR b + a each rounded to bf16 once on store; leaves compute
+in float32 on the stored values, the REP sum in span order; decisions by
+the sign bit) or the saturating char family on int8 LLRs (f in product
+form, f, g and ZeroR clipped to [-127, 127], hard decision llr < 0). The
+TPU kernel is traced per subtree; here `build_schedule` flattens the
+subtree once on the host into a post-order op list (F, G, ZERO_R,
+COMBINE, LEAF), and one CUDA kernel per family runs any schedule.
 
 `fastssc_subtree` runs `fastssc_subtree_plain` for tensors on the CPU and
 the CUDA kernel for tensors on the card, never one in place of the other.
@@ -26,6 +29,11 @@ for bit. f's clip acts only on an int8 input of -128, which the
 simulator's quantiser never produces: there the JAX package's two char
 forms disagree (f_minsum_i8 wraps to -128, f_minsum_sat gives 128), and
 the port saturates to 127 in the kernel and the plain version alike.
+
+The JAX package's two bf16 arms differ: its XLA decoder sums a REP leaf in
+bf16 and decides with jnp.sign, its Pallas kernel sums in f32 and decides
+by the sign bit, so a few codewords differ between them. The port follows
+the Pallas kernel, the one this kernel replaces.
 """
 
 from __future__ import annotations
@@ -38,15 +46,16 @@ import numpy as np
 import torch
 
 from . import _build
-from .fg import f_minsum_bits, g_update, g_update_i8
+from .fg import f_minsum, f_minsum_bits, g_update, g_update_i8
 from ..models.tree import CodeNode, NodeKind
 
 MAX_SPAN = 2048  # shared memory holds [2 * span] LLRs + [span] bits per codeword
-LAUNCHES = {"float32": 0, "int8": 0}  # kernel launches per family since the last reset
+LAUNCHES = {"float32": 0, "int8": 0, "bfloat16": 0}  # kernel launches per family since the last reset
 
 OP_F, OP_G, OP_ZERO_R, OP_COMBINE, OP_LEAF = range(5)
 _KIND_CODE = {NodeKind.RATE0: 0, NodeKind.RATE1: 1, NodeKind.REP: 2, NodeKind.SPC: 3}
-_DTYPES = {torch.float32: "float32", torch.int8: "int8"}
+_DTYPES = {torch.float32: "float32", torch.int8: "int8", torch.bfloat16: "bfloat16"}
+_FAMILY_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}  # the kernel's `family`
 
 
 @dataclass(eq=False)
@@ -119,6 +128,31 @@ class _Float:
         return acc
 
 
+class _Bf16:
+    """bf16 state: f and g on the stored values, each result rounded to
+    bf16 once; leaves widen to float32."""
+
+    @staticmethod
+    def f(a, b):
+        return f_minsum(a, b)  # exact: one of the inputs' magnitudes
+
+    @staticmethod
+    def g(a, b, left_bipolar):
+        return (b.float() + left_bipolar.float() * a.float()).to(torch.bfloat16)
+
+    @staticmethod
+    def zero_r(a, b):
+        return (b.float() + a.float()).to(torch.bfloat16)
+
+    @staticmethod
+    def hard(x):
+        return _Float.hard(x.float()).to(x.dtype)
+
+    @staticmethod
+    def rep_sum(x):
+        return _Float.rep_sum(x.float())
+
+
 class _Char:
     g = staticmethod(g_update_i8)
 
@@ -153,7 +187,7 @@ def _leaf(node: CodeNode, llr, fam):
     # SPC: hard decisions; if their parity is odd, flip the weakest (the
     # lowest index among equal minimum magnitudes)
     hard = fam.hard(llr)
-    mag = llr.to(torch.int32).abs() if llr.dtype == torch.int8 else llr.abs()
+    mag = llr.to(torch.int32).abs() if llr.dtype == torch.int8 else llr.float().abs()
     odd = (hard < 0).sum(dim=0) % 2 == 1
     span = llr.shape[0]
     iota = torch.arange(span, device=llr.device)[:, None]
@@ -178,15 +212,17 @@ def _emit(node: CodeNode, llr, fam):
 
 
 def family(dtype: torch.dtype):
-    """The arithmetic of the LLR dtype: _Float for float32, _Char for int8."""
+    """The arithmetic of the LLR dtype: _Float for float32, _Bf16 for
+    bfloat16, _Char for int8."""
     if dtype not in _DTYPES:
-        raise ValueError(f"Fast-SSC takes float32 or int8 LLRs, got {dtype}")
-    return _Char if dtype == torch.int8 else _Float
+        raise ValueError(f"Fast-SSC takes bfloat16, float32 or int8 LLRs, got {dtype}")
+    return {torch.int8: _Char, torch.bfloat16: _Bf16}.get(dtype, _Float)
 
 
 def fastssc_subtree_plain(sched: FastSSCSchedule, llr: torch.Tensor, root: bool):
-    """Plain version of K3, on any device: llr [span, B] float32 or int8 ->
-    uint8 bits [span, B] if root, else bipolar state in llr's dtype."""
+    """Plain version of K3, on any device: llr [span, B] float32, bfloat16
+    or int8 -> uint8 bits [span, B] if root, else bipolar state in llr's
+    dtype."""
     state = _emit(sched.node, llr, family(llr.dtype))
     if root:
         return (state < 0).to(torch.uint8)
@@ -214,7 +250,7 @@ def launch(lib, sched: FastSSCSchedule, llr: torch.Tensor, root: bool) -> torch.
                       dtype=torch.uint8 if root else llr.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
     err = fn(ops.data_ptr(), ops.shape[0], llr.data_ptr(), out.data_ptr(),
-             int(llr.dtype == torch.int8), int(bool(root)), sched.span, n_batch, stream)
+             _FAMILY_CODES[llr.dtype], int(bool(root)), sched.span, n_batch, stream)
     if err:
         raise RuntimeError(f"fastssc_subtree launch failed: CUDA error {err}")
     return out
@@ -229,7 +265,8 @@ def fastssc_subtree(sched: FastSSCSchedule, llr: torch.Tensor, root: bool):
         raise ValueError(f"fastssc_subtree takes CPU or CUDA tensors, got {llr.device}")
     name = _DTYPES.get(llr.dtype)
     if name is None:
-        raise ValueError(f"fastssc_subtree takes float32 or int8 LLRs, got {llr.dtype}")
+        raise ValueError(
+            f"fastssc_subtree takes bfloat16, float32 or int8 LLRs, got {llr.dtype}")
     if llr.dim() != 2 or llr.shape[0] != sched.span:
         raise ValueError(
             f"fastssc_subtree expects llr [{sched.span}, B], got {tuple(llr.shape)}")

@@ -8,11 +8,18 @@ kernel's batch-minor layouts,
     (llr [w_in, span, B], metrics [B, w_in] f32)
         -> (bits [span, B] i32, perm [B, w_out] i32, metrics [B, w_out] f32)
 
-with bit l of a bits word holding path l's decision (the bitplane form,
-L <= 32) and perm mapping each output slot to the input slot it descends
-from. The TPU kernel is traced per subtree; here `build_schedule` flattens
-the subtree once on the host into a post-order op list (F, G, COMBINE,
-LEAF), and one CUDA kernel per list size and family runs any schedule.
+with bit l of a bits word holding path l's decision (the bitplane form)
+and perm mapping each output slot to the input slot it descends from. A
+list of more than 32 paths packs its bits into W = ceil(L / 32) words,
+bits [W, span, B] (path l: bit l % 32 of word l // 32), the port's
+counterpart of the TPU kernel's unpacked-path family (bitplane=False),
+which it takes for L > 32. The TPU kernel is traced per subtree; here
+`build_schedule` flattens the subtree once on the host into a post-order
+op list (F, G, COMBINE, LEAF), and one CUDA kernel per family and
+power-of-two list capacity runs any schedule at any list size up to that
+capacity (the list size is a launch argument: slots at or above it never
+become live; L = 2, 4, 8, 16, 32 each have a kernel with the list size
+fixed at build time).
 
 Three arithmetic families, chosen by the dtype of the LLR state (the
 three branches of the JAX _BlEmitter):
@@ -47,11 +54,13 @@ from . import _build
 from .fg import f_minsum, f_minsum_bits, f_minsum_sat, g_update, g_update_sat
 from ..models.tree import CodeNode, NodeKind
 
-MAX_LIST = 32  # the path axis packs into one int32 word
+MAX_LIST = 128  # the kernel's largest list (any L up to it; 4 words)
 MAX_CAND = 32  # candidate slots per path in the kernel (ENUM k <= 5)
 MAX_LEVELS = 16  # tree levels per subtree in the kernel
-# kernel launches per family since the counts were last reset
+# kernel launches per family since the counts were last reset, and per
+# list size (every family; cleared by the caller)
 LAUNCHES = {"float32": 0, "char": 0, "bfloat16": 0}
+LIST_LAUNCHES: Dict[int, int] = {}
 # codewords (warps) per block of a K1 launch: 1, 2 or 4; 0 lets the kernel
 # choose from the batch
 PER_BLOCK = 0
@@ -199,28 +208,65 @@ def build_schedule(node: CodeNode, w_in: int, list_size: int) -> SubtreeSchedule
 
 
 # ---- packed-word helpers (shared by the plain version and the glue) --------
+#
+# A list of L paths packs its decision bits into n_words(L) int32 words per
+# (position, codeword): path l is bit l % 32 of word l // 32. One word (L <=
+# 32) is an [S, B] tensor; more are [W, S, B], the word axis first. Each
+# helper takes the word count (`words`, default 1, the single-word form).
 
-def pack01(b01: torch.Tensor) -> torch.Tensor:
-    """[w, ...] int {0,1} -> packed [...] int32 (plane l = row l)."""
-    acc = b01[0].to(torch.int32)
-    for l in range(1, b01.shape[0]):
-        acc = acc | (b01[l].to(torch.int32) << l)
-    return acc
-
-
-def take_packed(word: torch.Tensor, src: torch.Tensor, w_out: int) -> torch.Tensor:
-    """Path-fork gather on a packed [S, B] word: out plane l = in plane
-    src[l, b]; src is [w_out, B]."""
-    acc = (word >> src[0][None, :]) & 1
-    for l in range(1, w_out):
-        acc = acc | (((word >> src[l][None, :]) & 1) << l)
-    return acc
+def n_words(list_size: int) -> int:
+    """int32 words a packed position holds for `list_size` paths."""
+    return max(1, (list_size + 31) // 32)
 
 
-def packed_bipolar(word: torch.Tensor, w: int) -> torch.Tensor:
+def pack01(b01: torch.Tensor, words: int = 1) -> torch.Tensor:
+    """[w, ...] int {0,1} -> packed [...] int32 (plane l = row l), or
+    [words, ...] for more than one word."""
+    if words == 1:
+        acc = b01[0].to(torch.int32)
+        for l in range(1, b01.shape[0]):
+            acc = acc | (b01[l].to(torch.int32) << l)
+        return acc
+    out = torch.zeros((words,) + b01.shape[1:], dtype=torch.int32, device=b01.device)
+    for l in range(b01.shape[0]):
+        out[l >> 5] |= b01[l].to(torch.int32) << (l & 31)
+    return out
+
+
+def plane(word: torch.Tensor, l, words: int = 1) -> torch.Tensor:
+    """Path l's {0,1} bits [S, B] of a packed word; l is an int or a [B]
+    tensor of paths per codeword."""
+    if words == 1:
+        return (word >> (l[None, :] if torch.is_tensor(l) else l)) & 1
+    if not torch.is_tensor(l):
+        return (word[l >> 5] >> (l & 31)) & 1
+    sel = torch.gather(word, 0, (l >> 5)[None, None, :].expand(1, word.shape[1], -1))[0]
+    return (sel >> (l & 31)[None, :]) & 1
+
+
+def take_packed(word: torch.Tensor, src: torch.Tensor, w_out: int,
+                words: int = 1) -> torch.Tensor:
+    """Path-fork gather on a packed word: out plane l = in plane src[l, b];
+    src is [w_out, B]."""
+    if words == 1:
+        acc = (word >> src[0][None, :]) & 1
+        for l in range(1, w_out):
+            acc = acc | (((word >> src[l][None, :]) & 1) << l)
+        return acc
+    out = torch.zeros_like(word)
+    for l in range(w_out):
+        out[l >> 5] |= plane(word, src[l], words) << (l & 31)
+    return out
+
+
+def unpack(word: torch.Tensor, w: int, words: int = 1) -> torch.Tensor:
+    """Packed word -> [w, S, B] int32 {0,1} planes."""
+    return torch.stack([plane(word, l, words) for l in range(w)], dim=0)
+
+
+def packed_bipolar(word: torch.Tensor, w: int, words: int = 1) -> torch.Tensor:
     """Packed word -> [w, S, B] bipolar +-1 float32 (g's operand)."""
-    planes = torch.stack([(word >> l) & 1 for l in range(w)], dim=0)
-    return (1 - 2 * planes).to(torch.float32)
+    return (1 - 2 * unpack(word, w, words)).to(torch.float32)
 
 
 def take_state(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -301,6 +347,7 @@ class _Plain:
 
     def __init__(self, list_size: int, drop: float = float("-inf"), fam=_Float):
         self.n_list = list_size
+        self.words = n_words(list_size)
         self.drop = drop
         self.fam = fam
 
@@ -347,14 +394,16 @@ class _Plain:
         hard = self.fam.hard(llr).to(torch.int32)
         pos = torch.arange(span, device=llr.device)[None, :, None]
         if node.kind == NodeKind.RATE0:
-            zeros = torch.zeros(llr.shape[1:], dtype=torch.int32, device=llr.device)
+            shape = llr.shape[1:] if self.words == 1 else (self.words,) + llr.shape[1:]
+            zeros = torch.zeros(shape, dtype=torch.int32, device=llr.device)
             return zeros, None, metrics + _seq_sum(torch.clamp(llr, max=0.0))
         if node.kind == NodeKind.REP:
             deltas = torch.stack([_seq_sum(torch.clamp(llr, max=0.0)),
                                   -_seq_sum(torch.clamp(llr, min=0.0))])
             new_m, src, cand = self.prune(metrics, deltas)
-            word = pack01((cand != 0).to(torch.int32))
-            return word[None].expand(span, -1).contiguous(), src, new_m
+            word = pack01((cand != 0).to(torch.int32), self.words)  # [B] or [W, B]
+            return (word.unsqueeze(-2).expand(*word.shape[:-1], span, -1).contiguous(), src,
+                    new_m)
         if node.kind == NodeKind.ENUM:
             table = torch.as_tensor(enum_table(node), device=llr.device)
             sum_abs = _seq_sum(llr.abs())
@@ -364,14 +413,14 @@ class _Plain:
                 scores = scores + table[:, s, None, None] * llr[None, :, s]
             new_m, src, cand = self.prune(metrics, 0.5 * (scores - sum_abs[None]))
             neg = (table < 0).to(torch.int32)[cand]  # [w', B, S]
-            return pack01(neg.permute(0, 2, 1)), src, new_m
+            return pack01(neg.permute(0, 2, 1), self.words), src, new_m
         mag = llr.abs()
         if node.kind == NodeKind.RATE1 and span == 1:
             m0 = mag[:, 0]
             new_m, src, cand = self.prune(
                 metrics, torch.stack([torch.zeros_like(m0), -m0]))
             bits = take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]
-            return pack01(bits), src, new_m
+            return pack01(bits, self.words), src, new_m
         if node.kind == NodeKind.RATE1:
             (m0, m1), (i0, i1) = self.weakest(mag, 2)
             deltas = torch.stack([torch.zeros_like(m0), -m0, -m1, -m0 - m1])
@@ -379,7 +428,7 @@ class _Plain:
             flip0 = ((cand == 1) | (cand == 3))[:, None] & (pos == take_vec(i0, src)[:, None])
             flip1 = ((cand == 2) | (cand == 3))[:, None] & (pos == take_vec(i1, src)[:, None])
             bits = take_state(hard, src) ^ (flip0 | flip1).to(torch.int32)
-            return pack01(bits), src, new_m
+            return pack01(bits, self.words), src, new_m
         # SPC
         ms, idxs = self.weakest(mag, 4)
         parity_odd = hard.sum(dim=1) % 2 == 1
@@ -401,10 +450,11 @@ class _Plain:
         flip = torch.zeros_like(take_state(hard, src), dtype=torch.bool)
         for j in range(4):
             flip = flip | (flips[..., j][:, None] & (pos == take_vec(idxs[j], src)[:, None]))
-        return pack01(take_state(hard, src) ^ flip.to(torch.int32)), src, new_m
+        return pack01(take_state(hard, src) ^ flip.to(torch.int32), self.words), src, new_m
 
     def node(self, node: CodeNode, llr, metrics):
-        """llr [w, S, B], metrics [w, B] -> (word [S, B], perm, metrics)."""
+        """llr [w, S, B], metrics [w, B] -> (packed word [S, B] or [W, S, B],
+        perm, metrics)."""
         if node.kind != NodeKind.BRANCH:
             return self.leaf(node, llr, metrics)
         half = node.length // 2
@@ -415,19 +465,20 @@ class _Plain:
             llr_g = take_state(llr, p_left)
             a, b = llr_g[:, :half], llr_g[:, half:]
         right, p_right, metrics = self.node(
-            node.right, self.fam.g(a, b, packed_bipolar(left, w_mid)), metrics)
+            node.right, self.fam.g(a, b, packed_bipolar(left, w_mid, self.words)), metrics)
         if p_right is not None:
-            left = take_packed(left, p_right, metrics.shape[0])
+            left = take_packed(left, p_right, metrics.shape[0], self.words)
         perm = p_right if p_left is None else (
             p_left if p_right is None else take_vec(p_left, p_right))
-        return torch.cat([left ^ right, right], dim=0), perm, metrics
+        return torch.cat([left ^ right, right], dim=-2), perm, metrics
 
 
 def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
                       metrics: torch.Tensor):
     """Plain version of K1, on any device: (llr [w_in, span, B] float32,
     int16 or bfloat16, which picks the family; metrics [B, w_in] f32) ->
-    (bits [span, B] i32, perm [B, w_out] i32, metrics [B, w_out] f32)."""
+    (bits [span, B] i32, or [W, span, B] for L > 32; perm [B, w_out] i32;
+    metrics [B, w_out] f32)."""
     plain = _Plain(sched.list_size, fam=family(llr.dtype))
     word, perm, met = plain.node(sched.node, llr, metrics.T)
     if perm is None:
@@ -473,13 +524,14 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     On the card one warp decodes one codeword with its list state (the
     LLRs of every tree level below the subtree's root, the packed bit
     words, the perms) in shared memory, PER_BLOCK codewords a block (0:
-    chosen from the batch). A one-leaf schedule whose input does not fit
+    chosen from the batch). Any list size from 2 to MAX_LIST runs, in the
+    instantiation of the next power of two. A one-leaf schedule whose input does not fit
     there as well is decoded from device memory (the large-N tree
     schedule's longest pure leaves at L = 32). A branched schedule whose
     state does not fit in the card's opt-in shared memory per block (L *
-    span values of the state type plus 4 * span bytes and the list's
-    bookkeeping; only a caller-chosen kernel_span can exceed it) raises
-    NotImplementedError."""
+    span values of the state type plus 4 * W * span bytes and the list's
+    bookkeeping, L the next power of two; only a caller-chosen
+    kernel_span can exceed it) raises NotImplementedError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -497,12 +549,13 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
             f"[B, {sched.w_in}], got {tuple(llr.shape)} and {tuple(metrics.shape)}")
     if not (llr.is_contiguous() and metrics.is_contiguous()):
         raise ValueError("scl_subtree takes contiguous tensors")
-    if sched.list_size not in (2, 4, 8, 16, 32) or sched.levels > MAX_LEVELS:
+    if not 2 <= sched.list_size <= MAX_LIST or sched.levels > MAX_LEVELS:
         raise NotImplementedError(
-            f"the kernel covers L in (2, 4, 8, 16, 32) and at most {MAX_LEVELS} "
+            f"the kernel covers 2 <= L <= {MAX_LIST} and at most {MAX_LEVELS} "
             f"tree levels, got L={sched.list_size}, {sched.levels} levels")
     out = launch(_build.load("scl_subtree"), sched, llr, metrics)
     LAUNCHES[fam.name] += 1
+    LIST_LAUNCHES[sched.list_size] = LIST_LAUNCHES.get(sched.list_size, 0) + 1
     return out
 
 
@@ -513,7 +566,9 @@ def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     dev = llr.device
     ops, masks, spc = sched.device_consts(dev)
     n_batch = llr.shape[-1]
-    bits = torch.empty((sched.span, n_batch), dtype=torch.int32, device=dev)
+    words = n_words(sched.list_size)
+    shape = (sched.span, n_batch) if words == 1 else (words, sched.span, n_batch)
+    bits = torch.empty(shape, dtype=torch.int32, device=dev)
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
     err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),

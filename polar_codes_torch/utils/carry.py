@@ -23,7 +23,8 @@ state keys:
     dtype         optional str, "float32" (default), "int8" or "bfloat16":
                   the decoder's LLR family      (scl; large_sc and
                   large_scl take float32 or int8)
-    fast_dtype    optional str, "float32" or "int8"     (fastssc, adaptive)
+    fast_dtype    optional str, "float32", "int8" or "bfloat16"
+                                                        (fastssc, adaptive)
     list_schedule optional int sequence                 (adaptive)
     iterations    optional int                          (scan, fastsscan)
     trial_limit   optional int (default 8)              (depthfirst)
@@ -85,7 +86,7 @@ def _same(name: str, carried, ours) -> None:
             f"{carried.tolist()} vs {ours.tolist()}")
 
 
-_FAST_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+_FAST_DTYPES = {"float32": torch.float32, "int8": torch.int8, "bfloat16": torch.bfloat16}
 _CARRY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPES = {"float32": torch.float32, "int8": torch.int8, "bfloat16": torch.bfloat16}
 

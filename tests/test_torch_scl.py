@@ -176,8 +176,10 @@ def test_list_size_limits():
     frozen = frozen_bits(64, 32, 0.0)
     sc = SCLDecoder(64, frozen, list_size=1, device="cpu")
     assert sc.tree.kind.value == "branch" and sc._sc is not None  # L = 1: Fast-SSC
-    with pytest.raises(NotImplementedError, match="32"):
-        SCLDecoder(64, frozen, list_size=64, device="cpu")
+    assert SCLDecoder(64, frozen, list_size=32, device="cpu").words == 1
+    assert SCLDecoder(64, frozen, list_size=64, device="cpu").words == 2  # two packed words
+    with pytest.raises(ValueError, match="at least one path"):
+        SCLDecoder(64, frozen, list_size=0, device="cpu")
 
 
 def test_subtree_kernel_never_falls_back(monkeypatch):
