@@ -66,8 +66,18 @@ order: the two calls of a float32 CA-SCL-8 decode at B = 2048 and 181 and
 the eight of a CA-SCL-32 decode at B = 2048, each call within a burst of
 BURST; with each build's registers and spills for L = 8 and 32.
 
+Last, `large_lists`: (32768, 16384) CRC16 CA-SCL-64 (chunk 256,
+sub-block 16, B = 128, 2 dB) on both schedules, each profiled and split
+into K7 calls, K1 calls, glue and tail (CUDA events, per decode).
+Last, `k7_ab SRC.cu ...`: K7 built from each named source (this tree's
+csrc/large_scl_chunk.cu, or an older tree's) and timed in one process on
+the K7 calls of a (32768, 16384) CA-SCL-8 decode at B = 128, float32 (with
+sub-blocks) and int8, a decode's calls within a burst, in rounds of
+alternating order.
+
     python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops] [tree]
-                            [depthfirst] [lists] [k1_ab SRC.cu ...]
+                            [depthfirst] [lists] [large_lists] [k1_ab SRC.cu ...]
+                            [k7_ab SRC.cu ...]
 
 runs the named parts (all without arguments).
 
@@ -156,7 +166,8 @@ def main():
     print(card)
     sources = [a for a in sys.argv[1:] if a.endswith(".cu")]
     parts = {a for a in sys.argv[1:] if not a.endswith(".cu")} or {
-        "paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops", "tree", "depthfirst", "lists"}
+        "paths", "scl", "large", "k1_ops", "scan_ops", "k3_ops", "tree", "depthfirst", "lists",
+        "large_lists"}
     _build.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -201,6 +212,10 @@ def main():
         list_sizes(card, torch, dev, frozen, llr / AMPL)
     if "k1_ab" in parts:
         k1_ab(card, torch, dev, frozen, llr / AMPL, sources)
+    if "large_lists" in parts:
+        large_lists(card, torch, dev, gen)
+    if "k7_ab" in parts:
+        k7_ab(card, torch, dev, gen, sources)
 
 
 def kernel_launches():
@@ -359,6 +374,78 @@ def k1_ab(card, torch, dev, frozen, llr, sources, rounds=4):
                           "card": card}), flush=True)
 
 
+def k7_ab(card, torch, dev, gen, sources, rounds=4):
+    """K7 from each source in `sources` (csrc/large_scl_chunk.cu of this
+    tree or an older one: the same C interface), timed in one process on
+    the K7 calls of a (32768, 16384) CA-SCL-8 decode at B = 128 (float32
+    with sub-blocks of 16 and the bf16 carry, phase 17's path; and int8,
+    phase 23's), a decode's calls within a burst of BURST, in rounds of
+    alternating order; every build's outputs equal the first's."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    nvcc = _build.nvcc_path()
+    builds = []
+    for src in sources:
+        path = Path(src).resolve()
+        key = hashlib.sha256(path.read_bytes() + repr((_build.NVCC_FLAGS, nvcc)).encode())
+        out = _build.BUILD / f"liblarge_scl_chunk_ab-{key.hexdigest()[:16]}.so"
+        proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(out), str(path)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds.append((src, out, proc))
+    libs = []
+    for src, out, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {src}:\n{log}")
+        libs.append(ctypes.CDLL(str(out)))
+    n_len, k_len, chunk = LARGE_SCL
+    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+    det = CRC16()
+    enc = PolarEncoder(n_len, frozen, detector=det, device=dev)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+    info = torch.randint(0, 2, (B_LARGE, k_len), generator=gen, device=dev, dtype=torch.uint8)
+    llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+    sets = {}
+    for name, dtype, x in (("float32", torch.float32, llr), ("char", torch.int8, torch.clamp(
+            torch.round(llr * AMPL), -127, 127).to(torch.int8))):
+        calls = []
+        LargeSCLDecoder(n_len, frozen, list_size=8, detector=det, dtype=dtype, chunk=chunk,
+                        subblock=16, carry_dtype=torch.bfloat16, device=dev,
+                        chunk_fn=lambda *a, _c=calls, **kw: _c.append((a, kw)) or
+                        lk.masked_scl_chunk(*a, **kw)).decode_packed(x)
+        sets[name] = calls
+    for name, calls in sets.items():
+        want = [lk.launch_scl(libs[0], *a, **kw) for a, kw in calls]
+        for lib, (src, _, _) in zip(libs[1:], builds[1:]):
+            for (a, kw), w in zip(calls, want):
+                if not all(torch.equal(g, v) for g, v in zip(lk.launch_scl(lib, *a, **kw), w)):
+                    raise SystemExit(f"k7_ab: {src} differs from {sources[0]} on {name}")
+    times = {src: {name: [] for name in sets} for src in sources}
+    for rnd in range(rounds):
+        order = list(zip(sources, libs))
+        for src, lib in (order if rnd % 2 == 0 else order[::-1]):
+            for name, calls in sets.items():
+                ms = time_cuda(lambda: [lk.launch_scl(lib, *a, **kw)
+                                        for _ in range(BURST) for a, kw in calls], reps=CALLS)
+                times[src][name].append(ms / BURST / len(calls))
+    for src in sources:
+        print(json.dumps({"k7_ab": src, "ms_per_call_in_burst": times[src],
+                          "calls": {name: len(c) for name, c in sets.items()},
+                          "card": card}), flush=True)
+
+
 def large_paths(card, torch, dev, gen):
     """Profile the large-N decodes, float32 and int8, and split each into
     its layers."""
@@ -501,6 +588,54 @@ def tree_path(card, torch, dev, gen):
                       f"k1_l32_{longest.kind.value}_span{longest.length}_ms": l32_ms,
                       "glue_ms": packed_ms - k7 - sum(k1), "tail_ms": total_ms - packed_ms,
                       "launches_per_decode": launches, "card": card}), flush=True)
+
+
+def large_lists(card, torch, dev, gen, n_list=64):
+    """CA-SCL-64 at (32768, 16384) CRC16, chunk 256, sub-block 16, B = 128,
+    2 dB, on both schedules: each decode profiled (device ms, busy share),
+    then split into K7 calls, K1 calls (pure chunks or the tree's pure
+    leaves), the tail (CRC-aided selection over W words) and the glue (the
+    rest of decode_packed), each layer timed alone with CUDA events on the
+    inputs it saw in one decode."""
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    n_len, k_len, chunk = LARGE_SCL
+    frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+    det = CRC16()
+    enc = PolarEncoder(n_len, frozen, detector=det, device=dev)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+    info = torch.randint(0, 2, (B_LARGE, k_len), generator=gen, device=dev, dtype=torch.uint8)
+    llr = Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+    for schedule in ("scan", "tree"):
+        dec = LargeSCLDecoder(n_len, frozen, list_size=n_list, detector=det, chunk=chunk,
+                              subblock=16, schedule=schedule, device=dev)
+        name = f"large_scl{n_list}_{schedule}"
+        profile(name, lambda: dec.decode(llr), 3, card, torch, B_LARGE)
+        k7_calls, k1_calls = [], []
+        dec.chunk_fn = lambda *a, **kw: k7_calls.append((a, kw)) or lk.masked_scl_chunk(*a, **kw)
+        dec.subtree_fn = lambda *a: k1_calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+        kernel_launches()
+        dec.decode(llr)
+        launches = kernel_launches()
+        dec.chunk_fn, dec.subtree_fn = lk.masked_scl_chunk, scl_kernel_bl.scl_subtree
+        total_ms = time_cuda(lambda: dec.decode(llr), warmup=1, reps=3)
+        packed_ms = time_cuda(lambda: dec.decode_packed(llr), warmup=1, reps=3)
+        k7 = sum(time_cuda(lambda c=c: lk.masked_scl_chunk(*c[0], **c[1]), reps=3)
+                 for c in k7_calls)
+        k1 = sum(time_cuda(lambda c=c: scl_kernel_bl.scl_subtree(*c), reps=3) for c in k1_calls)
+        print(json.dumps({"path": name, "batch": B_LARGE, "list_size": n_list,
+                          "decode_ms": total_ms, "chunk_kernels_ms": k7, "leaf_kernels_ms": k1,
+                          "glue_ms": packed_ms - k7 - k1, "tail_ms": total_ms - packed_ms,
+                          "k7_calls": len(k7_calls), "k1_calls": len(k1_calls),
+                          "launches_per_decode": launches, "card": card}), flush=True)
 
 
 def depthfirst_path(card, torch, dev, gen, frozen):

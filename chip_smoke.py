@@ -197,9 +197,37 @@ AdaptiveDecoder(fast_dtype=bfloat16):
      LLRs, both output forms, bit-equal; FastSSCDecoder(bf16) at (1024,
      512), B = 2048 and (2048, 1024), AdaptiveDecoder(fast_dtype=bf16) at
      B = 2048, each equal to its plain route; K3 bf16 timed
- 40. {"kernels": [...]}, every family of all seven TPU kernels, and K1 at
-     L = 3, 12, 64 (every family) and 128
- 41. {"ok": true, "device": {...}}
+
+Slice 12, LargeSCLDecoder at every list size from 1 to 128: K7 at any L
+(L = 2, 4, 8, 16, 32 keep their kernels; every other size runs in the
+kernel of its capacity, 32, 64 or 128, csrc/large_scl_lists.cu, with W =
+ceil(L / 32) packed words above 32 paths and level 0 in device memory
+where the pyramid does not fit), the large-N glue on W words, and K1's
+one-leaf schedules at L = 1:
+ 40. K7 against its plain version at L in (1, 3, 5, 12, 24, 33, 48, 64,
+     100, 128), both families, 6 calls each: chunks of 64 and 256, B in
+     (1, 181, 128), with and without sub-blocks of every class, metrics of
+     a first call, all live and 0 to L - 1 live, integer LLRs in [-2, 2],
+     masks with rate-0 runs and all frozen (the re-take rule), L = 100 and
+     128 at chunk 256 with level 0 in device memory; K1 on one-leaf
+     schedules of every kind at L = 1 (spans 256-2048) and from device
+     memory at L = 64 and 128 (W = 2, 4); bits, perms, metrics equal
+ 41. (32768, 16384) CRC16 CA-SCL-64 and CA-SCL-128 on both schedules,
+     CA-SCL-3 and CA-SCL-1 on the scan schedule, CA-SCL-64 with the bf16
+     carry, and int8 CA-SCL-3 and -64 at (8192, 4096) (N = 32768 fails every
+     int8 block), B = 64 at 2 dB: K7 and K1 launches per decode at that L
+     as the classes say, every CRC failure a wrong block; but for L = 1
+     (held call by call in phase 40), packed words and metrics exactly
+     equal to the plain route and equal decisions
+ 42. K7 per call at L = 1, 3, 64, 128 (float32) and 3, 64 (char) beside
+     its bound and its plain version, K1 at L = 1 per decode, launches per
+     decode by list size, the CA-SCL-64 decode at B = 128 on both
+     schedules (ms, device busy share under torch.profiler), and phase
+     17's K7 call at L = 8 timed again
+ 43. {"kernels": [...]}, every family of all seven TPU kernels, K1 at L =
+     3, 12, 64 (every family), 128 and 1, and K7 at L = 1, 3, 64, 128
+     (float32) and 3, 64 (char)
+ 44. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -447,6 +475,14 @@ def main():
     s11 = run_slice11(card)
 
     # 40 ------------------------------------------------------------------
+    phase("40 K7 at L in (1, 3, 5, 12, 24, 33, 48, 64, 100, 128), both families, chunks 64 "
+          "and 256, B in (1, 181, 128); K1 at L = 1 and from device memory at W = 2, 4")
+    k7_lists = run_k7_lists(card)
+
+    # 41-42 ---------------------------------------------------------------
+    s12 = run_slice12(card, slice3["k7_l8"], k7_lists)
+
+    # 43 ------------------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -518,8 +554,8 @@ def main():
          "max_abs_err": k1_lists["err"]["float32"], "ms": k1_lists["timed"][n_list][0],
          "plain_ms": k1_lists["timed"][n_list][1], **bound(*k1_lists["timed"][n_list][2:]),
          "library_ms": None}
-        for n_list in (3, 12)] + [s11["k3"]]})
-    # 41 ------------------------------------------------------------------
+        for n_list in (3, 12)] + [s11["k3"]] + s12["entries"]})
+    # 44 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -922,11 +958,14 @@ def k6_work(m_len, n_batch):
 def k7_work(sched, codes, n_list, n_batch):
     """(bytes, operations) of one K7 call on this chunk's sub-block classes:
     llr [B, L, M] f32, mask, metrics [B, L] and class codes in; bits [B, M]
-    i32, perm and metrics [B, L] out. Operations as k1_work counts them:
-    L x h per F/G/COMBINE, L x span x candidates per leaf (2 per bit), the
-    skipped recursion of a pure sub-block not counted."""
+    i32 ([B, W, M], W = ceil(L / 32) words, above 32 paths), perm and
+    metrics [B, L] out. Operations as k1_work counts them: L x h per
+    F/G/COMBINE, L x span x candidates per leaf (2 per bit), the skipped
+    recursion of a pure sub-block not counted."""
     m_len = int(sched[0][2])
-    n_bytes = n_batch * (4 * n_list * m_len + 12 * n_list + 4 * m_len) + m_len + 4 * len(codes)
+    words = (n_list + 31) // 32
+    n_bytes = (n_batch * (4 * n_list * m_len + 12 * n_list + 4 * words * m_len) + m_len
+               + 4 * len(codes))
     cand = {1: 1, 2: 4, 3: 2, 4: 8}
     n_ops, k = 0, 0
     while k < len(sched):
@@ -1270,7 +1309,8 @@ def run_slice3(card):
          "max_abs_err": k7_err, "ms": k7_ms[i7], "plain_ms": k7_plain_ms,
          **bound(*k7_work_all[i7]), "library_ms": None},
     ]
-    return {"kernels": kernels, "launches": launches_scl}
+    return {"kernels": kernels, "launches": launches_scl,
+            "k7_l8": (k7_held[i7][:4], k7_ms[i7])}  # phase 42 times this call again
 
 
 # ---- slice 4: the char (int8) and bf16 families ---------------------------
@@ -2976,6 +3016,363 @@ def run_slice11(card):
                    "max_abs_err": k3_err, "ms": k3_ms, "burst_ms": k3_burst,
                    "plain_ms": k3_plain_ms, **bound(*k3_work(root, B2, 2, 1)),
                    "library_ms": None}}
+
+
+# ---- slice 12: LargeSCLDecoder at every list size -------------------------
+
+SEED12 = 20261026
+K7_NEW_LISTS = (1, 3, 5, 12, 24, 33, 48, 64, 100, 128)
+K7_BATCHES = (1, 181, 128)
+K7_NEW_DESIGN = ("the kernel of the list's capacity (32, 64 or 128) with the list size at "
+                 "run time; above 32 paths W packed words, every level in shared memory, "
+                 "the prune in passes; level 0 read from device memory where the pyramid "
+                 "does not fit")
+K1_ONE_PATH_SPANS = (256, 512, 1024, 2048)  # a pure chunk's span and the tree's leaves
+K1_WIDE_LEAVES = ((64, 1024), (64, 2048), (128, 512), (128, 2048))  # (L, span), device memory
+K1_WIDE_BATCHES = (1, 128)
+B12, B12_TIME = 64, 128  # phase 41's batch; phase 42's decodes
+N_I8, K_I8 = 8192, 4096  # the int8 paths' depth: N = 32768 fails every block in int8
+# phase 41's paths: (name, L, schedule, int8, bf16 carry, timed in phase 42,
+# held against the plain route: L = 1's K7 and K1 calls are held in phase 40)
+PATHS12 = (("cascl64_scan", 64, "scan", False, False, True, True),
+           ("cascl64_tree", 64, "tree", False, False, False, True),
+           ("cascl128_scan", 128, "scan", False, False, True, True),
+           ("cascl128_tree", 128, "tree", False, False, False, True),
+           ("cascl3_scan", 3, "scan", False, False, True, True),
+           ("cascl1_scan", 1, "scan", False, False, True, False),
+           ("cascl64_scan_bf16_carry", 64, "scan", False, True, False, True),
+           ("cascl3_int8", 3, "scan", True, False, True, True),
+           ("cascl64_int8", 64, "scan", True, False, True, True))
+
+
+def _class_mask64():
+    """A chunk of 64 whose sub-blocks of 16 are rate-0, mixed, rate-1, rep."""
+    import numpy as np
+
+    return np.concatenate([np.ones(16), np.arange(16) % 3 == 0, np.zeros(16),
+                           np.arange(16) < 15]).astype(np.uint8)
+
+
+def run_k7_lists(card):
+    """Phase 40. K7 against its plain version at L in K7_NEW_LISTS, both
+    families, on integer LLRs in [-2, 2] (ties, signed zeros): chunks of 64
+    and 256, B in K7_BATCHES, with and without sub-blocks (masks with every
+    sub-block class), metrics of a decode's first call (one live path), all
+    live, or mixed (0 to L - 1 live at random slots), masks with rate-0
+    runs and all frozen (the re-take rule); at L = 100 and 128 on chunks of
+    256 the chunk's input stays in device memory. Then K1 on the one-leaf
+    schedules of the large-N decoders at L = 1 (spans 256-2048, every leaf
+    kind, B in K7_BATCHES) and from device memory at W = 2 and 4 words (L
+    = 64 and 128 at spans 512-2048). Bits, perms and metrics equal.
+    Returns {"err": largest metric difference per family (0), "k1_err":
+    K1's, "calls": K7 calls held, "direct": of which level 0 in device
+    memory, "k1_calls": K1 calls held}."""
+    import numpy as np
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.models.large import _classify_chunks, _frozen_mask_chunks
+    from polar_codes_torch.models.tree import NodeKind
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED12)
+    err = {"float32": 0.0, "char": 0.0}
+    checked = direct = 0
+
+    def ints(shape):
+        return torch.randint(-2, 3, shape, generator=gen, device=dev).to(torch.float32)
+
+    def metrics(n_batch, n_list, how):
+        met = torch.randint(-3, 1, (n_batch, n_list), generator=gen, device=dev).to(torch.float32)
+        if how != "live":  # every row (first) or every other row (mixed): one live path
+            rows = slice(None) if how == "first" else slice(None, None, 2)
+            met[rows, 1:] = NEG
+            met[rows, 0] = 0.0
+        if how == "mixed":  # the other rows: 0 to L - 1 live paths at random slots
+            n_live = torch.randint(0, n_list, (n_batch, 1), generator=gen, device=dev)
+            slot = torch.rand((n_batch, n_list), generator=gen, device=dev).argsort(1)
+            met[1::2] = torch.where((slot >= n_live)[1::2], NEG, met[1::2])
+        return met
+
+    # the chunk of the (32768, 16384) code whose sub-blocks hold the most
+    # classes (every class at full size)
+    chunks = _frozen_mask_chunks(N_SCL, frozen_bits(N_SCL, K_SCL, 0.0, "BB"), CHUNK_SCL)
+    every = max(chunks, key=lambda m: len(set(_classify_chunks(list(m.reshape(-1, SUB))))))
+    masks = {("classes", 64): _class_mask64(), ("classes", CHUNK_SCL): every.astype(np.uint8)}
+    # (chunk, batch, sub-blocks, metrics, mask)
+    cases = ((64, 181, True, "live", "classes"),
+             (64, 128, False, "mixed", "frozen"), (CHUNK_SCL, 128, True, "mixed", "classes"),
+             (CHUNK_SCL, 128, False, "first", "frozen"), (64, 181, False, "live", "rate-0 runs"),
+             (CHUNK_SCL, 1, True, "first", "classes"))
+    for n_list in K7_NEW_LISTS:
+        for family in ("float32", "char"):
+            for m_len, n_batch, with_sub, how, kind in cases:
+                if kind == "frozen":
+                    mask = torch.ones(m_len, dtype=torch.uint8, device=dev)
+                elif kind == "rate-0 runs":
+                    mask = rate0_mask(m_len, gen, dev)
+                else:
+                    mask = torch.as_tensor(masks[kind, m_len], device=dev)
+                sub_cls = None
+                if with_sub:
+                    codes = _classify_chunks(list(mask.cpu().numpy().astype(bool).reshape(-1, SUB)))
+                    sub_cls = torch.as_tensor(codes, device=dev)
+                x, met = ints((n_batch, n_list, m_len)), metrics(n_batch, n_list, how)
+                where = (f"K7 {family} L={n_list} chunk {m_len} B={n_batch} sub-blocks "
+                         f"{with_sub}, {how} metrics, {kind} mask")
+                got = lk.masked_scl_chunk(x, mask, met, sub_cls, family)
+                want = lk.masked_scl_chunk_plain(x, mask, met, sub_cls, family)
+                _equal(where + ": bits", got[0], want[0])
+                _equal(where + ": perm", got[1], want[1])
+                err[family] = max(err[family], _equal(where + ": metrics", got[2], want[2]))
+                direct += lk.scl_chunk_smem(n_list, m_len, SUB if with_sub else 0) > \
+                    lk.MAX_SCL_SMEM
+                checked += 1
+    if not direct and lk.scl_chunk_smem(max(K7_NEW_LISTS), CHUNK_SCL) > lk.MAX_SCL_SMEM:
+        raise AssertionError("no K7 call read level 0 from device memory")
+    print(f"K7: {checked} calls at L in {K7_NEW_LISTS}, both families, bit-equal to the "
+          f"plain version ({direct} with level 0 in device memory)")
+
+    lib = _build.load("scl_subtree")
+    kbl._bind(lib)
+    k1_err, k1_calls = 0.0, 0
+    kinds = (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)
+    shapes = [(1, span, n_batch) for span in K1_ONE_PATH_SPANS for n_batch in K7_BATCHES]
+    shapes += [(n_list, span, n_batch) for n_list, span in K1_WIDE_LEAVES
+               for n_batch in K1_WIDE_BATCHES]
+    for n_list, span, n_batch in shapes:
+        if n_list > 32 and lib.scl_subtree_smem(n_list, span, 0, 1) >= 4 * n_list * span:
+            raise AssertionError(f"K1 L={n_list} span {span}: the leaf fits staged")
+        for kind in kinds:
+            sched = kbl.build_schedule(lk._sub_leaf(kind, span), n_list, n_list)
+            x = ints((n_list, span, n_batch))
+            m = metrics(n_batch, n_list, "mixed" if n_list > 1 else "live")
+            where = f"K1 L={n_list} one leaf {kind.value} span {span} B={n_batch}"
+            got = kbl.scl_subtree(sched, x, m)
+            want = kbl.scl_subtree_plain(sched, x, m)
+            _equal(where + ": bits", got[0], want[0])
+            _equal(where + ": perm", got[1], want[1])
+            k1_err = max(k1_err, _equal(where + ": metrics", got[2], want[2]))
+            k1_calls += 1
+    torch.cuda.synchronize()
+    emit({"k7_lists_checked_calls": checked, "k7_level0_in_device_memory": direct,
+          "lists": K7_NEW_LISTS, "max_abs_err": err, "k1_checked_calls": k1_calls,
+          "k1_max_abs_err": k1_err, "card": card})
+    print(f"K1: {k1_calls} one-leaf calls at L = 1 and from device memory at L = 64, 128 "
+          "bit-equal to the plain version")
+    return {"err": err, "k1_err": k1_err, "calls": checked, "direct": direct,
+            "k1_calls": k1_calls}
+
+
+def busy_share(fn, calls=3):
+    """(wall ms, device busy ms) per call of fn under torch.profiler, device
+    activity only: the synchronised host clock around the window, and the
+    union of the device events' intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda)
+    if not spans:
+        raise AssertionError("the profiler recorded no device time")
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return wall, busy / 1e3 / calls
+
+
+def run_slice12(card, k7_l8, held):
+    """Phases 41-42. k7_l8: phase 17's timed K7 call (args, ms), timed
+    again here; held: phase 40's result. Returns {"entries": the new
+    kernels-line entries}."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED12 + 1)
+    modem = Bpsk()
+    det = CRC16()
+    codes = {n: (frozen_bits(n, k, 0.0, "BB"), PolarEncoder(
+        n, frozen_bits(n, k, 0.0, "BB"), systematic=True, detector=det, device=dev))
+        for n, k in ((N_SCL, K_SCL), (N_I8, K_I8))}
+
+    def channel(n_len, n_blocks, int8):
+        enc = codes[n_len][1]
+        info = torch.randint(0, 2, (n_blocks, enc.info_length), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * enc.info_length / n_len)
+        llr = modem.demodulate(chan.transmit(modem.modulate(enc.encode(info)), gen))
+        if int8:  # the simulator's quantiser
+            llr = torch.clamp(torch.round(llr * AMPL), -127, 127).to(torch.int8)
+        return det.generate(info), llr
+
+    def reset_counts():
+        lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
+        lk.SCL_LIST_LAUNCHES.clear()
+        kbl.LAUNCHES.update(dict.fromkeys(kbl.LAUNCHES, 0))
+        kbl.LIST_LAUNCHES.clear()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"masked_scl_chunk": {f"{f},L={n}": c for (f, n), c in
+                                     sorted(lk.SCL_LIST_LAUNCHES.items())},
+                "scl_subtree": {f"float32,L={n}": c for n, c in
+                                sorted(kbl.LIST_LAUNCHES.items())}}
+
+    # 41 ------------------------------------------------------------------
+    phase(f"41 LargeSCLDecoder at L = 64 and 128 on both schedules, L = 3 and 1, the bf16 "
+          f"carry, int8 at L = 3 and 64: ({N_SCL}, {K_SCL}) CRC16 (int8 ({N_I8}, {K_I8})), "
+          f"B = {B12}, {EBN0_DB} dB; kernel route == plain route")
+    runs, recorded = {}, {}
+    for name, n_list, schedule, int8, bf16, timed, held_plain in PATHS12:
+        n_len = N_I8 if int8 else N_SCL
+        family = "char" if int8 else "float32"
+        kw = dict(list_size=n_list, detector=det, chunk=CHUNK_SCL, subblock=SUB,
+                  schedule=schedule, dtype=torch.int8 if int8 else torch.float32,
+                  carry_dtype=torch.bfloat16 if bf16 else None, device=dev)
+        dec = LargeSCLDecoder(n_len, codes[n_len][0], **kw)
+        plain = LargeSCLDecoder(n_len, codes[n_len][0], chunk_fn=lk.masked_scl_chunk_plain,
+                                subtree_fn=kbl.scl_subtree_plain, **kw)
+        if schedule == "tree":
+            n_k1 = len(dec._tree_scheds)
+            n_k7 = _chunk_branches(dec.sched_tree, CHUNK_SCL)
+        else:
+            n_k7 = int((dec.classes == 0).sum())
+            n_k1 = dec.n_chunks - n_k7
+        sent, llr = channel(n_len, B12, int8)
+        reset_counts()
+        out = dec.decode(llr)
+        launched = counts()
+        k7_key, k1_key = f"{family},L={n_list}", f"float32,L={n_list}"
+        if (launched["masked_scl_chunk"].get(k7_key) != n_k7
+                or launched["scl_subtree"].get(k1_key, 0) != n_k1):
+            raise AssertionError(f"{name}: launches {launched}, expected {n_k7} K7 "
+                                 f"({k7_key}) and {n_k1} K1 a decode")
+        k7_calls, k1_calls = [], []  # this decode's calls, timed in phase 42
+
+        def record7(*a, _c=k7_calls, **k):
+            _c.append((a, k))
+            return lk.masked_scl_chunk(*a, **k)
+
+        def record1(*a, _c=k1_calls):
+            _c.append(a)
+            return kbl.scl_subtree(*a)
+
+        dec.chunk_fn, dec.subtree_fn = record7, record1
+        word, met = dec.decode_packed(llr)
+        if timed:
+            recorded[(family, n_list)] = (k7_calls, k1_calls, name)
+        words = kbl.n_words(n_list)
+        if word.shape != ((n_len, B12) if words == 1 else (words, n_len, B12)):
+            raise AssertionError(f"{name}: packed words of shape {tuple(word.shape)}")
+        if held_plain:
+            pword, pmet = plain.decode_packed(llr)
+            _equal(f"{name} packed words", word, pword)
+            _equal(f"{name} metrics", met, pmet)
+            plain.decode_packed = lambda _, w=(pword, pmet): w  # its decisions from its words
+            _same_decisions(name, out, plain.decode(llr))
+        wrong = (out[0] != sent).any(1)
+        if (~out[2] & ~wrong).any():
+            raise AssertionError(f"{name}: a block with a failed CRC decoded right")
+        runs[name] = {"launches": launched, "k7": n_k7, "k1": n_k1,
+                      "block_errors": int(wrong.sum()), "crc_failures": int((~out[2]).sum())}
+        emit({"path": name, "n": n_len, "list_size": n_list, "schedule": schedule,
+              "batch": B12, "ebn0_db": EBN0_DB, "held_against_plain_route": held_plain,
+              **runs[name], "card": card})
+    print("K7 and K1 at L = 3, 64, 128 (float32, both schedules, bf16 carry) and K7 char "
+          "at L = 3, 64: kernel routes == plain routes, words and metrics exactly; L = 1 "
+          "decoded")
+
+    # 42 ------------------------------------------------------------------
+    phase("42 times: K7 per call at L = 1, 3, 64, 128 beside its bound, K1 at L = 1, "
+          "launches per decode, CA-SCL-64 decode ms and busy share, phase 17's K7 at L = 8")
+    entries = []
+    sched7 = {sub: lk.scl_chunk_schedule(CHUNK_SCL, sub).tolist() for sub in (0, SUB)}
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    for (family, n_list), (k7_calls, k1_calls, name) in recorded.items():
+        picks = spread(k7_calls, [])
+        ms = [time_cuda(lambda c=c: lk.masked_scl_chunk(*c[0], **c[1]), reps=REPS)
+              for c in picks]
+        i = ms.index(med(ms))
+        args, kw = picks[i]
+        plain_ms = time_cuda(lambda: lk.masked_scl_chunk_plain(*args, **kw), warmup=0, reps=1)
+        sub_cls = args[3]
+        work = k7_work(sched7[SUB if sub_cls is not None else 0],
+                       [] if sub_cls is None else sub_cls.tolist(), n_list, args[0].shape[0])
+        launches = sum(r["launches"]["masked_scl_chunk"].get(f"{family},L={n_list}", 0)
+                       for r in runs.values())
+        entry = {"name": f"masked_scl_chunk[{family},L={n_list}]", "route": "cuda",
+                 "source": "polar_codes_torch/csrc/large_scl_lists.cu",
+                 "redesigned": K7_NEW_DESIGN,
+                 "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
+                 "launches": launches,
+                 "launches_by_path": {p: r["launches"]["masked_scl_chunk"][f"{family},L={n_list}"]
+                                      for p, r in runs.items()
+                                      if f"{family},L={n_list}" in r["launches"]["masked_scl_chunk"]},
+                 "launches_per_decode": len(k7_calls), "list_size": n_list,
+                 "max_abs_err": held["err"][family], "ms": ms[i], "ms_per_call": ms, "plain_ms": plain_ms,
+                 **bound(*work), "library_ms": None}
+        entries.append(entry)
+        emit({"kernel": entry["name"], "batch": B12, "chunk": CHUNK_SCL, "ms_per_call": ms,
+              "plain_ms": plain_ms, "bound_ms": entry["bound_ms"], "card": card})
+        if n_list == 1:  # K1 at one path on the pure chunks
+            k1 = _time_k1(k1_calls, B12)
+            k1_launches = sum(r["launches"]["scl_subtree"].get("float32,L=1", 0)
+                              for r in runs.values())
+            entries.append({
+                "name": "scl_subtree[float32,L=1]", "route": "cuda",
+                "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_NEW_DESIGN,
+                "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
+                "launches": k1_launches, "launches_by_path": {name: k1_launches},
+                "launches_per_decode": len(k1_calls), "list_size": 1,
+                "max_abs_err": held["k1_err"],
+                "ms": k1[0], "plain_ms": k1[1], **bound(k1[2], k1[3]), "library_ms": None})
+    emit({"launches_per_decode": {name: r["launches"] for name, r in runs.items()},
+          "card": card})
+    times = {}
+    for schedule in ("scan", "tree"):
+        dec = LargeSCLDecoder(N_SCL, codes[N_SCL][0], list_size=64, detector=det,
+                              chunk=CHUNK_SCL, subblock=SUB, schedule=schedule, device=dev)
+        _, llr = channel(N_SCL, B12_TIME, False)
+        ms = time_cuda(lambda: dec.decode(llr), warmup=1, reps=3)
+        wall, busy = busy_share(lambda: dec.decode(llr), calls=1)
+        times[schedule] = {"decode_ms": ms, "profiled_wall_ms": wall, "device_busy_ms": busy,
+                           "busy_share": busy / wall,
+                           "payload_mbps": B12_TIME * (K_SCL - det.tail_bits) / ms / 1e3}
+    emit({"metric": "large_cascl64_decode", "n": N_SCL, "batch": B12_TIME, **times,
+          "card": card})
+    (args8, ms17) = k7_l8
+    ms8 = time_cuda(lambda: lk.masked_scl_chunk(*args8), reps=REPS)
+    emit({"kernel": "masked_scl_chunk[float32,L=8]", "batch": B3, "phase17_ms": ms17,
+          "phase42_ms": ms8, "card": card})
+    print(f"CA-SCL-64 decode at B = {B12_TIME}: scan {times['scan']['decode_ms']:.1f} ms, tree "
+          f"{times['tree']['decode_ms']:.1f} ms; K7 at L = 8 {ms8:.4f} ms (phase 17 "
+          f"{ms17:.4f})")
+    return {"entries": entries}
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@
 //
 // Interface, in the TPU kernel's layouts:
 //   llr [w_in, span, B] (state type), metrics [B, w_in] f32, family,
-//   list size L (2 <= L <= 128)
+//   list size L (1 <= L <= 128)
 //     -> bits [W, span, B] i32, W = ceil(L / 32) words (bit l % 32 of word
 //        l / 32 = path l's decision; W = 1 is the TPU kernel's bitplane
 //        form [span, B], W > 1 stands for its unpacked-path family),
@@ -38,10 +38,10 @@
 // yields the perm that G and COMBINE apply. ENUM leaves read their
 // codeword table as one bitmask per candidate at enum_masks[aux]; the SPC
 // flip tables come in spc_tab. One kernel per family and list capacity (a
-// power of two from 4 to 128) serves every subtree of every code at every
-// list size up to that capacity: the list size is a launch argument, the
-// prune keeps exactly that many paths, and the slots above it never
-// become live. The list sizes 2, 4, 8, 16 and 32 have a kernel each whose
+// power of two from 2 to 128; L = 1 runs in capacity 2) serves every
+// subtree of every code at every list size up to that capacity: the list
+// size is a launch argument, the prune keeps exactly that many paths, and
+// the slots above it never become live. The list sizes 2, 4, 8, 16 and 32 have a kernel each whose
 // list size is a constant of the build (the capacity's kernel is ~4%
 // slower at L = 8). Nothing is generated per code.
 //
@@ -128,7 +128,7 @@
 //     B]). per_block: codewords (warps) per block, 1, 2 or 4; 0 picks from
 //     the batch. Returns cudaGetLastError() after the launch (or of the
 //     shared-memory attribute call), -1 for an unsupported list size
-//     (outside 2..128), family or span, -2 when one codeword's state
+//     (outside 1..128), family or span, -2 when one codeword's state
 //     exceeds the card's opt-in shared memory per block.
 //   int scl_subtree_smem(int list_size, int span, int family, int n_ops)
 //     shared-memory bytes per codeword of a schedule of n_ops ops (one op:
@@ -777,7 +777,9 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
   }
 
   K1_TICK(12, tk);
-  for (int i = lane; i < kWords<L> * span; i += 32) bits[(size_t)i * batch + b] = W[i];
+  // ceil(list_size / 32) words leave (3 for 65-96 paths in capacity 128)
+  const int out_words = kWords<L> == 1 ? 1 : (wp.nl() + 31) >> 5;
+  for (int i = lane; i < out_words * span; i += 32) bits[(size_t)i * batch + b] = W[i];
   wp.each_path(w_out, [&](int l) {
     perm_out[(size_t)b * w_out + l] = s.P[0][l];
     met_out[(size_t)b * w_out + l] = s.M[l];
@@ -825,9 +827,9 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
 }
 
 // The list capacity that serves list_size: the next power of two from 2
-// to 128 (0 outside).
+// to 128 (0 outside 1..128; a list of one path runs in capacity 2).
 int capacity(int list_size) {
-  if (list_size < 2 || list_size > 128) return 0;
+  if (list_size < 1 || list_size > 128) return 0;
   int cap = 2;
   while (cap < list_size) cap <<= 1;
   return cap;
@@ -852,6 +854,7 @@ int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x
     case 32: return K1_LAUNCH(32, true);
   }
   switch (capacity(list_size)) {
+    case 2: return K1_LAUNCH(2, false);
     case 4: return K1_LAUNCH(4, false);
     case 8: return K1_LAUNCH(8, false);
     case 16: return K1_LAUNCH(16, false);

@@ -20,12 +20,17 @@ a one-leaf schedule).
 
 SCL specifics: the list axis rides along every outer buffer ([B, L, span]
 LLRs, stored in `carry_dtype`; bits packed one int32 word per position,
-bit l = path l, combined by XOR). The forks of a chunk compose into one
-perm, and the outer buffers are not gathered through it at once: each
-stage keeps a lag perm ([B, L], composed with every chunk perm) and is
-gathered through it only when it is read (a g refresh or a climb). The
-chunk segments are gathered once at the end, through the composition of
-the later chunk perms, and the top log2(T) butterfly stages join them.
+bit l = path l, combined by XOR; above 32 paths W = ceil(L / 32) words
+[B, W, span], path l in bit l % 32 of word l // 32, whose gathers take
+each path's word by l >> 5 and its bit by l & 31, all paths at once). Any
+L from 1 to 128 decodes: K7 and K1 hold one codeword's list on chip up to
+there (L = 1 keeps the list machinery, as the JAX class does). The forks
+of a chunk compose into one perm, and the outer buffers are not gathered
+through it at once: each stage keeps a lag perm ([B, L], composed with
+every chunk perm) and is gathered through it only when it is read (a g
+refresh or a climb). The chunk segments are gathered once at the end,
+through the composition of the later chunk perms, and the top log2(T)
+butterfly stages join them.
 
 dtype=torch.int8 is the reference's fip_char family, as in the JAX
 package: integer-valued LLRs in float32 (LargeSC takes them unclipped,
@@ -57,14 +62,8 @@ import torch
 from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform, butterfly_transform_bipolar
 from ..ops.fg import f_minsum, f_minsum_sat, g_update, g_update_sat
-from ..ops.large_kernel import (
-    _SUB_KINDS,
-    SCL_LISTS,
-    _sub_leaf,
-    masked_sc_chunk,
-    masked_scl_chunk,
-)
-from ..ops.scl_kernel_bl import build_schedule, scl_subtree
+from ..ops.large_kernel import _SUB_KINDS, _sub_leaf, masked_sc_chunk, masked_scl_chunk
+from ..ops.scl_kernel_bl import MAX_LIST, build_schedule, pack_planes, scl_subtree
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
 from .scl import _NEG, SCLDecoder
@@ -257,7 +256,9 @@ class LargeSCDecoder(_Chunked):
         return info, codeword, ok
 
 
-# ---- helpers of the SCL glue: packed words [..., S] i32, perms [..., L] --
+# ---- helpers of the SCL glue: packed words [..., S] i32 (one word a
+# position, L <= 32) or [..., W, S] (W = ceil(L / 32) words, path l in bit
+# l % 32 of word l // 32), perms [..., L] --------------------------------
 # Each is a handful of whole-tensor ops, whatever L: the glue launches
 # them at every chunk step, so their count, not their bytes, sets its time.
 
@@ -266,17 +267,25 @@ def _take_paths(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, perm[:, :, None].expand(-1, -1, x.shape[2]))
 
 
-def _planes(word: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+def _planes(word: torch.Tensor, perm: torch.Tensor, words: int = 1) -> torch.Tensor:
     """[..., L, S] {0,1}: plane l of the output is plane perm[..., l] of
-    the packed words [..., S]."""
-    return (word.unsqueeze(-2) >> perm.unsqueeze(-1)) & 1
+    the packed words ([..., S], or [..., W, S]); above one word each plane
+    gathers its word by perm >> 5 and shifts by perm & 31, all at once."""
+    if words == 1:
+        return (word.unsqueeze(-2) >> perm.unsqueeze(-1)) & 1
+    idx = (perm >> 5).unsqueeze(-1).expand(perm.shape + word.shape[-1:])
+    sel = torch.gather(word, -2, idx)  # [..., L, S]: each plane's word
+    return (sel >> (perm & 31).to(torch.int32).unsqueeze(-1)) & 1
 
 
-def _take_word(word: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Packed words [..., S] gathered by perm [..., L] (out plane l = in
-    plane perm[..., l]), packed again."""
-    lanes = torch.arange(perm.shape[-1], device=word.device)[:, None]
-    return (_planes(word, perm) << lanes).sum(-2).to(torch.int32)
+def _take_word(word: torch.Tensor, perm: torch.Tensor, words: int = 1) -> torch.Tensor:
+    """Packed words ([..., S] or [..., W, S]) gathered by perm [..., L]
+    (out plane l = in plane perm[..., l]), packed again."""
+    planes = _planes(word, perm, words)
+    if words == 1:
+        lanes = torch.arange(perm.shape[-1], device=word.device)[:, None]
+        return (planes << lanes).sum(-2).to(torch.int32)
+    return pack_planes(planes.movedim(-2, 0), words).movedim(0, -2)
 
 
 def _compose(p_early: torch.Tensor, p_late: torch.Tensor) -> torch.Tensor:
@@ -332,9 +341,12 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         if schedule == "tree" and dtype == torch.int8:
             raise ValueError("schedule='tree' does not support dtype=int8; use "
                              "schedule='scan' (the int8-qualified path)")
-        if list_size not in SCL_LISTS:
+        if list_size < 1:
+            raise ValueError(f"list_size={list_size}: a list holds at least one path")
+        if list_size > MAX_LIST:
             raise NotImplementedError(
-                f"list_size={list_size}: the chunk kernels cover L in {SCL_LISTS}")
+                f"list_size={list_size}: the chunk kernels K7 and K1 hold one codeword's "
+                f"list on chip and cover 1 <= L <= {MAX_LIST}")
         if carry_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError("carry_dtype is None, torch.float32 or torch.bfloat16")
         # deliberately not SCLDecoder.__init__: it builds the unrolled tree
@@ -373,27 +385,32 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
     # ---- one chunk -------------------------------------------------------
 
     def _chunk(self, t: int, llr: torch.Tensor, metrics: torch.Tensor):
-        """Chunk t: llr [B, L, M] f32 -> (word [B, M] i32, perm [B, L] i64,
-        metrics [B, L])."""
+        """Chunk t: llr [B, L, M] f32 -> (word [B, M] i32, or [B, W, M];
+        perm [B, L] i64; metrics [B, L])."""
         cls = int(self.classes[t]) if self.n_chunks > 1 else _MIXED
         if cls == _MIXED:
             sub = None if self._subs_t is None else self._subs_t[t]
             word, perm, metrics = self.chunk_fn(llr.contiguous(), self._masks_t[t],
                                                 metrics, sub, family=self.family)
             return word, perm.to(torch.int64), metrics
-        word, perm, metrics = self.subtree_fn(
-            self._leaf_scheds[cls], llr.permute(1, 2, 0).contiguous(), metrics)
-        return word.T, perm.to(torch.int64), metrics
+        return self._leaf(self._leaf_scheds[cls], llr, metrics)
+
+    def _leaf(self, sched, llr: torch.Tensor, metrics: torch.Tensor):
+        """A one-leaf schedule through K1: llr [B, L, S] -> the batch-first
+        word ([B, S], or [B, W, S] from K1's [W, S, B]), perm, metrics."""
+        word, perm, metrics = self.subtree_fn(sched, llr.permute(1, 2, 0).contiguous(), metrics)
+        return word.movedim(-1, 0), perm.to(torch.int64), metrics
 
     # ---- outer loop ------------------------------------------------------
 
     def decode_packed(self, llr: torch.Tensor):
-        """llr [B, N] -> (packed codeword word [N, B] i32, metrics [B, L])."""
+        """llr [B, N] -> (packed codeword word [N, B] i32, or [W, N, B]
+        above 32 paths; metrics [B, L])."""
         flat = self._check_input(llr)
         if self.family == "char":
             flat = flat.clamp(-127.0, 127.0)
         f_fn, g_fn = self._fg
-        n_batch, n_list = flat.shape[0], self.list_size
+        n_batch, n_list, words = flat.shape[0], self.list_size, self.words
         n_len, n_outer = self.block_length, self.outer_stages
         cdt = self.carry_dtype or torch.float32
         metrics = torch.full((n_batch, n_list), _NEG, device=flat.device)
@@ -401,13 +418,13 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         chan = flat[:, None, :].expand(n_batch, n_list, n_len)
         if self.schedule == "tree":
             word, _, metrics = self._tree_node(self.sched_tree, chan, metrics)
-            return word.T.contiguous(), metrics
+            return word.movedim(0, -1).contiguous(), metrics
         if self.n_chunks == 1:
             word, _, metrics = self._chunk(0, chan, metrics)
-            return word.T.contiguous(), metrics
+            return word.movedim(0, -1).contiguous(), metrics
         ident = torch.arange(n_list, device=flat.device).expand(n_batch, n_list)
         llrs = [None] * n_outer  # stage s: [B, L, N >> s] in cdt
-        bits = [None] * n_outer  # stage s: packed [B, N >> s]
+        bits = [None] * n_outer  # stage s: packed [B, N >> s] or [B, W, N >> s]
         lag_l = [ident] * n_outer  # current slots -> the slots a buffer is stored in
         lag_b = [ident] * n_outer
         segs, perms = [], []
@@ -419,7 +436,7 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
                     if (t >> (n_outer - s)) & 1:  # g, reading the parent through its lag
                         par = chan if s == 1 else _take_paths(llrs[s - 2], lag_l[s - 2])
                         par = par.to(torch.float32)
-                        left = _planes(bits[s - 1], lag_b[s - 1]).to(torch.float32)
+                        left = _planes(bits[s - 1], lag_b[s - 1], words).to(torch.float32)
                         cur = g_fn(par[..., :span], par[..., span:], 1.0 - 2.0 * left)
                     else:  # f: the parent was refreshed at this step
                         work = prev.to(torch.float32)
@@ -435,22 +452,21 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
             climb = min(_trailing_ones(t), n_outer)
             for c in range(climb):
                 s = n_outer - c
-                word = torch.cat([_take_word(bits[s - 1], lag_b[s - 1]) ^ word, word], dim=-1)
+                word = torch.cat([_take_word(bits[s - 1], lag_b[s - 1], words) ^ word, word],
+                                 dim=-1)
             if climb < n_outer:
                 bits[n_outer - climb - 1] = word
                 lag_b[n_outer - climb - 1] = ident
-        return self._join_chunks(segs, perms).T.contiguous(), metrics
+        return self._join_chunks(segs, perms).movedim(0, -1).contiguous(), metrics
 
     # ---- the tree schedule ---------------------------------------------
 
     def _tree_node(self, node: CodeNode, llr: torch.Tensor, metrics: torch.Tensor):
-        """llr [B, L, span] f32 -> (word [B, span] i32, perm [B, L] i64,
-        metrics [B, L]): a leaf through K1, a mixed chunk through K7, a
-        longer branch node by f, g and its children."""
+        """llr [B, L, span] f32 -> (word [B, span] i32, or [B, W, span];
+        perm [B, L] i64; metrics [B, L]): a leaf through K1, a mixed chunk
+        through K7, a longer branch node by f, g and its children."""
         if node.kind != NodeKind.BRANCH:
-            word, perm, metrics = self.subtree_fn(
-                self._tree_scheds[node], llr.permute(1, 2, 0).contiguous(), metrics)
-            return word.T, perm.to(torch.int64), metrics
+            return self._leaf(self._tree_scheds[node], llr, metrics)
         if node.length == self.chunk:
             t = node.offset // self.chunk
             sub = None if self._subs_t is None else self._subs_t[t]
@@ -462,27 +478,31 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
         a, b = llr[..., :half], llr[..., half:]
         left, p_left, metrics = self._tree_node(node.left, f_fn(a, b), metrics)
         llr_g = _take_paths(llr, p_left)
-        lanes = torch.arange(self.list_size, device=left.device)[:, None]
-        left_bip = 1.0 - 2.0 * ((left[:, None] >> lanes) & 1).to(torch.float32)
+        lanes = torch.arange(self.list_size, device=left.device).expand_as(p_left)
+        left_bip = 1.0 - 2.0 * _planes(left, lanes, self.words).to(torch.float32)
         right, p_right, metrics = self._tree_node(
             node.right, g_fn(llr_g[..., :half], llr_g[..., half:], left_bip), metrics)
-        left = _take_word(left, p_right)
+        left = _take_word(left, p_right, self.words)
         return torch.cat([left ^ right, right], dim=-1), _compose(p_left, p_right), metrics
 
     def _join_chunks(self, segs, perms) -> torch.Tensor:
-        """Chunk segments (packed [B, M] words, each in the slot order of its
-        step) and chunk perms -> the packed codeword word [B, N]: map the
-        final slots back through the later chunk perms, gather each segment
-        once, and apply the top log2(T) butterfly stages."""
+        """Chunk segments (packed [B, M] or [B, W, M] words, each in the slot
+        order of its step) and chunk perms -> the packed codeword word [B, N]
+        or [B, W, N]: map the final slots back through the later chunk
+        perms, gather each segment once, and apply the top log2(T)
+        butterfly stages."""
         n_batch = segs[0].shape[0]
         backs = [torch.arange(self.list_size, device=segs[0].device).expand(
             n_batch, self.list_size)]
         for t in range(self.n_chunks - 1, 0, -1):
             backs.append(_compose(perms[t], backs[-1]))
-        x = _take_word(torch.stack(segs, dim=1), torch.stack(backs[::-1], dim=1))  # [B, T, M]
+        x = _take_word(torch.stack(segs, dim=1), torch.stack(backs[::-1], dim=1),
+                       self.words)  # [B, T, M] or [B, T, W, M]
+        x = x.movedim(1, -2)  # [..., T, M]
+        lead = x.shape[:-2]
         stride = 1
         while stride < self.n_chunks:
-            x = x.reshape(n_batch, self.n_chunks // (2 * stride), 2, stride, self.chunk)
-            x = torch.stack([x[:, :, 0] ^ x[:, :, 1], x[:, :, 1]], dim=2)
+            x = x.reshape(lead + (self.n_chunks // (2 * stride), 2, stride, self.chunk))
+            x = torch.stack([x[..., 0, :, :] ^ x[..., 1, :, :], x[..., 1, :, :]], dim=-3)
             stride *= 2
-        return x.reshape(n_batch, self.block_length)
+        return x.reshape(lead + (self.block_length,))

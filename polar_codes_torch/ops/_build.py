@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep",
-           "large_sc_chunk", "large_scl_chunk")
+           "large_sc_chunk", "large_scl_chunk", "large_scl_lists")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -74,11 +75,21 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, fl
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out, time.perf_counter())
-    seconds = {}
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+    logs, seconds = {}, {}
+
+    def finish(name, proc, t0):  # each build's own seconds, whatever order they end in
+        logs[name] = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=finish, args=(name, proc, t0))
+             for name, (proc, _, _, t0) in procs.items()]
+    for wait in waits:
+        wait.start()
+    for wait in waits:
+        wait.join()
+    failed = []
+    for name, (proc, tmp, out, _) in procs.items():
+        log = logs[name]
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue

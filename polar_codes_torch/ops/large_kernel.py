@@ -1,5 +1,6 @@
 """Masked chunk kernels of the large-N decoders: K6 (csrc/large_sc_chunk.cu)
-and K7 (csrc/large_scl_chunk.cu), each beside its plain version.
+and K7 (csrc/large_scl_chunk.cu, csrc/large_scl_lists.cu), each beside its
+plain version.
 
 Counterpart of polar_codes_tpu/ops/large_kernel.py. The large-N decoders
 (models/large.py) cut the code tree at the chunk span M and decode every
@@ -10,8 +11,8 @@ so one kernel serves every chunk of every code:
                          -> (x [B, M], u [B, M]) bipolar f32
     K7  masked SCL:  (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32
                       [, sub_cls [M / sub] i32])
-                         -> (bits [B, M] i32, perm [B, L] i32,
-                             metrics [B, L] f32)
+                         -> (bits [B, M] i32, or [B, W, M] for L > 32,
+                             perm [B, L] i32, metrics [B, L] f32)
 
 each in two families, named by `family` (the TPU kernels' int8 flag):
 "float32", and "char", the int8 decoders' integer-valued LLRs in the same
@@ -34,15 +35,22 @@ and a pure sub-block takes the SSCL leaf rule of its class (rate0, rate1
 with 4 candidates, rep, spc with 8); a mixed one goes on bit by bit. The
 decision bits leave packed, one int32 word per (codeword, position) with
 bit l = path l (the word K1 and the SCL glue use, batch-first here because
-the large-N glue is), perm maps each output slot to the input slot it
-descends from. A prune round ranks candidates by (value desc, flat code
-l*C + c asc) and leaves _NEG on the candidate it took, as the TPU kernel's
-iterative extraction does: once only values <= _NEG remain (inactive list
+the large-N glue is); above 32 paths W = ceil(L / 32) words per position,
+[B, W, M], path l in bit l % 32 of word l // 32 (K1's words, ahead of the
+positions). perm maps each output slot to the input slot it descends
+from. K7 takes any L from 1 to MAX_LIST (128): L = 2, 4, 8, 16, 32 in
+kernels of their own size (library large_scl_chunk), every other L in the
+kernel of its capacity (4, 32, 64 or 128) with the list size at run time
+(library large_scl_lists; `scl_library` picks).
+
+A prune round ranks candidates by (value desc, flat code l*C + c asc) and
+leaves _NEG on the candidate it took, as the TPU kernel's iterative
+extraction does: once only values <= _NEG remain (inactive list
 slots), a taken candidate can be taken again. This shows only in inactive
 slots. The kernel computes the same result by rank (each candidate counts
 the candidates that beat it) with the re-take rule written out;
 `prune_by_rank` is that computation in torch ops, held against the
-iterative prune by the CPU tests.
+iterative prune by the CPU tests, and the plain version prunes with it.
 
 `masked_sc_chunk` and `masked_scl_chunk` run their plain versions for CPU
 tensors and the CUDA kernels for CUDA tensors, never one in place of the
@@ -55,7 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,8 +73,10 @@ from .fg import f_minsum, f_minsum_sat
 from .scl_kernel_bl import (
     SPC_TABLE,
     _Char,
+    MAX_LIST,
     _Float,
     _Plain,
+    n_words,
     pack01,
     packed_bipolar,
     take_packed,
@@ -77,11 +87,13 @@ from ..models.tree import CodeNode, NodeKind
 
 _NEG = -1.0e30  # metric of an inactive list slot (models/scl.py)
 MAX_SC_CHUNK = 8192  # K6 keeps 2M f32 LLRs and 2M bytes of bits on chip
-SCL_LISTS = (2, 4, 8, 16, 32)
-MAX_SCL_SMEM = 200 * 1024  # K7's LLR pyramid and bit words, per codeword
+SCL_LISTS = (2, 4, 8, 16, 32)  # K7's list sizes with a kernel of their own size
+MAX_SCL_SMEM = 200 * 1024  # K7's LLR levels and bit words, per codeword
 # kernel launches since the counts were last reset: "sc"/"scl" the float32
 # family, "sc_char"/"scl_char" the char family
 LAUNCHES: Dict[str, int] = {"sc": 0, "scl": 0, "sc_char": 0, "scl_char": 0}
+# K7 launches per (family, list size), every family (cleared by the caller)
+SCL_LIST_LAUNCHES: Dict[Tuple[str, int], int] = {}
 # the chunk kernels' families: K1's rule sets on float32 state (their
 # codes are the kernels' family codes too); K6's f is the product form
 _FAMILIES = {"float32": _Float, "char": _Char}
@@ -179,21 +191,36 @@ def _sub_leaf(kind: NodeKind, span: int) -> CodeNode:
     return CodeNode(offset=0, length=span, frozen=frozen, kind=kind)
 
 
+class _RankPlain(_Plain):
+    """K1's plain rules with K7's prune: the iterative extraction with the
+    _NEG re-take rule, computed by rank (prune_by_rank, equal to
+    _Plain(L, drop=_NEG).prune: tests/test_torch_prune_rank.py) in a
+    fixed count of whole-tensor ops at any L, where the extraction takes L
+    rounds of four ops at every bit."""
+
+    def prune(self, metrics, deltas):
+        if deltas.shape[0] * metrics.shape[0] <= self.n_list:
+            return super().prune(metrics, deltas)
+        return prune_by_rank(metrics, deltas, self.n_list)
+
+
 def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
                            metrics: torch.Tensor,
                            sub_cls: Optional[torch.Tensor] = None,
                            family: str = "float32"):
     """Plain version of K7 on any device (same signature as
-    masked_scl_chunk). Works in K1's [w, S, B] layout with packed words,
-    with K1's rules of the family on float32 state; f is the sign-XOR form
-    in both families (on integers it is the char family's product form)."""
+    masked_scl_chunk), at any list size. Works in K1's [w, S, B] layout
+    with packed words ([W, S, B] above 32 paths), with K1's rules of the
+    family on float32 state; f is the sign-XOR form in both families (on
+    integers it is the char family's product form)."""
     _check_family(family)
     n_list, m_len = llr.shape[1], llr.shape[2]
+    words = n_words(n_list)
     frozen = mask.cpu().numpy() != 0
     codes = None if sub_cls is None else sub_cls.cpu().numpy().tolist()
     sub = None if codes is None else m_len // len(codes)
     fam = _FAMILIES[family]
-    plain = _Plain(n_list, drop=_NEG, fam=fam)
+    plain = _RankPlain(n_list, drop=_NEG, fam=fam)
 
     def bit_leaf(x, lo, mets):
         work = x[:, 0]
@@ -203,9 +230,11 @@ def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
             deltas = torch.stack([torch.zeros_like(work), -work.abs()])
         new_m, src, cand = plain.prune(mets, deltas)
         if frozen[lo]:
-            return torch.zeros_like(work[:1], dtype=torch.int32), src, new_m
+            shape = (1, work.shape[1]) if words == 1 else (words, 1, work.shape[1])
+            return torch.zeros(shape, dtype=torch.int32, device=x.device), src, new_m
         hard = fam.hard(x).to(torch.int32)
-        return pack01(take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]), src, new_m
+        bits = take_state(hard, src) ^ (cand == 1).to(torch.int32)[:, None]
+        return pack01(bits, words), src, new_m
 
     def node(x, lo, mets, dispatch):
         m = x.shape[1]
@@ -222,25 +251,25 @@ def masked_scl_chunk_plain(llr: torch.Tensor, mask: torch.Tensor,
         if p_left is not None:
             xg = take_state(x, p_left)
             a, b = xg[:, :half], xg[:, half:]
-        right, p_right, mets = node(fam.g(a, b, packed_bipolar(left, n_list)),
+        right, p_right, mets = node(fam.g(a, b, packed_bipolar(left, n_list, words)),
                                     lo + half, mets, dispatch)
         if p_right is not None:
-            left = take_packed(left, p_right, n_list)
+            left = take_packed(left, p_right, n_list, words)
         perm = p_right if p_left is None else (
             p_left if p_right is None else take_vec(p_left, p_right))
-        return torch.cat([left ^ right, right], dim=0), perm, mets
+        return torch.cat([left ^ right, right], dim=-2), perm, mets
 
     word, perm, met = node(llr.permute(1, 2, 0), 0, metrics.T, sub is not None)
     if perm is None:
         perm = torch.arange(n_list, device=llr.device)[:, None].expand_as(met)
-    return (word.T.to(torch.int32).contiguous(), perm.T.to(torch.int32).contiguous(),
-            met.T.contiguous())
+    return (word.movedim(-1, 0).to(torch.int32).contiguous(),
+            perm.T.to(torch.int32).contiguous(), met.T.contiguous())
 
 
 def prune_by_rank(metrics: torch.Tensor, deltas: torch.Tensor, n_list: int):
-    """K7's prune by rank, in torch ops (its CPU twin; no decode path calls
-    it): metrics [w, B], deltas [C, w, B] with w * C > n_list -> (metrics'
-    [L, B], src [L, B], cand [L, B]), equal to _Plain(n_list,
+    """K7's prune by rank, in torch ops (its twin; the plain version of K7
+    prunes with it): metrics [w, B], deltas [C, w, B] with w * C > n_list
+    -> (metrics' [L, B], src [L, B], cand [L, B]), equal to _Plain(n_list,
     drop=_NEG).prune. Candidate t = l*C + c has the value metrics[l] +
     deltas[c, l] and the rank #{u: v_u > v_t or (v_u == v_t and u < t)}.
     With k values above _NEG, slots r < max(k, 1) take rank r with its
@@ -315,12 +344,38 @@ def _bind_scl(lib):
     return fn
 
 
+def scl_chunk_smem(n_list: int, m_len: int, sub: int = 0, direct: bool = False) -> int:
+    """Shared-memory bytes of one K7 codeword besides its fixed bookkeeping:
+    the LLR levels (8 L M bytes, or 4 L M with level 0 read from device
+    memory: `direct`), W words of packed bits a position (W the words of
+    the capacity that serves L: 1 up to 32 paths, 2 up to 64, 4 above),
+    the mask bits and the class codes. The kernel computes the same
+    (csrc/large_scl_lists.cu dynamic_bytes) and reads level 0 from device
+    memory where the staged state exceeds MAX_SCL_SMEM."""
+    words = 1 if n_list <= 32 else (2 if n_list <= 64 else 4)
+    return ((4 if direct else 8) * n_list * m_len + 4 * words * m_len
+            + 4 * ((m_len + 31) // 32) + (m_len // sub if sub else 0))
+
+
+def scl_library(n_list: int, m_len: int, sub: int = 0) -> str:
+    """The K7 library that serves L paths on chunks of m_len: the kernels of
+    a fixed list size (L in SCL_LISTS, the whole pyramid on chip) or those
+    of a capacity with the list size at run time (any other L, and these
+    where the pyramid does not fit)."""
+    if n_list in SCL_LISTS and scl_chunk_smem(n_list, m_len, sub) <= MAX_SCL_SMEM:
+        return "large_scl_chunk"
+    return "large_scl_lists"
+
+
 def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor,
                      sub_cls: Optional[torch.Tensor] = None, family: str = "float32"):
     """K7: (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32, sub_cls
-    [M / sub] i32 or None) -> (bits [B, M] i32, perm [B, L] i32, metrics
-    [B, L] f32). The plain version for CPU tensors, the CUDA kernel of
-    `family` for CUDA tensors."""
+    [M / sub] i32 or None) -> (bits [B, M] i32, or [B, W, M] for L > 32
+    with W = ceil(L / 32) words; perm [B, L] i32; metrics [B, L] f32). The
+    plain version for CPU tensors, the CUDA kernel of `family` for CUDA
+    tensors, at any L from 1 to MAX_LIST; a chunk whose state does not fit
+    on chip even with its input in device memory raises
+    NotImplementedError."""
     _check_family(family)
     if llr.device.type == "cpu":
         return masked_scl_chunk_plain(llr, mask, metrics, sub_cls, family)
@@ -338,12 +393,10 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
     if llr.dim() != 3 or not all(t.is_contiguous() for t in [llr] + args):
         raise ValueError("masked_scl_chunk takes contiguous tensors, llr [B, L, M]")
     n_batch, n_list, m_len = llr.shape
-    if n_list not in SCL_LISTS:
-        raise NotImplementedError(f"the masked SCL kernel covers L in {SCL_LISTS}")
-    _check_chunk(m_len, 1 << 15, "the masked SCL kernel")
-    if 8 * n_list * m_len + 4 * m_len > MAX_SCL_SMEM:
+    if not 1 <= n_list <= MAX_LIST:
         raise NotImplementedError(
-            f"L={n_list}, chunk {m_len}: the LLR pyramid does not fit on chip")
+            f"the masked SCL kernel covers 1 <= L <= {MAX_LIST}, got L={n_list}")
+    _check_chunk(m_len, 1 << 15, "the masked SCL kernel")
     if mask.shape != (m_len,) or metrics.shape != (n_batch, n_list):
         raise ValueError(f"mask must be [{m_len}] and metrics [{n_batch}, {n_list}]")
     sub = 0
@@ -352,9 +405,34 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
         if sub < 2 or sub * sub_cls.numel() != m_len or sub & (sub - 1):
             raise ValueError(f"{sub_cls.numel()} class codes do not cut {m_len} "
                              "into power-of-2 sub-blocks")
-    fn = _bind_scl(_build.load("large_scl_chunk"))
+    need = scl_chunk_smem(n_list, m_len, sub, direct=True)
+    if need > MAX_SCL_SMEM:
+        fits = [1 << k for k in range(1, 16)
+                if scl_chunk_smem(n_list, 1 << k, direct=True)
+                <= MAX_SCL_SMEM]
+        raise NotImplementedError(
+            f"L={n_list}, chunk {m_len}: one codeword's LLR levels and bits need {need} "
+            f"bytes of shared memory even with the chunk's input in device memory "
+            f"(limit {MAX_SCL_SMEM}); the largest chunk at this L is {max(fits)}")
+    out = launch_scl(_build.load(scl_library(n_list, m_len, sub)), llr, mask, metrics,
+                     sub_cls, family)
+    LAUNCHES["scl" if family == "float32" else "scl_char"] += 1
+    SCL_LIST_LAUNCHES[family, n_list] = SCL_LIST_LAUNCHES.get((family, n_list), 0) + 1
+    return out
+
+
+def launch_scl(lib, llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor,
+               sub_cls: Optional[torch.Tensor] = None, family: str = "float32"):
+    """Launch K7 from the loaded library `lib` on checked CUDA tensors (the
+    wrapper's launch; chip_profile.py times other builds through it)."""
+    n_batch, n_list, m_len = llr.shape
+    dev = llr.device
+    sub = 0 if sub_cls is None else m_len // sub_cls.numel()
+    words = n_words(n_list)
+    fn = _bind_scl(lib)
     spc, none = _scl_consts(dev)
-    bits = torch.empty((n_batch, m_len), dtype=torch.int32, device=dev)
+    shape = (n_batch, m_len) if words == 1 else (n_batch, words, m_len)
+    bits = torch.empty(shape, dtype=torch.int32, device=dev)
     perm = torch.empty((n_batch, n_list), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, n_list), dtype=torch.float32, device=dev)
     # the kernel walks the chunk itself: no schedule (ops, n_ops) is passed
@@ -365,5 +443,4 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
              _FAMILIES[family].code, _stream(dev))
     if err:
         raise RuntimeError(f"masked_scl_chunk launch failed: CUDA error {err}")
-    LAUNCHES["scl" if family == "float32" else "scl_char"] += 1
     return bits, perm, met

@@ -219,18 +219,24 @@ def n_words(list_size: int) -> int:
     return max(1, (list_size + 31) // 32)
 
 
+def pack_planes(bits: torch.Tensor, words: int) -> torch.Tensor:
+    """[w, ...] int {0,1}, w <= 32 * words -> [words, ...] int32: plane l
+    into bit l % 32 of word l // 32, 32 planes a word in one sum."""
+    pad = 32 * words - bits.shape[0]
+    bits = bits.to(torch.int32)
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((pad,) + bits.shape[1:])])
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    shifts = shifts.view((1, 32) + (1,) * (bits.dim() - 1))
+    # bit 31 shifts to -2^31, so each sum lies in the int32 range
+    return (bits.reshape((words, 32) + bits.shape[1:]) << shifts).sum(1).to(torch.int32)
+
+
 def pack01(b01: torch.Tensor, words: int = 1) -> torch.Tensor:
     """[w, ...] int {0,1} -> packed [...] int32 (plane l = row l), or
     [words, ...] for more than one word."""
-    if words == 1:
-        acc = b01[0].to(torch.int32)
-        for l in range(1, b01.shape[0]):
-            acc = acc | (b01[l].to(torch.int32) << l)
-        return acc
-    out = torch.zeros((words,) + b01.shape[1:], dtype=torch.int32, device=b01.device)
-    for l in range(b01.shape[0]):
-        out[l >> 5] |= b01[l].to(torch.int32) << (l & 31)
-    return out
+    packed = pack_planes(b01, words)
+    return packed[0] if words == 1 else packed
 
 
 def plane(word: torch.Tensor, l, words: int = 1) -> torch.Tensor:
@@ -247,21 +253,21 @@ def plane(word: torch.Tensor, l, words: int = 1) -> torch.Tensor:
 def take_packed(word: torch.Tensor, src: torch.Tensor, w_out: int,
                 words: int = 1) -> torch.Tensor:
     """Path-fork gather on a packed word: out plane l = in plane src[l, b];
-    src is [w_out, B]."""
+    src is [w_out, B]. Every plane is gathered at once: its word by
+    src >> 5 (above one word) and its bit by src & 31."""
     if words == 1:
-        acc = (word >> src[0][None, :]) & 1
-        for l in range(1, w_out):
-            acc = acc | (((word >> src[l][None, :]) & 1) << l)
-        return acc
-    out = torch.zeros_like(word)
-    for l in range(w_out):
-        out[l >> 5] |= plane(word, src[l], words) << (l & 31)
-    return out
+        planes = (word[None] >> src[:w_out, None, :].to(torch.int32)) & 1
+        return pack_planes(planes, 1)[0]
+    src = src.to(torch.int64)
+    sel = torch.gather(word, 0, (src >> 5)[:, None, :].expand(-1, word.shape[1], -1))
+    return pack_planes((sel >> (src & 31).to(torch.int32)[:, None, :]) & 1, words)
 
 
 def unpack(word: torch.Tensor, w: int, words: int = 1) -> torch.Tensor:
     """Packed word -> [w, S, B] int32 {0,1} planes."""
-    return torch.stack([plane(word, l, words) for l in range(w)], dim=0)
+    lanes = torch.arange(w, device=word.device)
+    shifts = (lanes & 31).to(torch.int32).view((w,) + (1,) * (word.dim() - (words > 1)))
+    return ((word[None] if words == 1 else word[lanes >> 5]) >> shifts) & 1
 
 
 def packed_bipolar(word: torch.Tensor, w: int, words: int = 1) -> torch.Tensor:
@@ -524,8 +530,10 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     On the card one warp decodes one codeword with its list state (the
     LLRs of every tree level below the subtree's root, the packed bit
     words, the perms) in shared memory, PER_BLOCK codewords a block (0:
-    chosen from the batch). Any list size from 2 to MAX_LIST runs, in the
-    instantiation of the next power of two. A one-leaf schedule whose input does not fit
+    chosen from the batch). Any list size from 1 to MAX_LIST runs, in the
+    instantiation of the next power of two (L = 1 in capacity 2: the
+    large-N decoders' one-leaf schedules at one path; SCLDecoder decodes
+    L = 1 through Fast-SSC). A one-leaf schedule whose input does not fit
     there as well is decoded from device memory (the large-N tree
     schedule's longest pure leaves at L = 32). A branched schedule whose
     state does not fit in the card's opt-in shared memory per block (L *
@@ -549,9 +557,9 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
             f"[B, {sched.w_in}], got {tuple(llr.shape)} and {tuple(metrics.shape)}")
     if not (llr.is_contiguous() and metrics.is_contiguous()):
         raise ValueError("scl_subtree takes contiguous tensors")
-    if not 2 <= sched.list_size <= MAX_LIST or sched.levels > MAX_LEVELS:
+    if not 1 <= sched.list_size <= MAX_LIST or sched.levels > MAX_LEVELS:
         raise NotImplementedError(
-            f"the kernel covers 2 <= L <= {MAX_LIST} and at most {MAX_LEVELS} "
+            f"the kernel covers 1 <= L <= {MAX_LIST} and at most {MAX_LEVELS} "
             f"tree levels, got L={sched.list_size}, {sched.levels} levels")
     out = launch(_build.load("scl_subtree"), sched, llr, metrics)
     LAUNCHES[fam.name] += 1

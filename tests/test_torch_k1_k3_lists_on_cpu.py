@@ -5,7 +5,8 @@ per CUDA thread), against their plain versions.
 
 K1: L = 3 (the capacity-4 instantiation with three live slots) and L = 64
 (two packed words, a lane per path above 32 paths, the prune in passes),
-in all three families (float32, char in int16, bf16). Subtrees: one leaf
+in all three families; on the one-leaf schedules of the large-N decoders,
+L = 1 (capacity 2) and L = 80 (three of capacity 128's four words leave) (float32, char in int16, bf16). Subtrees: one leaf
 of each kind (rate-0, rate-1 at length 1 and longer, repetition, SPC,
 ENUM) and the branched subtrees of an N = 64 code with every leaf kind and
 of an N = 128 code at the SCL decoder's tree settings, each entered at
@@ -136,10 +137,33 @@ def test_k1_source_on_cpu_any_list(k1, family, n_list):
     assert n_list in widths and any(1 < w < n_list for w in widths)
 
 
+@pytest.mark.parametrize("n_list,family", [(1, "float32"), (1, "char"), (1, "bfloat16"),
+                                            (80, "float32")])
+def test_k1_source_on_cpu_one_leaf_any_list(k1, n_list, family):
+    """The one-leaf schedules the large-N decoders build (w_in = L): at
+    L = 1 in capacity 2's kernel, and at L = 80, whose three words a
+    position (capacity 128 holds four) are all that leave the kernel."""
+    rng = np.random.default_rng(n_list + len(family))
+    dtype = DTYPES[family]
+    for node in _nodes()[:6]:
+        sched = kbl.build_schedule(node, n_list, n_list)
+        for kind in ("ints", "gauss"):
+            llr, met = _inputs(rng, sched, 3, dtype, kind)
+            got = _run_k1(k1, sched, llr, met, 2)
+            want = kbl.scl_subtree_plain(sched, llr, met)
+            where = f"L {n_list} {node.kind.value} span {node.length}, {kind}"
+            assert got[0].shape == want[0].shape, where
+            assert torch.equal(got[0], want[0]), where + ": bits"
+            assert torch.equal(got[1], want[1]), where + ": perm"
+            assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
+                where + ": metrics")
+
+
 def test_k1_list_capacity_and_smem(k1):
-    """A list size takes the next power of two's state; L = 64 and 128 fit
-    the card's shared memory at the JAX package's default span (128), and
-    a list beyond the kernel's largest is refused."""
+    """A list size takes the next power of two's state (L = 1 capacity
+    2's); L = 64 and 128 fit the card's shared memory at the JAX package's
+    default span (128), and a list beyond the kernel's largest is
+    refused."""
     lib, fn = k1
     f32 = kbl.family(torch.float32).code
     assert lib.scl_subtree_smem(3, 512, f32, 3) == lib.scl_subtree_smem(4, 512, f32, 3)
@@ -147,7 +171,8 @@ def test_k1_list_capacity_and_smem(k1):
     assert lib.scl_subtree_smem(64, 128, f32, 3) < 50 * 1024  # 32 KiB of levels, the rest lists
     assert lib.scl_subtree_smem(128, 128, f32, 3) < 100 * 1024
     assert lib.scl_subtree_smem(kbl.MAX_LIST + 1, 128, f32, 3) == -1
-    assert lib.scl_subtree_smem(1, 128, f32, 3) == -1
+    assert lib.scl_subtree_smem(1, 128, f32, 3) == lib.scl_subtree_smem(2, 128, f32, 3)
+    assert lib.scl_subtree_smem(0, 128, f32, 3) == -1
     node = build_tree(512, range(256))
     with pytest.raises(NotImplementedError, match="L=128"):  # a branched 512 at L = 128
         kbl.check_smem(lib, kbl.build_schedule(node, 128, 128), kbl.family(torch.float32))

@@ -1,12 +1,14 @@
 """The masked chunk kernels' CUDA sources (csrc/large_sc_chunk.cu, K6;
-csrc/large_scl_chunk.cu, K7), built for the CPU by ops/_emu.py (g++, one
+csrc/large_scl_chunk.cu and large_scl_lists.cu, K7), built for the CPU by ops/_emu.py (g++, one
 thread per CUDA thread), against their plain versions.
 
 Small shapes, inputs from a seed with numpy: integer LLRs in [-2, 2]
 (ties, signed zeros through f) and Gaussian ones; K6 on masks with rate-0
 runs, all-frozen, all-free and random chunks; K7 at every list size with
-and without sub-blocks of every class, on rows with one live path and with
-0 to L - 1 live paths at random slots. Tolerance: none for K6 (x and u
+and without sub-blocks of every class (1 to 64 paths: the kernels of a
+fixed list size, the run-time sizes 1 and 3 and two words at 64), on rows
+with one live path and with 0 to L - 1 live paths at random slots, and at
+L = 100 and 128 on a chunk of 256 whose input stays in device memory. Tolerance: none for K6 (x and u
 bit-equal) and for K7's bits and perms; K7 metrics exactly equal in char,
 within 1e-4 in float32 (the card's tolerance; these integer and Gaussian
 inputs give equal metrics). On the card `chip_smoke.py` holds the nvcc
@@ -39,7 +41,8 @@ def k6():
 
 @pytest.fixture(scope="module")
 def k7():
-    return lk._bind_scl(_lib("large_scl_chunk"))
+    """K7's CPU build that the wrapper would launch for (L, chunk, sub)."""
+    return lambda n_list, m_len, sub: lk._bind_scl(_lib(lk.scl_library(n_list, m_len, sub)))
 
 
 def _llr(rng, shape, family, kind):
@@ -87,28 +90,29 @@ _CLASS_MASK = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1, 1, 1, 0, 1, 0, 0, 0,
                         1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0], np.uint8)
 
 
-@pytest.mark.parametrize("sub", [0, 4])
-@pytest.mark.parametrize("n_list", lk.SCL_LISTS)
-@pytest.mark.parametrize("family", FAMILIES)
-def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
+def _check_k7(k7, family, n_list, mask_np, sub, n_batch, rng):
+    """K7's CPU build against its plain version on one mask, integer and
+    Gaussian LLRs, a row with one live path and rows with 0 to L - 1."""
     from polar_codes_torch.models.large import _classify_chunks
 
-    rng = np.random.default_rng(100 * n_list + sub + len(family))
-    m_len, n_batch = _CLASS_MASK.size, 2
-    mask = torch.as_tensor(_CLASS_MASK)
-    sub_cls = (torch.as_tensor(_classify_chunks(list(_CLASS_MASK.reshape(-1, sub))))
+    m_len = mask_np.size
+    mask = torch.as_tensor(mask_np)
+    sub_cls = (torch.as_tensor(_classify_chunks(list(mask_np.reshape(-1, sub))))
                if sub else None)
+    words = lk.n_words(n_list)
     for kind in ("ints", "gauss"):
         llr = torch.as_tensor(_llr(rng, (n_batch, n_list, m_len), family, kind))
         met = rng.integers(-3, 1, (n_batch, n_list)).astype(np.float32)
         met[0, 1:] = lk._NEG  # one live path
-        met[1, rng.permutation(n_list)[rng.integers(0, n_list):]] = lk._NEG
+        for row in range(1, n_batch):
+            met[row, rng.permutation(n_list)[rng.integers(0, n_list):]] = lk._NEG
         met = torch.as_tensor(met)
         spc, none = lk._scl_consts(torch.device("cpu"))
-        bits = torch.empty((n_batch, m_len), dtype=torch.int32)
+        bits = torch.empty((n_batch, m_len) if words == 1 else (n_batch, words, m_len),
+                           dtype=torch.int32)
         perm = torch.empty((n_batch, n_list), dtype=torch.int32)
         m_out = torch.empty((n_batch, n_list), dtype=torch.float32)
-        assert k7(None, 0, spc.data_ptr(), llr.data_ptr(),
+        assert k7(n_list, m_len, sub)(None, 0, spc.data_ptr(), llr.data_ptr(),
                   mask.data_ptr(), met.data_ptr(),
                   (none if sub_cls is None else sub_cls).data_ptr(), sub, bits.data_ptr(),
                   perm.data_ptr(), m_out.data_ptr(), n_list, m_len, n_batch,
@@ -120,3 +124,30 @@ def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
             assert torch.equal(m_out, pm), kind
         else:
             torch.testing.assert_close(m_out, pm, rtol=1e-4, atol=1e-4)
+
+
+# L = 1 and 3 run in the capacity-2 and -4 kernels with the list size at
+# run time, L = 64 in capacity 64 with two words a position; the CPU runner
+# puts a barrier at every warp sync and cannot show a race (chip_smoke.py
+# phase 40 holds the nvcc build on the card)
+@pytest.mark.parametrize("sub", [0, 4])
+@pytest.mark.parametrize("n_list", lk.SCL_LISTS + (1, 3, 64))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
+    rng = np.random.default_rng(100 * n_list + sub + len(family))
+    _check_k7(k7, family, n_list, _CLASS_MASK, sub, 2, rng)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("family,n_list,sub", [("float32", 128, 16), ("char", 100, 0)])
+def test_k7_source_on_cpu_reads_level0_from_device_memory(k7, family, n_list, sub):
+    """A chunk of 256 at L = 100 or 128, whose pyramid exceeds the shared
+    memory K7 takes (lk.MAX_SCL_SMEM): level 0 stays where it lies (~7 s a
+    case on the CPU runner; chip_smoke.py phase 40 holds it on the card)."""
+    m_len = 256
+    assert lk.scl_chunk_smem(n_list, m_len, sub) > lk.MAX_SCL_SMEM
+    assert lk.scl_chunk_smem(n_list, m_len, sub, direct=True) <= lk.MAX_SCL_SMEM
+    rng = np.random.default_rng(n_list + len(family))
+    mask = np.concatenate([_CLASS_MASK] * (m_len // _CLASS_MASK.size))
+    mask[:64] = rng.random(64) < 0.5  # more mixed sub-blocks
+    _check_k7(k7, family, n_list, mask, sub, 1, rng)

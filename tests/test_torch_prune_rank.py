@@ -6,7 +6,8 @@ kernel's extraction order and its re-take rule.
 Inputs are made with numpy from a seed: random values, forced ties
 (integer values and equal metrics), -0.0 against +0.0, rows with 0, 1 and
 L - 1 live paths (the others at _NEG), and the frozen-leaf deltas
-{min(x, 0), _NEG}. Tolerance: none; values, src and cand are equal.
+{min(x, 0), _NEG}; list sizes 1 to 64, powers of two and not. Tolerance:
+none; values, src and cand are equal.
 """
 
 import numpy as np
@@ -58,7 +59,7 @@ def _cases(n_list, n_cand, rng):
 
 
 @pytest.mark.parametrize("n_cand", [2, 4, 8])
-@pytest.mark.parametrize("n_list", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n_list", [1, 2, 3, 4, 8, 12, 16, 32, 64])
 def test_prune_by_rank_matches_iterative_prune(n_list, n_cand):
     rng = np.random.default_rng(1000 * n_list + n_cand)
     plain = _Plain(n_list, drop=_NEG)
