@@ -218,16 +218,47 @@ one-leaf schedules at L = 1:
      int8 block), B = 64 at 2 dB: K7 and K1 launches per decode at that L
      as the classes say, every CRC failure a wrong block; but for L = 1
      (held call by call in phase 40), packed words and metrics exactly
-     equal to the plain route and equal decisions
+     equal to the plain route and equal decisions, at (8192, 4096) (the
+     plain routes at N = 32768 took ~75 s together)
  42. K7 per call at L = 1, 3, 64, 128 (float32) and 3, 64 (char) beside
      its bound and its plain version, K1 at L = 1 per decode, launches per
      decode by list size, the CA-SCL-64 decode at B = 128 on both
      schedules (ms, device busy share under torch.profiler), and phase
      17's K7 call at L = 8 timed again
- 43. {"kernels": [...]}, every family of all seven TPU kernels, K1 at L =
+
+Slice 13, lists above 128 paths: where one codeword's list state does not
+fit shared memory (every L > 128; L <= 128 at a large kernel_span or
+chunk), K1 and K7 run csrc/scl_wide.cu, a block a codeword with the LLR
+levels in a device-memory scratch:
+ 43. K1 from device memory against its plain version at L = 129, 160,
+     256, 512, every family, B in (1, 181, 256) (each L at every batch):
+     every subtree call of an N = 1024 CA-SCL decode on integer LLRs in
+     [-2, 2]; L = 128 at kernel_span 512 and L = 64 at 1024; bits, perms,
+     metrics equal, every call through the device-memory kernel
+ 44. K7 from device memory against its plain version at L = 129, 160,
+     256, both families, chunks 64 and 256, with and without sub-blocks
+     of every class, rows with 1 and L - 1 live paths; L = 128 at chunk
+     512 and L = 64 at 1024; bits, perms, metrics equal
+ 45. (1024, 512) CRC16 CA-SCL-256 at 1.5 dB, B = 256, in float32, int8 and
+     bf16, CA-SCL-512 at B = 64, CA-SCL-128 at kernel_span 512: kernel
+     route == plain route (words exact, metrics within 1e-4, decisions
+     equal), every CRC failure a wrong block, no more wrong blocks than
+     CA-SCL-64 on the same blocks + 2, K1 from device memory at that L;
+     sim.cli listlength --l-min 64 --l-max 256; (32768, 16384) CA-SCL-256,
+     chunk 256, sub-block 16, 2 dB, B = 32, on both schedules (K7 and K1
+     from device memory; against CA-SCL-64); the plain routes at (8192,
+     4096): CA-SCL-256 on both schedules and in int8, CA-SCL-128 at chunk
+     512 (the plain route at N = 32768 and L = 256 would take minutes)
+ 46. K1 per decode at L = 256 (every family), 512 and 128 at span 512, K7
+     per call at L = 256 (float32 on the path, char) and 128 at chunk 512,
+     beside bounds and plain versions; CA-SCL-256 decode ms and device
+     busy share at N = 1024 and 32768
+ 47. {"kernels": [...]}, every family of all seven TPU kernels, K1 at L =
      3, 12, 64 (every family), 128 and 1, and K7 at L = 1, 3, 64, 128
-     (float32) and 3, 64 (char)
- 44. {"ok": true, "device": {...}}
+     (float32) and 3, 64 (char); K1 from device memory at L = 256 (every
+     family), 512 and 128 at span 512, K7 at L = 256 (both families) and
+     128 at chunk 512
+ 48. {"ok": true, "device": {...}}
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -483,6 +514,19 @@ def main():
     s12 = run_slice12(card, slice3["k7_l8"], k7_lists)
 
     # 43 ------------------------------------------------------------------
+    phase("43 K1 from device memory at L in (129, 160, 256, 512), every family, B in (1, 181, "
+          "256); L = 128 at kernel_span 512 and L = 64 at 1024")
+    k1_wide = run_k1_wide(card)
+
+    # 44 ------------------------------------------------------------------
+    phase("44 K7 from device memory at L in (129, 160, 256), both families, chunks 64 and "
+          "256; L = 128 at chunk 512 and L = 64 at 1024")
+    k7_wide = run_k7_wide(card)
+
+    # 45-46 ---------------------------------------------------------------
+    s13 = run_slice13(card, k1_wide, k7_wide)
+
+    # 47 ------------------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -554,8 +598,8 @@ def main():
          "max_abs_err": k1_lists["err"]["float32"], "ms": k1_lists["timed"][n_list][0],
          "plain_ms": k1_lists["timed"][n_list][1], **bound(*k1_lists["timed"][n_list][2:]),
          "library_ms": None}
-        for n_list in (3, 12)] + [s11["k3"]] + s12["entries"]})
-    # 44 ------------------------------------------------------------------
+        for n_list in (3, 12)] + [s11["k3"]] + s12["entries"] + s13["entries"]})
+    # 48 ------------------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3255,7 +3299,8 @@ def run_slice12(card, k7_l8, held):
                   schedule=schedule, dtype=torch.int8 if int8 else torch.float32,
                   carry_dtype=torch.bfloat16 if bf16 else None, device=dev)
         dec = LargeSCLDecoder(n_len, codes[n_len][0], **kw)
-        plain = LargeSCLDecoder(n_len, codes[n_len][0], chunk_fn=lk.masked_scl_chunk_plain,
+        # the plain route runs at (N_I8, K_I8): at N = 32768 it took ~10 s a path
+        plain = LargeSCLDecoder(N_I8, codes[N_I8][0], chunk_fn=lk.masked_scl_chunk_plain,
                                 subtree_fn=kbl.scl_subtree_plain, **kw)
         if schedule == "tree":
             n_k1 = len(dec._tree_scheds)
@@ -3290,11 +3335,17 @@ def run_slice12(card, k7_l8, held):
         if word.shape != ((n_len, B12) if words == 1 else (words, n_len, B12)):
             raise AssertionError(f"{name}: packed words of shape {tuple(word.shape)}")
         if held_plain:
-            pword, pmet = plain.decode_packed(llr)
-            _equal(f"{name} packed words", word, pword)
-            _equal(f"{name} metrics", met, pmet)
+            x_eq, out_eq, word_eq, met_eq = llr, out, word, met
+            if n_len != N_I8:
+                eq = LargeSCLDecoder(N_I8, codes[N_I8][0], **kw)
+                x_eq = channel(N_I8, B12, int8)[1]
+                out_eq = eq.decode(x_eq)
+                word_eq, met_eq = eq.decode_packed(x_eq)
+            pword, pmet = plain.decode_packed(x_eq)
+            _equal(f"{name} packed words", word_eq, pword)
+            _equal(f"{name} metrics", met_eq, pmet)
             plain.decode_packed = lambda _, w=(pword, pmet): w  # its decisions from its words
-            _same_decisions(name, out, plain.decode(llr))
+            _same_decisions(name, out_eq, plain.decode(x_eq))
         wrong = (out[0] != sent).any(1)
         if (~out[2] & ~wrong).any():
             raise AssertionError(f"{name}: a block with a failed CRC decoded right")
@@ -3302,6 +3353,7 @@ def run_slice12(card, k7_l8, held):
                       "block_errors": int(wrong.sum()), "crc_failures": int((~out[2]).sum())}
         emit({"path": name, "n": n_len, "list_size": n_list, "schedule": schedule,
               "batch": B12, "ebn0_db": EBN0_DB, "held_against_plain_route": held_plain,
+              "plain_route_n": N_I8,
               **runs[name], "card": card})
     print("K7 and K1 at L = 3, 64, 128 (float32, both schedules, bf16 carry) and K7 char "
           "at L = 3, 64: kernel routes == plain routes, words and metrics exactly; L = 1 "
@@ -3374,6 +3426,489 @@ def run_slice12(card, k7_l8, held):
           f"{ms17:.4f})")
     return {"entries": entries}
 
+
+# ---- slice 13: lists above 128 paths, list state in device memory --------
+
+SEED13 = 20261027
+WIDE_DESIGN = ("a block of 256 threads a codeword, the LLR levels in a device-memory "
+               "scratch, the bookkeeping in shared memory, the prune a bitonic sort")
+WIDE_SRC = "polar_codes_torch/csrc/scl_wide.cu"
+K1_WIDE_LISTS = (129, 160, 256, 512)
+K1_WIDE_BATCHES = (1, 181, 256)  # rotated over (L, family): every L sees every batch
+K1_PAST_SMEM = ((128, 512), (64, 1024))  # (L, kernel_span): branched spans past shared memory
+K7_WIDE_LISTS = (129, 160, 256)
+K7_PAST_SMEM = ((128, 512), (64, 1024))  # (L, chunk) past shared memory at L <= 128
+K7_WIDE_BATCHES = (1, 33)
+B13, B13_L512, B13_LARGE, EBN0_13 = 256, 64, 32, 1.5
+N_EQ13, K_EQ13 = 8192, 4096  # the large-N plain-route checks (N = 32768 at L = 256: slow)
+# phase 45's N = 1024 paths: (name, L, dtype, batch, kernel_span)
+PATHS13 = (("cascl256_float32", 256, "float32", B13, None),
+           ("cascl256_int8", 256, "int8", B13, None),
+           ("cascl256_bfloat16", 256, "bfloat16", B13, None),
+           ("cascl512_float32", 512, "float32", B13_L512, None),
+           ("cascl128_span512", 128, "float32", B13, 512))
+
+
+def _wide_count():
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    return sum(kbl.WIDE_LAUNCHES.values()) + sum(lk.SCL_WIDE_LAUNCHES.values())
+
+
+def run_k1_wide(card):
+    """Phase 43. K1 against its plain version at L in K1_WIDE_LISTS, every
+    family, B rotating through K1_WIDE_BATCHES (each L at every batch):
+    every subtree call of an N = 1024 CA-SCL decode on integer LLRs in
+    [-2, 2] (ties, signed zeros; the widening calls at one path and the
+    calls at L); then L = 128 at kernel_span 512 and L = 64 at kernel_span
+    1024, whose branched state exceeds shared memory, at B = 181. Every
+    call goes through the device-memory kernel; bits, perms and metrics
+    equal. Returns {"err": the largest metric difference per family (0),
+    "calls": the number held}."""
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED13)
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    err = {"float32": 0.0, "char": 0.0, "bfloat16": 0.0}
+    fams = list(_fams())
+    cases = [(n_list, dtype, K1_WIDE_BATCHES[(i + j) % 3], None)
+             for i, n_list in enumerate(K1_WIDE_LISTS) for j, dtype in enumerate(fams)]
+    cases += [(n_list, torch.float32, 181, span) for n_list, span in K1_PAST_SMEM]
+    checked = 0
+    for n_list, dtype, n_batch, span in cases:
+        calls = []
+
+        def record(sched, x, m):
+            out = kbl.scl_subtree_plain(sched, x, m)
+            calls.append((sched, x, m, out))
+            return out
+
+        x0 = torch.randint(-2, 3, (n_batch, N_LEN), generator=gen, device=dev).to(dtype)
+        SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), dtype=dtype,
+                   kernel_span=span, device=dev, subtree_fn=record).decode_packed(x0)
+        wide = _wide_count()
+        for sched, x, m, want in calls:
+            where = (f"K1 {kbl.family(x.dtype).name} L={n_list} B={n_batch} span "
+                     f"{sched.span} at {sched.node.offset}, w {sched.w_in}->{sched.w_out}")
+            got = kbl.scl_subtree(sched, x, m)
+            _equal(where + " bits", got[0], want[0])
+            _equal(where + " perm", got[1], want[1])
+            if not torch.isfinite(got[2]).all():
+                raise AssertionError(where + ": metrics not finite")
+            fam = kbl.family(x.dtype).name
+            err[fam] = max(err[fam], _equal(where + " metrics", got[2], want[2]))
+            checked += 1
+        torch.cuda.synchronize()
+        if _wide_count() - wide != len(calls) or not calls:
+            raise AssertionError(f"K1 L={n_list} span {span}: {len(calls)} calls, "
+                                 f"{_wide_count() - wide} through the device-memory kernel")
+    emit({"k1_wide_checked_calls": checked, "lists": K1_WIDE_LISTS,
+          "past_shared_memory": K1_PAST_SMEM, "max_abs_err": err, "card": card})
+    print(f"K1: {checked} calls from device memory at L in {K1_WIDE_LISTS} (every family) "
+          f"and {K1_PAST_SMEM} (L, span), bit-equal to the plain version")
+    return {"err": err, "calls": checked}
+
+
+def run_k7_wide(card):
+    """Phase 44. K7 against its plain version at L in K7_WIDE_LISTS, both
+    families, chunks of 64 and 256, B in K7_WIDE_BATCHES, with and without
+    sub-blocks of every class, on integer LLRs in [-2, 2]: rows with one
+    live path and rows with L - 1 (every other row each; the re-take
+    rule), and all rows live; then L = 128 at chunk 512 and L = 64 at chunk
+    1024. Every call through the device-memory kernel; bits, perms and
+    metrics equal. Returns {"err": per family, "calls": n, "timed": {name:
+    (args, family)} of the calls phase 46 times}."""
+    import numpy as np
+    import torch
+
+    from polar_codes_torch.models.large import _classify_chunks
+    from polar_codes_torch.ops import large_kernel as lk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED13 + 1)
+    # sub-blocks of 16: rate-0, mixed, rate-1, rep, spc
+    head = torch.as_tensor(np.concatenate([_class_mask64(), np.arange(16) == 0]),
+                           dtype=torch.uint8, device=dev)
+    err = {"float32": 0.0, "char": 0.0}
+    checked = 0
+    timed = {}
+
+    def metrics(n_batch, n_list, how):
+        met = torch.randint(-3, 1, (n_batch, n_list), generator=gen, device=dev).to(torch.float32)
+        if how == "1 and L-1 live":
+            met[0::2, 1:] = NEG  # one live path
+            met[1::2, -1] = NEG  # L - 1 live paths
+        return met
+
+    def mask_of(m_len):  # every sub-block class, then rate-0 runs at every span
+        mask = rate0_mask(m_len, gen, dev)
+        cls = head if m_len > head.numel() else head[16:]
+        mask[: cls.numel()] = cls
+        return mask
+
+    cases = [(n_list, m_len, n_batch, sub, how)
+             for n_list in K7_WIDE_LISTS for m_len in (64, CHUNK_SCL)
+             for n_batch, sub, how in ((K7_WIDE_BATCHES[1], True, "1 and L-1 live"),
+                                       (K7_WIDE_BATCHES[0], False, "live"))]
+    cases += [(n_list, m_len, K7_WIDE_BATCHES[1], True, "1 and L-1 live")
+              for n_list, m_len in K7_PAST_SMEM]
+    for n_list, m_len, n_batch, with_sub, how in cases:
+        if lk.scl_library(n_list, m_len, SUB if with_sub else 0) != "scl_wide":
+            raise AssertionError(f"K7 L={n_list} chunk {m_len}: not the device-memory kernel")
+        mask = mask_of(m_len)
+        sub_cls = None
+        if with_sub:
+            codes = _classify_chunks(list(mask.cpu().numpy().astype(bool).reshape(-1, SUB)))
+            sub_cls = torch.as_tensor(codes, device=dev)
+        x = torch.randint(-2, 3, (n_batch, n_list, m_len), generator=gen, device=dev).float()
+        met = metrics(n_batch, n_list, how)
+        for family in ("float32", "char"):
+            where = (f"K7 {family} L={n_list} chunk {m_len} B={n_batch} sub-blocks "
+                     f"{with_sub}, {how}")
+            got = lk.masked_scl_chunk(x, mask, met, sub_cls, family)
+            want = lk.masked_scl_chunk_plain(x, mask, met, sub_cls, family)
+            _equal(where + ": bits", got[0], want[0])
+            _equal(where + ": perm", got[1], want[1])
+            err[family] = max(err[family], _equal(where + ": metrics", got[2], want[2]))
+            checked += 1
+            # phase 46 times the shapes a phase-45 path runs
+            if with_sub and (n_list == 256 and m_len == CHUNK_SCL and family == "char"
+                             or (n_list, m_len) == (128, 512) and family == "float32"):
+                timed[f"masked_scl_chunk[{family},L={n_list},chunk={m_len}]"] = (
+                    (x, mask, met, sub_cls), family)
+    torch.cuda.synchronize()
+    emit({"k7_wide_checked_calls": checked, "lists": K7_WIDE_LISTS,
+          "past_shared_memory": K7_PAST_SMEM, "max_abs_err": err, "card": card})
+    print(f"K7: {checked} calls from device memory at L in {K7_WIDE_LISTS} and (L, chunk) in "
+          f"{K7_PAST_SMEM}, both families, bit-equal to the plain version")
+    return {"err": err, "calls": checked, "timed": timed}
+
+
+def run_slice13(card, k1_held, k7_held):
+    """Phases 45-46. k1_held, k7_held: phases 43 and 44's results. Returns
+    {"entries": the new kernels-line entries}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED13 + 2)
+    det = CRC16()
+    modem = Bpsk()
+    dtypes = {"float32": torch.float32, "int8": torch.int8, "bfloat16": torch.bfloat16}
+    frozen_of = {}
+
+    def channel(n_len, k_len, n_blocks, ebn0_db):
+        if n_len not in frozen_of:
+            fz = frozen_bits(n_len, k_len, 0.0, "BB")
+            frozen_of[n_len] = (fz, PolarEncoder(n_len, fz, systematic=True, detector=det,
+                                                 device=dev))
+        info = torch.randint(0, 2, (n_blocks, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (ebn0_db / 10.0) * k_len / n_len)
+        code = frozen_of[n_len][1].encode(info)
+        return det.generate(info), modem.demodulate(chan.transmit(modem.modulate(code), gen))
+
+    def reset_counts():
+        kbl.LAUNCHES.update(dict.fromkeys(kbl.LAUNCHES, 0))
+        kbl.WIDE_LAUNCHES.update(dict.fromkeys(kbl.WIDE_LAUNCHES, 0))
+        kbl.LIST_LAUNCHES.clear()
+        lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
+        lk.SCL_WIDE_LAUNCHES.update(dict.fromkeys(lk.SCL_WIDE_LAUNCHES, 0))
+        lk.SCL_LIST_LAUNCHES.clear()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"scl_subtree": dict(kbl.LAUNCHES), "scl_subtree_wide": dict(kbl.WIDE_LAUNCHES),
+                "scl_subtree_by_list": dict(sorted(kbl.LIST_LAUNCHES.items())),
+                "masked_scl_chunk_wide": dict(lk.SCL_WIDE_LAUNCHES),
+                "masked_scl_chunk_by_list": {f"{f},L={n}": c for (f, n), c in
+                                             sorted(lk.SCL_LIST_LAUNCHES.items())}}
+
+    def wrong_and_checked(what, out, sent):
+        wrong = (out[0] != sent).any(1)
+        if (~out[2] & ~wrong).any():
+            raise AssertionError(f"{what}: a block with a failed CRC decoded right")
+        return int(wrong.sum()), int((~out[2]).sum())
+
+    def held(name, dec, plain, x):
+        """dec's route == plain's: packed words exact, metrics within TOL,
+        decisions equal. Returns the largest metric difference."""
+        word, met = dec.decode_packed(x)
+        pword, pmet = plain.decode_packed(x)
+        _equal(f"{name} packed words", word, pword)
+        torch.testing.assert_close(met, pmet, rtol=TOL, atol=TOL)
+        plain.decode_packed = lambda _, w=(pword, pmet): w  # its decisions from its words
+        _same_decisions(name, dec.decode(x), plain.decode(x))
+        return max_err(met, pmet)
+
+    # 45 ------------------------------------------------------------------
+    phase(f"45 ({N_LEN}, {K_LEN}) CRC16 CA-SCL-256 (float32, int8, bf16) at B = {B13}, "
+          f"CA-SCL-512 at B = {B13_L512}, CA-SCL-128 at kernel_span 512, {EBN0_13} dB; "
+          f"listlength --l-min 64 --l-max 256; ({N_SCL}, {K_SCL}) CA-SCL-256 on both "
+          f"schedules at B = {B13_LARGE}; kernel route == plain route")
+    runs, k1_calls = {}, {}
+    sent, llr = channel(N_LEN, K_LEN, B13, EBN0_13)
+    quant = torch.clamp(torch.round(llr * AMPL), -127, 127).to(torch.int8)
+    inputs = {"float32": llr, "int8": quant, "bfloat16": llr}
+    ref64 = {}
+    for kind, dtype in dtypes.items():
+        out = SCLDecoder(N_LEN, frozen_of[N_LEN][0], list_size=64, detector=det, dtype=dtype,
+                         device=dev).decode(inputs[kind])
+        ref64[kind] = wrong_and_checked(f"CA-SCL-64 {kind}", out, sent)[0]
+    for name, n_list, kind, n_batch, span in PATHS13:
+        dtype, x = dtypes[kind], inputs[kind][:n_batch]
+        kw = dict(list_size=n_list, detector=det, dtype=dtype, kernel_span=span, device=dev)
+        dec = SCLDecoder(N_LEN, frozen_of[N_LEN][0], **kw)
+        plain = SCLDecoder(N_LEN, frozen_of[N_LEN][0], subtree_fn=kbl.scl_subtree_plain, **kw)
+        reset_counts()
+        out = dec.decode(x)
+        launched = counts()
+        fam = kbl.family(_fams()[dtype]).name
+        if not (launched["scl_subtree_by_list"].get(n_list)
+                and launched["scl_subtree_wide"][fam]):
+            raise AssertionError(f"{name}: K1 from device memory never launched at L = "
+                                 f"{n_list}: {launched}")
+        wrong, failed = wrong_and_checked(name, out, sent[:n_batch])
+        wrong64 = ref64[kind]
+        if n_batch != B13:  # CA-SCL-64 on the same blocks
+            wrong64 = wrong_and_checked(f"CA-SCL-64 {kind} B={n_batch}", SCLDecoder(
+                N_LEN, frozen_of[N_LEN][0], list_size=64, detector=det, dtype=dtype,
+                device=dev).decode(x), sent[:n_batch])[0]
+        if wrong > wrong64 + 2:
+            raise AssertionError(f"{name}: {wrong} wrong blocks, CA-SCL-64 {wrong64}")
+        err = held(name, dec, plain, x)
+        calls = []
+
+        def record(sched, xx, m, _c=calls):
+            _c.append((sched, xx, m))
+            return kbl.scl_subtree(sched, xx, m)
+
+        SCLDecoder(N_LEN, frozen_of[N_LEN][0], subtree_fn=record, **kw).decode_packed(x)
+        k1_calls[name] = (calls, n_batch)
+        runs[name] = {"launches": launched, "block_errors": wrong, "crc_failures": failed,
+                      "scl64_block_errors": wrong64, "max_abs_metric_err": err,
+                      "k1_launches_per_decode": len(calls)}
+        emit({"path": name, "n": N_LEN, "list_size": n_list, "dtype": kind,
+              "kernel_span": dec.kernel_span, "batch": n_batch, "ebn0_db": EBN0_13,
+              **runs[name], "card": card})
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s13_")
+    try:
+        reset_counts()
+        argv = ["listlength", "-n", str(N_LEN), "-r", "0.5", "--l-min", "64", "--l-max", "256",
+                "--snr-count", "1", "--snr-min", str(EBN0_13), "--snr-max", str(EBN0_13),
+                "--batch", str(B13), "-w", str(B13 * N_LEN), "-o", f"{tmp}/ll"]
+        t0 = time.perf_counter()
+        text, rows = _sim(argv)
+        wall = time.perf_counter() - t0
+        ll_counts = counts()
+        lists = [int(r["L"]) for r in rows]
+        if (lists != [64, 128, 256] or any(int(r["Runs"]) != B13 for r in rows)
+                or not ll_counts["scl_subtree_by_list"].get(256)
+                or not ll_counts["scl_subtree_wide"]["float32"]):
+            raise AssertionError(f"listlength: lists {lists}, rows {rows}, {ll_counts}")
+        runs["pcsim_cli_listlength"] = {"launches": ll_counts}
+        emit({"path": "pcsim_cli_listlength", "lists": lists,
+              "bler": [float(r["BLER"]) for r in rows], "wall_s": wall,
+              "jobs": _job_shares(text), "launches": ll_counts, "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    k7_calls, tree_calls = [], []
+    sent_l, llr_l = channel(N_SCL, K_SCL, B13_LARGE, EBN0_DB)
+    large_kw = dict(detector=det, chunk=CHUNK_SCL, subblock=SUB, device=dev)
+    wrong64_l = wrong_and_checked("large CA-SCL-64", LargeSCLDecoder(
+        N_SCL, frozen_of[N_SCL][0], list_size=64, **large_kw).decode(llr_l), sent_l)[0]
+    for schedule in ("scan", "tree"):
+        name = f"large_cascl256_{schedule}"
+        dec = LargeSCLDecoder(N_SCL, frozen_of[N_SCL][0], list_size=256, schedule=schedule,
+                              **large_kw)
+        reset_counts()
+        out = dec.decode(llr_l)
+        launched = counts()
+        if not (launched["masked_scl_chunk_by_list"].get("float32,L=256")
+                and launched["masked_scl_chunk_wide"]["float32"]
+                and launched["scl_subtree_by_list"].get(256)
+                and launched["scl_subtree_wide"]["float32"]):
+            raise AssertionError(f"{name}: K7 and K1 from device memory at L = 256: {launched}")
+        wrong, failed = wrong_and_checked(name, out, sent_l)
+        if wrong > wrong64_l + 2:
+            raise AssertionError(f"{name}: {wrong} wrong blocks, CA-SCL-64 {wrong64_l}")
+        if schedule == "scan":
+            def record7(*a, **k):
+                k7_calls.append((a, k))
+                return lk.masked_scl_chunk(*a, **k)
+
+            dec.chunk_fn = record7
+        else:
+            def record1(*a):
+                tree_calls.append(a)
+                return kbl.scl_subtree(*a)
+
+            dec.subtree_fn = record1
+        dec.decode_packed(llr_l)
+        runs[name] = {"launches": launched, "block_errors": wrong, "crc_failures": failed,
+                      "scl64_block_errors": wrong64_l}
+        emit({"path": name, "n": N_SCL, "list_size": 256, "batch": B13_LARGE,
+              "ebn0_db": EBN0_DB, **runs[name], "card": card})
+
+    sent_e, llr_e = channel(N_EQ13, K_EQ13, B13_LARGE, EBN0_DB)
+    quant_e = torch.clamp(torch.round(llr_e * AMPL), -127, 127).to(torch.int8)
+    for name, n_list, chunk, schedule, int8 in (
+            ("large_eq_cascl256_scan", 256, CHUNK_SCL, "scan", False),
+            ("large_eq_cascl256_tree", 256, CHUNK_SCL, "tree", False),
+            ("large_eq_cascl256_int8", 256, CHUNK_SCL, "scan", True),
+            ("large_eq_cascl128_chunk512", 128, 512, "scan", False)):
+        family = "char" if int8 else "float32"
+        kw = dict(list_size=n_list, detector=det, chunk=chunk, subblock=SUB,
+                  schedule=schedule, dtype=torch.int8 if int8 else torch.float32, device=dev)
+        dec = LargeSCLDecoder(N_EQ13, frozen_of[N_EQ13][0], **kw)
+        plain = LargeSCLDecoder(N_EQ13, frozen_of[N_EQ13][0], **kw,
+                                chunk_fn=lk.masked_scl_chunk_plain,
+                                subtree_fn=kbl.scl_subtree_plain)
+        x = quant_e if int8 else llr_e
+        reset_counts()
+        out = dec.decode(x)
+        launched = counts()
+        if not launched["masked_scl_chunk_wide"][family]:
+            raise AssertionError(f"{name}: K7 from device memory never launched: {launched}")
+        wrong, failed = wrong_and_checked(name, out, sent_e)
+        t0 = time.perf_counter()
+        err = held(name, dec, plain, x)
+        runs[name] = {"launches": launched, "block_errors": wrong, "crc_failures": failed,
+                      "max_abs_metric_err": err,
+                      "plain_route_s": time.perf_counter() - t0}
+        emit({"path": name, "n": N_EQ13, "list_size": n_list, "chunk": chunk,
+              "schedule": schedule, "batch": B13_LARGE, "ebn0_db": EBN0_DB, **runs[name],
+              "card": card})
+    print("CA-SCL-256/512 at N = 1024 and N = 32768 decoded through the device-memory "
+          "kernels; kernel routes == plain routes at N = 1024 and 8192")
+
+    # 46 ------------------------------------------------------------------
+    phase("46 times: K1 per decode at L = 256 (every family), 512 and 128 at span 512, K7 per "
+          "call at L = 256 and 128 at chunk 512, decode ms and device busy share")
+    entries = []
+
+    def k1_times(calls, n_batch):
+        """(ms per call, their sum, plain ms of all (~2-4 s a decode: timed
+        once), bytes, operations) of a decode's K1 calls."""
+        per_call = [time_cuda(lambda c=c: kbl.scl_subtree(*c[:3]), reps=3) for c in calls]
+        plain_ms = sum(time_cuda(lambda c=c: kbl.scl_subtree_plain(*c[:3]), warmup=0, reps=1)
+                       for c in calls)
+        n_bytes = n_ops = 0
+        for sched, x, *_ in calls:
+            nb, no = k1_work(sched, n_batch, x.element_size())
+            n_bytes, n_ops = n_bytes + nb, n_ops + no
+        return per_call, sum(per_call), plain_ms, n_bytes, n_ops
+
+    for name, (calls, n_batch) in k1_calls.items():
+        n_list = dict((p[0], p[1]) for p in PATHS13)[name]
+        kind = dict((p[0], p[2]) for p in PATHS13)[name]
+        fam = kbl.family(_fams()[dtypes[kind]]).name
+        per_call, ms, plain_ms, n_bytes, n_ops = k1_times(calls, n_batch)
+        span = dict((p[0], p[4]) for p in PATHS13)[name]
+        label = f"scl_subtree[{fam},L={n_list}" + (f",span={span}]" if span else "]")
+        by_path = {name: runs[name]["launches"]["scl_subtree_wide"][fam]}
+        if name == "cascl256_float32":
+            by_path["pcsim_cli_listlength"] = runs["pcsim_cli_listlength"]["launches"][
+                "scl_subtree_by_list"][256]
+            by_path["large_cascl256_tree"] = runs["large_cascl256_tree"]["launches"][
+                "scl_subtree_wide"]["float32"]
+            by_path["large_cascl256_scan"] = runs["large_cascl256_scan"]["launches"][
+                "scl_subtree_wide"]["float32"]
+        entries.append({
+            "name": label, "route": "cuda", "source": WIDE_SRC, "redesigned": WIDE_DESIGN,
+            "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
+            "launches": by_path[name], "launches_by_path": by_path,
+            "launches_per_decode": len(calls), "list_size": n_list, "batch": n_batch,
+            "max_abs_err": max(k1_held["err"][fam], runs[name]["max_abs_metric_err"]),
+            "ms": ms, "ms_per_call": per_call, "plain_ms": plain_ms,
+            **bound(n_bytes, n_ops), "library_ms": None})
+        emit({"kernel": label, "batch": n_batch, "ms_per_decode": ms, "ms_per_call": per_call,
+              "plain_ms": plain_ms, "bound_ms": entries[-1]["bound_ms"], "card": card})
+    if tree_calls:  # the tree schedule's pure leaves at L = 256, from device memory
+        leaf = k1_times(tree_calls, B13_LARGE)
+        emit({"kernel": "scl_subtree[float32,L=256] tree leaves", "batch": B13_LARGE,
+              "ms_per_decode": leaf[1], "plain_ms": leaf[2], "calls": len(tree_calls),
+              **bound(leaf[3], leaf[4]), "card": card})
+    sched7 = {sub: lk.scl_chunk_schedule(CHUNK_SCL, sub).tolist() for sub in (0, SUB)}
+    picks = spread(k7_calls, [])
+    ms = [time_cuda(lambda c=c: lk.masked_scl_chunk(*c[0], **c[1]), reps=3) for c in picks]
+    med = sorted(ms)[len(ms) // 2]
+    args, kw = picks[ms.index(med)]
+    plain_ms = time_cuda(lambda: lk.masked_scl_chunk_plain(*args, **kw), warmup=0, reps=1)
+    work = k7_work(sched7[SUB if args[3] is not None else 0],
+                   [] if args[3] is None else args[3].tolist(), 256, B13_LARGE)
+    k7_paths = {p: r["launches"]["masked_scl_chunk_by_list"]["float32,L=256"]
+                for p, r in runs.items()
+                if r["launches"]["masked_scl_chunk_by_list"].get("float32,L=256")}
+    entries.append({
+        "name": "masked_scl_chunk[float32,L=256]", "route": "cuda", "source": WIDE_SRC,
+        "redesigned": WIDE_DESIGN, "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
+        "launches": runs["large_cascl256_scan"]["launches"]["masked_scl_chunk_wide"]["float32"],
+        "launches_by_path": k7_paths, "launches_per_decode": len(k7_calls), "list_size": 256,
+        "batch": B13_LARGE, "max_abs_err": k7_held["err"]["float32"], "ms": med,
+        "ms_per_call": ms, "plain_ms": plain_ms, **bound(*work), "library_ms": None})
+    emit({"kernel": "masked_scl_chunk[float32,L=256]", "batch": B13_LARGE, "ms_per_call": ms,
+          "plain_ms": plain_ms, "bound_ms": entries[-1]["bound_ms"], "card": card})
+    for label, ((x, mask, met, sub_cls), family) in k7_held["timed"].items():
+        kms = time_cuda(lambda: lk.masked_scl_chunk(x, mask, met, sub_cls, family), reps=3)
+        pms = time_cuda(lambda: lk.masked_scl_chunk_plain(x, mask, met, sub_cls, family),
+                        warmup=0, reps=1)
+        m_len, n_list = x.shape[2], x.shape[1]
+        work = k7_work(lk.scl_chunk_schedule(m_len, SUB).tolist(), sub_cls.tolist(), n_list,
+                       x.shape[0])
+        path = "large_eq_cascl128_chunk512" if family == "float32" else "large_eq_cascl256_int8"
+        launches = runs[path]["launches"]["masked_scl_chunk_wide"][family]
+        entries.append({
+            "name": label, "route": "cuda", "source": WIDE_SRC, "redesigned": WIDE_DESIGN,
+            "replaces": "polar_codes_tpu/ops/large_kernel.py:149", "launches": launches,
+            "launches_by_path": {path: launches}, "list_size": n_list,
+            "batch": x.shape[0], "max_abs_err": k7_held["err"][family], "ms": kms,
+            "plain_ms": pms, **bound(*work), "library_ms": None})
+        emit({"kernel": label, "batch": x.shape[0], "ms": kms, "plain_ms": pms,
+              "bound_ms": entries[-1]["bound_ms"], "card": card})
+    times = {}
+    dec = SCLDecoder(N_LEN, frozen_of[N_LEN][0], list_size=256, detector=det, device=dev)
+    ms = time_cuda(lambda: dec.decode(llr), warmup=1, reps=3)
+    wall, busy = busy_share(lambda: dec.decode(llr), calls=1)
+    times["cascl256_n1024"] = {"batch": B13, "decode_ms": ms, "profiled_wall_ms": wall,
+                               "device_busy_ms": busy, "busy_share": busy / wall,
+                               "payload_mbps": B13 * (K_LEN - det.tail_bits) / ms / 1e3}
+    for schedule in ("scan", "tree"):
+        dec = LargeSCLDecoder(N_SCL, frozen_of[N_SCL][0], list_size=256, schedule=schedule,
+                              **large_kw)
+        ms = time_cuda(lambda: dec.decode(llr_l), warmup=1, reps=2)
+        wall, busy = busy_share(lambda: dec.decode(llr_l), calls=1)
+        times[f"large_cascl256_{schedule}"] = {
+            "batch": B13_LARGE, "decode_ms": ms, "profiled_wall_ms": wall,
+            "device_busy_ms": busy, "busy_share": busy / wall,
+            "payload_mbps": B13_LARGE * (K_SCL - det.tail_bits) / ms / 1e3}
+    emit({"metric": "cascl256_decode", **times, "card": card})
+    print(f"CA-SCL-256: N = 1024 {times['cascl256_n1024']['decode_ms']:.1f} ms at B = {B13}; "
+          f"N = {N_SCL} scan {times['large_cascl256_scan']['decode_ms']:.1f} ms, tree "
+          f"{times['large_cascl256_tree']['decode_ms']:.1f} ms at B = {B13_LARGE}")
+    return {"entries": entries, "times": times}
 
 if __name__ == "__main__":
     main()

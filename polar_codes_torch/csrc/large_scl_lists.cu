@@ -6,7 +6,9 @@
 // their build (L = 2, 4, 8, 16, 32, unchanged), which the wrapper takes
 // wherever their LLR pyramid fits; this library serves every other list
 // size and those five where the pyramid does not fit. The two are
-// separate libraries so that nvcc builds them in parallel.
+// separate libraries so that nvcc builds them in parallel. Every L > 128,
+// and every (L, chunk) whose state does not fit even with level 0 in
+// device memory, runs in scl_wide.cu (ops/large_kernel.py scl_library).
 //
 // Replaces: polar_codes_tpu/ops/large_kernel.py,
 // build_masked_scl_chunk_kernel.kernel (its float32 and int8 families, at
@@ -72,7 +74,8 @@
 // memory, read where it lies by the level-0 f and g (coalesced: a
 // codeword's [L, M] input is contiguous) and by a sub-block leaf at level
 // 0, and only the levels below it (4 L M bytes, 135 KB there) are staged.
-// A chunk that does not fit even so is refused (-2).
+// A chunk that does not fit even so is refused (-2); the wrapper sends
+// those to scl_wide.cu.
 //
 // What bounds it on an H100: the length of one codeword's dependent chain
 // (one warp a codeword, about one warp an SM at B = 128). Per bit a prune

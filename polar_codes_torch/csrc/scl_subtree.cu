@@ -8,9 +8,14 @@
 // the perm composition of one subtree, in the bitplane form, in each of
 // the emitter's three arithmetic families.
 //
+// This source keeps one codeword's list state in shared memory, so it
+// takes 1 <= L <= 128 where that state fits; scl_wide.cu takes every other
+// list size and span (its wrapper, ops/scl_kernel_bl.py scl_subtree,
+// picks), with the same interface and results.
+//
 // Interface, in the TPU kernel's layouts:
 //   llr [w_in, span, B] (state type), metrics [B, w_in] f32, family,
-//   list size L (1 <= L <= 128)
+//   list size L (1 <= L <= 128 here)
 //     -> bits [W, span, B] i32, W = ceil(L / 32) words (bit l % 32 of word
 //        l / 32 = path l's decision; W = 1 is the TPU kernel's bitplane
 //        form [span, B], W > 1 stands for its unpacked-path family),
@@ -64,7 +69,8 @@
 // reads the input from device memory where it lies, element (l, i) at
 // llr[(l span + i) B + b], and needs sizeof(Shared<L>) + 4 span bytes. A
 // branched schedule whose state exceeds the card's opt-in shared memory
-// per block (only a caller-chosen kernel_span can) is refused (-2).
+// per block (only a caller-chosen kernel_span can) is refused (-2); the
+// wrapper sends such schedules to scl_wide.cu.
 // Inside an op:
 //   F, G      lanes over (path, element) pairs; G reads the parent through
 //             the left child's perm (levels live in separate regions, so

@@ -23,8 +23,10 @@ LLRs, stored in `carry_dtype`; bits packed one int32 word per position,
 bit l = path l, combined by XOR; above 32 paths W = ceil(L / 32) words
 [B, W, span], path l in bit l % 32 of word l // 32, whose gathers take
 each path's word by l >> 5 and its bit by l & 31, all paths at once). Any
-L from 1 to 128 decodes: K7 and K1 hold one codeword's list on chip up to
-there (L = 1 keeps the list machinery, as the JAX class does). The forks
+L >= 1 decodes at any chunk (L = 1 keeps the list machinery, as the JAX
+class does): K7 and K1 hold one codeword's list in shared memory where it
+fits, and in a device-memory scratch (csrc/scl_wide.cu) where it does not
+(every L > 128, and L <= 128 on chunks too large for it). The forks
 of a chunk compose into one perm, and the outer buffers are not gathered
 through it at once: each stage keeps a lag perm ([B, L], composed with
 every chunk perm) and is gathered through it only when it is read (a g
@@ -63,7 +65,7 @@ from ..construction import info_indices
 from ..ops.butterfly import butterfly_transform, butterfly_transform_bipolar
 from ..ops.fg import f_minsum, f_minsum_sat, g_update, g_update_sat
 from ..ops.large_kernel import _SUB_KINDS, _sub_leaf, masked_sc_chunk, masked_scl_chunk
-from ..ops.scl_kernel_bl import MAX_LIST, build_schedule, pack_planes, scl_subtree
+from ..ops.scl_kernel_bl import build_schedule, pack_planes, scl_subtree
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
 from .scl import _NEG, SCLDecoder
@@ -343,10 +345,6 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
                              "schedule='scan' (the int8-qualified path)")
         if list_size < 1:
             raise ValueError(f"list_size={list_size}: a list holds at least one path")
-        if list_size > MAX_LIST:
-            raise NotImplementedError(
-                f"list_size={list_size}: the chunk kernels K7 and K1 hold one codeword's "
-                f"list on chip and cover 1 <= L <= {MAX_LIST}")
         if carry_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError("carry_dtype is None, torch.float32 or torch.bfloat16")
         # deliberately not SCLDecoder.__init__: it builds the unrolled tree

@@ -31,7 +31,8 @@ K1 runs each family as its own instantiation (ops/scl_kernel_bl.py).
 L = 1 is plain SC: it decodes through the Fast-SSC decoder (kernel K3,
 models/fastssc.py, in the decoder's dtype), as the JAX package does, and
 recovers the path metric in its telescoped codeword form. Any other L
-decodes through K1, whose kernel takes lists up to scl_kernel_bl.MAX_LIST.
+decodes through K1 (its shared-memory kernel up to scl_kernel_bl.MAX_LIST
+paths where the state fits, its device-memory kernel for the rest).
 
 The batch-first and batch-last XLA paths of the JAX package are not
 ported: the plain version of K1 plus this glue is the port's reference,

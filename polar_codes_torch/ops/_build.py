@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep",
-           "large_sc_chunk", "large_scl_chunk", "large_scl_lists")
+           "large_sc_chunk", "large_scl_chunk", "large_scl_lists", "scl_wide")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -38,10 +38,13 @@ bit l = path l (the word K1 and the SCL glue use, batch-first here because
 the large-N glue is); above 32 paths W = ceil(L / 32) words per position,
 [B, W, M], path l in bit l % 32 of word l // 32 (K1's words, ahead of the
 positions). perm maps each output slot to the input slot it descends
-from. K7 takes any L from 1 to MAX_LIST (128): L = 2, 4, 8, 16, 32 in
-kernels of their own size (library large_scl_chunk), every other L in the
-kernel of its capacity (4, 32, 64 or 128) with the list size at run time
-(library large_scl_lists; `scl_library` picks).
+from. K7 takes any L >= 1 at any chunk: where one codeword's state fits
+shared memory, L = 2, 4, 8, 16, 32 in kernels of their own size (library
+large_scl_chunk), every other L in the kernel of its capacity (4, 32, 64
+or 128) with the list size at run time (library large_scl_lists;
+`scl_library` picks); every other (L, chunk) in csrc/scl_wide.cu, a block
+a codeword with the LLR levels in a device-memory scratch, which walks
+the chunk as a schedule (scl_chunk_schedule, widened by `wide_chunk_ops`).
 
 A prune round ranks candidates by (value desc, flat code l*C + c asc) and
 leaves _NEG on the candidate it took, as the TPU kernel's iterative
@@ -74,14 +77,18 @@ from .scl_kernel_bl import (
     SPC_TABLE,
     _Char,
     MAX_LIST,
+    WIDE_FAMILY_CODES,
     _Float,
     _Plain,
+    _bind_wide,
+    _stream_of,
     n_words,
     pack01,
     packed_bipolar,
     take_packed,
     take_state,
     take_vec,
+    wide_scratch,
 )
 from ..models.tree import CodeNode, NodeKind
 
@@ -94,6 +101,9 @@ MAX_SCL_SMEM = 200 * 1024  # K7's LLR levels and bit words, per codeword
 LAUNCHES: Dict[str, int] = {"sc": 0, "scl": 0, "sc_char": 0, "scl_char": 0}
 # K7 launches per (family, list size), every family (cleared by the caller)
 SCL_LIST_LAUNCHES: Dict[Tuple[str, int], int] = {}
+# of LAUNCHES' "scl"/"scl_char", those of the device-memory kernel
+# (csrc/scl_wide.cu), per family
+SCL_WIDE_LAUNCHES: Dict[str, int] = {"float32": 0, "char": 0}
 # the chunk kernels' families: K1's rule sets on float32 state (their
 # codes are the kernels' family codes too); K6's f is the product form
 _FAMILIES = {"float32": _Float, "char": _Char}
@@ -345,23 +355,29 @@ def _bind_scl(lib):
 
 
 def scl_chunk_smem(n_list: int, m_len: int, sub: int = 0, direct: bool = False) -> int:
-    """Shared-memory bytes of one K7 codeword besides its fixed bookkeeping:
-    the LLR levels (8 L M bytes, or 4 L M with level 0 read from device
-    memory: `direct`), W words of packed bits a position (W the words of
-    the capacity that serves L: 1 up to 32 paths, 2 up to 64, 4 above),
-    the mask bits and the class codes. The kernel computes the same
-    (csrc/large_scl_lists.cu dynamic_bytes) and reads level 0 from device
+    """Shared-memory bytes of one codeword of the shared-memory K7 kernels
+    besides their fixed bookkeeping: the LLR levels (8 L M bytes, or 4 L M
+    with level 0 read from device memory: `direct`), W words of packed bits
+    a position (those of the capacity that serves L: 1 up to 32 paths, 2 up
+    to 64, 4 up to MAX_LIST; n_words(L) above, which those kernels do not
+    take), the mask bits and the class codes. The kernels compute the same
+    (csrc/large_scl_lists.cu dynamic_bytes) and read level 0 from device
     memory where the staged state exceeds MAX_SCL_SMEM."""
-    words = 1 if n_list <= 32 else (2 if n_list <= 64 else 4)
+    words = (1 if n_list <= 32 else 2 if n_list <= 64 else 4 if n_list <= MAX_LIST
+             else n_words(n_list))
     return ((4 if direct else 8) * n_list * m_len + 4 * words * m_len
             + 4 * ((m_len + 31) // 32) + (m_len // sub if sub else 0))
 
 
 def scl_library(n_list: int, m_len: int, sub: int = 0) -> str:
     """The K7 library that serves L paths on chunks of m_len: the kernels of
-    a fixed list size (L in SCL_LISTS, the whole pyramid on chip) or those
-    of a capacity with the list size at run time (any other L, and these
-    where the pyramid does not fit)."""
+    a fixed list size (L in SCL_LISTS, the whole pyramid on chip), those of
+    a capacity with the list size at run time (any other L up to MAX_LIST,
+    and these where the pyramid does not fit), or the device-memory kernel
+    (L > MAX_LIST, or a state past MAX_SCL_SMEM even with level 0 in
+    device memory)."""
+    if n_list > MAX_LIST or scl_chunk_smem(n_list, m_len, sub, direct=True) > MAX_SCL_SMEM:
+        return "scl_wide"
     if n_list in SCL_LISTS and scl_chunk_smem(n_list, m_len, sub) <= MAX_SCL_SMEM:
         return "large_scl_chunk"
     return "large_scl_lists"
@@ -372,10 +388,10 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
     """K7: (llr [B, L, M] f32, mask [M] u8, metrics [B, L] f32, sub_cls
     [M / sub] i32 or None) -> (bits [B, M] i32, or [B, W, M] for L > 32
     with W = ceil(L / 32) words; perm [B, L] i32; metrics [B, L] f32). The
-    plain version for CPU tensors, the CUDA kernel of `family` for CUDA
-    tensors, at any L from 1 to MAX_LIST; a chunk whose state does not fit
-    on chip even with its input in device memory raises
-    NotImplementedError."""
+    plain version for CPU tensors, a CUDA kernel of `family` for CUDA
+    tensors, at any L >= 1 and any power-of-2 chunk up to 2^15
+    (scl_library picks the kernel); a device-memory scratch larger than
+    the card's memory raises MemoryError."""
     _check_family(family)
     if llr.device.type == "cpu":
         return masked_scl_chunk_plain(llr, mask, metrics, sub_cls, family)
@@ -393,9 +409,8 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
     if llr.dim() != 3 or not all(t.is_contiguous() for t in [llr] + args):
         raise ValueError("masked_scl_chunk takes contiguous tensors, llr [B, L, M]")
     n_batch, n_list, m_len = llr.shape
-    if not 1 <= n_list <= MAX_LIST:
-        raise NotImplementedError(
-            f"the masked SCL kernel covers 1 <= L <= {MAX_LIST}, got L={n_list}")
+    if n_list < 1:
+        raise ValueError("masked_scl_chunk takes at least one path")
     _check_chunk(m_len, 1 << 15, "the masked SCL kernel")
     if mask.shape != (m_len,) or metrics.shape != (n_batch, n_list):
         raise ValueError(f"mask must be [{m_len}] and metrics [{n_batch}, {n_list}]")
@@ -405,17 +420,12 @@ def masked_scl_chunk(llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tenso
         if sub < 2 or sub * sub_cls.numel() != m_len or sub & (sub - 1):
             raise ValueError(f"{sub_cls.numel()} class codes do not cut {m_len} "
                              "into power-of-2 sub-blocks")
-    need = scl_chunk_smem(n_list, m_len, sub, direct=True)
-    if need > MAX_SCL_SMEM:
-        fits = [1 << k for k in range(1, 16)
-                if scl_chunk_smem(n_list, 1 << k, direct=True)
-                <= MAX_SCL_SMEM]
-        raise NotImplementedError(
-            f"L={n_list}, chunk {m_len}: one codeword's LLR levels and bits need {need} "
-            f"bytes of shared memory even with the chunk's input in device memory "
-            f"(limit {MAX_SCL_SMEM}); the largest chunk at this L is {max(fits)}")
-    out = launch_scl(_build.load(scl_library(n_list, m_len, sub)), llr, mask, metrics,
-                     sub_cls, family)
+    name = scl_library(n_list, m_len, sub)
+    if name == "scl_wide":
+        out = launch_scl_wide(_build.load(name), llr, mask, metrics, sub_cls, family)
+        SCL_WIDE_LAUNCHES[family] += 1
+    else:
+        out = launch_scl(_build.load(name), llr, mask, metrics, sub_cls, family)
     LAUNCHES["scl" if family == "float32" else "scl_char"] += 1
     SCL_LIST_LAUNCHES[family, n_list] = SCL_LIST_LAUNCHES.get((family, n_list), 0) + 1
     return out
@@ -443,4 +453,48 @@ def launch_scl(lib, llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor
              _FAMILIES[family].code, _stream(dev))
     if err:
         raise RuntimeError(f"masked_scl_chunk launch failed: CUDA error {err}")
+    return bits, perm, met
+
+
+@functools.lru_cache(maxsize=None)
+def wide_chunk_ops(m_len: int, sub: int, dev: torch.device) -> torch.Tensor:
+    """scl_chunk_schedule widened to the device-memory kernel's 8-int ops
+    {op, level, length, offset, kind, aux, ncand, skip} on `dev`: a bit is
+    a LEAF of kind BIT (5) with 2 candidates, a sub-block keeps its skip in
+    column 7."""
+    sched = scl_chunk_schedule(m_len, sub)
+    ops = np.zeros((sched.shape[0], 8), np.int32)
+    ops[:, :4] = sched[:, :4]
+    bit = sched[:, 0] == OP_BIT
+    ops[bit, 4], ops[bit, 6] = 5, 2
+    ops[:, 7] = np.where(sched[:, 0] == OP_SUB, sched[:, 4], 0)
+    return torch.as_tensor(ops, device=dev)
+
+
+def launch_scl_wide(lib, llr: torch.Tensor, mask: torch.Tensor, metrics: torch.Tensor,
+                    sub_cls: Optional[torch.Tensor] = None, family: str = "float32"):
+    """Launch K7's device-memory kernel from the loaded library `lib` (the
+    build of csrc/scl_wide.cu, or its CPU build) on checked tensors."""
+    n_batch, n_list, m_len = llr.shape
+    dev = llr.device
+    sub = 0 if sub_cls is None else m_len // sub_cls.numel()
+    words = n_words(n_list)
+    _bind_wide(lib)
+    spc, none = _scl_consts(dev)
+    ops = wide_chunk_ops(m_len, sub, dev)
+    code = WIDE_FAMILY_CODES["float32" if family == "float32" else "chunk_char"]
+    scratch = wide_scratch(lib, dev, n_batch, n_list, m_len, m_len.bit_length(),
+                           8 if sub else 2, code, "masked_scl_chunk")
+    shape = (n_batch, m_len) if words == 1 else (n_batch, words, m_len)
+    bits = torch.empty(shape, dtype=torch.int32, device=dev)
+    perm = torch.empty((n_batch, n_list), dtype=torch.int32, device=dev)
+    met = torch.empty((n_batch, n_list), dtype=torch.float32, device=dev)
+    err = lib.masked_scl_chunk_wide(
+        ops.data_ptr(), ops.shape[0], spc.data_ptr(), llr.data_ptr(), mask.data_ptr(),
+        metrics.data_ptr(), (none if sub_cls is None else sub_cls).data_ptr(), sub,
+        bits.data_ptr(), perm.data_ptr(), met.data_ptr(), scratch.data_ptr(), n_list, m_len,
+        n_batch, _FAMILIES[family].code, _stream_of(dev))
+    if err:
+        raise RuntimeError(f"masked_scl_chunk (device-memory kernel) launch failed: CUDA "
+                           f"error {err}")
     return bits, perm, met

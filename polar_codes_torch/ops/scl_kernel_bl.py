@@ -15,11 +15,15 @@ bits [W, span, B] (path l: bit l % 32 of word l // 32), the port's
 counterpart of the TPU kernel's unpacked-path family (bitplane=False),
 which it takes for L > 32. The TPU kernel is traced per subtree; here
 `build_schedule` flattens the subtree once on the host into a post-order
-op list (F, G, COMBINE, LEAF), and one CUDA kernel per family and
-power-of-two list capacity runs any schedule at any list size up to that
-capacity (the list size is a launch argument: slots at or above it never
-become live; L = 2, 4, 8, 16, 32 each have a kernel with the list size
-fixed at build time).
+op list (F, G, COMBINE, LEAF), and the CUDA kernels run any schedule at any
+list size as data. Two sources: csrc/scl_subtree.cu keeps one codeword's
+list state in shared memory, a warp a codeword, one kernel per family and
+power-of-two list capacity up to MAX_LIST (the list size a launch
+argument: slots at or above it never become live; L = 2, 4, 8, 16, 32
+each have a kernel with the list size fixed at build time); csrc/
+scl_wide.cu takes every schedule that one does not (L > MAX_LIST, or a
+branched span whose state exceeds the card's shared memory), a block a
+codeword with the LLR levels in a device-memory scratch.
 
 Three arithmetic families, chosen by the dtype of the LLR state (the
 three branches of the JAX _BlEmitter):
@@ -54,13 +58,15 @@ from . import _build
 from .fg import f_minsum, f_minsum_bits, f_minsum_sat, g_update, g_update_sat
 from ..models.tree import CodeNode, NodeKind
 
-MAX_LIST = 128  # the kernel's largest list (any L up to it; 4 words)
+MAX_LIST = 128  # scl_subtree.cu's largest list (4 words); scl_wide.cu takes any L
 MAX_CAND = 32  # candidate slots per path in the kernel (ENUM k <= 5)
 MAX_LEVELS = 16  # tree levels per subtree in the kernel
 # kernel launches per family since the counts were last reset, and per
 # list size (every family; cleared by the caller)
 LAUNCHES = {"float32": 0, "char": 0, "bfloat16": 0}
 LIST_LAUNCHES: Dict[int, int] = {}
+# of LAUNCHES, those of the device-memory kernel (csrc/scl_wide.cu), per family
+WIDE_LAUNCHES = {"float32": 0, "char": 0, "bfloat16": 0}
 # codewords (warps) per block of a K1 launch: 1, 2 or 4; 0 lets the kernel
 # choose from the batch
 PER_BLOCK = 0
@@ -506,40 +512,37 @@ def _bind(lib):
     return fn
 
 
-def check_smem(lib, sched: SubtreeSchedule, fam) -> int:
-    """Shared-memory bytes per codeword of `sched` in family `fam` on the
-    current card; raises NotImplementedError when one codeword's state
-    exceeds the card's opt-in shared memory per block (a branched schedule;
-    a one-leaf schedule that does not fit staged reads its input from
-    device memory and needs no level state)."""
+def shared_bytes(lib, sched: SubtreeSchedule, fam) -> int:
+    """Shared-memory bytes per codeword of `sched` in family `fam` in the
+    kernel that keeps the list state in shared memory (`lib`, the build of
+    csrc/scl_subtree.cu) on the current card, or -1 where that kernel does
+    not take the schedule: L > MAX_LIST, or a branched schedule whose state
+    exceeds the card's opt-in shared memory per block (a one-leaf schedule
+    that does not fit staged reads its input from device memory and needs
+    no level state). scl_subtree sends those to csrc/scl_wide.cu."""
     _bind(lib)
     need = lib.scl_subtree_smem(sched.list_size, sched.span, fam.code, sched.ops.shape[0])
-    limit = lib.scl_subtree_smem_limit()
-    if need < 0 or need > limit:
-        raise NotImplementedError(
-            f"K1 keeps one codeword's list state in shared memory: L={sched.list_size}, "
-            f"span {sched.span} in {fam.name} needs {need} bytes, the card allows "
-            f"{limit} per block (choose a smaller kernel_span)")
-    return need
+    return need if 0 <= need <= lib.scl_subtree_smem_limit() else -1
 
 
 def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
-    """K1: the plain version for CPU tensors, the CUDA kernel of the LLRs'
-    family for CUDA tensors (same signature as scl_subtree_plain).
+    """K1: the plain version for CPU tensors, a CUDA kernel of the LLRs'
+    family for CUDA tensors (same signature as scl_subtree_plain), at any
+    list size L >= 1 and any span.
 
-    On the card one warp decodes one codeword with its list state (the
-    LLRs of every tree level below the subtree's root, the packed bit
-    words, the perms) in shared memory, PER_BLOCK codewords a block (0:
-    chosen from the batch). Any list size from 1 to MAX_LIST runs, in the
-    instantiation of the next power of two (L = 1 in capacity 2: the
-    large-N decoders' one-leaf schedules at one path; SCLDecoder decodes
-    L = 1 through Fast-SSC). A one-leaf schedule whose input does not fit
-    there as well is decoded from device memory (the large-N tree
-    schedule's longest pure leaves at L = 32). A branched schedule whose
-    state does not fit in the card's opt-in shared memory per block (L *
-    span values of the state type plus 4 * W * span bytes and the list's
-    bookkeeping, L the next power of two; only a caller-chosen
-    kernel_span can exceed it) raises NotImplementedError."""
+    Where one codeword's list state fits the card's shared memory
+    (shared_bytes), one warp decodes one codeword with that state (the LLRs
+    of every tree level below the subtree's root, the packed bit words,
+    the perms) in shared memory, PER_BLOCK codewords a block (0: chosen
+    from the batch), in the instantiation of the next power of two up to
+    MAX_LIST (L = 1 in capacity 2: the large-N decoders' one-leaf
+    schedules at one path; SCLDecoder decodes L = 1 through Fast-SSC); a
+    one-leaf schedule whose input does not fit there as well is decoded
+    from device memory. Every other schedule (L > MAX_LIST, or a branched
+    span whose L * span values of state exceed shared memory) runs in
+    csrc/scl_wide.cu: a block a codeword, the levels in a device-memory
+    scratch, the bookkeeping in shared memory (launch_wide). A scratch
+    larger than the card's memory raises MemoryError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -557,11 +560,16 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
             f"[B, {sched.w_in}], got {tuple(llr.shape)} and {tuple(metrics.shape)}")
     if not (llr.is_contiguous() and metrics.is_contiguous()):
         raise ValueError("scl_subtree takes contiguous tensors")
-    if not 1 <= sched.list_size <= MAX_LIST or sched.levels > MAX_LEVELS:
+    if sched.list_size < 1 or sched.levels > MAX_LEVELS:
         raise NotImplementedError(
-            f"the kernel covers 1 <= L <= {MAX_LIST} and at most {MAX_LEVELS} "
-            f"tree levels, got L={sched.list_size}, {sched.levels} levels")
-    out = launch(_build.load("scl_subtree"), sched, llr, metrics)
+            f"the kernels cover L >= 1 and at most {MAX_LEVELS} tree levels, got "
+            f"L={sched.list_size}, {sched.levels} levels")
+    lib = _build.load("scl_subtree")
+    if shared_bytes(lib, sched, fam) < 0:
+        out = launch_wide(_build.load("scl_wide"), sched, llr, metrics)
+        WIDE_LAUNCHES[fam.name] += 1
+    else:
+        out = launch(lib, sched, llr, metrics)
     LAUNCHES[fam.name] += 1
     LIST_LAUNCHES[sched.list_size] = LIST_LAUNCHES.get(sched.list_size, 0) + 1
     return out
@@ -583,9 +591,84 @@ def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
              llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
              met.data_ptr(), sched.list_size, sched.w_in, sched.w_out, sched.span,
              n_batch, fam.code, PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
-    if err == -2:  # the state exceeds the card's shared memory: say by how much
-        with torch.cuda.device(dev):
-            check_smem(lib, sched, fam)
     if err:
         raise RuntimeError(f"scl_subtree launch failed: CUDA error {err}")
+    return bits, perm, met
+
+
+# ---- the device-memory kernel (csrc/scl_wide.cu), K1's and K7's -------------
+
+WIDE_FAMILY_CODES = {"float32": 0, "char": 1, "bfloat16": 2, "chunk_char": 3}
+
+
+def _bind_wide(lib):
+    fn = lib.scl_subtree_wide
+    if fn.argtypes is None:  # first use of this library
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        chunk = lib.masked_scl_chunk_wide
+        chunk.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                          + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p])
+        chunk.restype = ctypes.c_int
+        lib.scl_wide_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.scl_wide_plan.restype = ctypes.c_int
+    return fn
+
+
+def wide_plan(lib, list_size: int, span: int, levels: int, ncand: int,
+              family_code: int) -> Tuple[int, int]:
+    """(shared-memory bytes, device scratch bytes) per codeword of the
+    device-memory kernel on a schedule of `levels` levels at `span` with at
+    most `ncand` candidates a path; family codes in WIDE_FAMILY_CODES."""
+    _bind_wide(lib)
+    out = (ctypes.c_longlong * 2)()
+    if lib.scl_wide_plan(list_size, span, levels, ncand, family_code, out) != 0:
+        raise ValueError(f"no device-memory plan for L={list_size}, span {span}, "
+                         f"{levels} levels, {ncand} candidates")
+    return int(out[0]), int(out[1])
+
+
+def wide_scratch(lib, dev: torch.device, n_batch: int, list_size: int, span: int,
+                 levels: int, ncand: int, family_code: int, what: str) -> torch.Tensor:
+    """The device-memory kernel's scratch for a batch, from PyTorch's
+    caching allocator on `dev`; MemoryError where it exceeds the card's
+    memory."""
+    need = n_batch * wide_plan(lib, list_size, span, levels, ncand, family_code)[1]
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+        if need > total:
+            raise MemoryError(
+                f"{what}: L={list_size}, span {span}, B={n_batch} keeps {need} bytes of list "
+                f"state in device memory; the card has {total}")
+    return torch.empty(max(need, 1), dtype=torch.uint8, device=dev)
+
+
+def _stream_of(dev: torch.device):
+    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+
+
+def launch_wide(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
+    """Launch K1's device-memory kernel from the loaded library `lib` (the
+    build of csrc/scl_wide.cu, or its CPU build) on checked tensors."""
+    fn = _bind_wide(lib)
+    fam = FAMILIES[llr.dtype]
+    dev = llr.device
+    ops, masks, spc = sched.device_consts(dev)
+    n_batch = llr.shape[-1]
+    words = n_words(sched.list_size)
+    ncand = max(1, int(sched.ops[:, 6].max()))
+    scratch = wide_scratch(lib, dev, n_batch, sched.list_size, sched.span, sched.levels,
+                           ncand, fam.code, "scl_subtree")
+    shape = (sched.span, n_batch) if words == 1 else (words, sched.span, n_batch)
+    bits = torch.empty(shape, dtype=torch.int32, device=dev)
+    perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
+    met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
+    err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
+             llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
+             met.data_ptr(), scratch.data_ptr(), sched.list_size, sched.w_in, sched.w_out,
+             sched.span, sched.levels, ncand, n_batch, fam.code, _stream_of(dev))
+    if err:
+        raise RuntimeError(f"scl_subtree (device-memory kernel) launch failed: CUDA error {err}")
     return bits, perm, met

@@ -99,7 +99,7 @@ def _inputs(rng, sched, n_batch, dtype, kind):
 def _run_k1(k1, sched, llr, met, per_block):
     lib, fn = k1
     fam = kbl.family(llr.dtype)
-    kbl.check_smem(lib, sched, fam)
+    assert kbl.shared_bytes(lib, sched, fam) > 0
     ops, masks, spc = sched.device_consts(torch.device("cpu"))
     n_batch = llr.shape[-1]
     words = kbl.n_words(sched.list_size)
@@ -162,8 +162,10 @@ def test_k1_source_on_cpu_one_leaf_any_list(k1, n_list, family):
 def test_k1_list_capacity_and_smem(k1):
     """A list size takes the next power of two's state (L = 1 capacity
     2's); L = 64 and 128 fit the card's shared memory at the JAX package's
-    default span (128), and a list beyond the kernel's largest is
-    refused."""
+    default span (128); a list beyond the shared-memory kernel's largest,
+    and a branched span of 512 at L = 128, go to the device-memory kernel
+    (csrc/scl_wide.cu), whose plan keeps only the levels in device
+    memory there."""
     lib, fn = k1
     f32 = kbl.family(torch.float32).code
     assert lib.scl_subtree_smem(3, 512, f32, 3) == lib.scl_subtree_smem(4, 512, f32, 3)
@@ -173,9 +175,15 @@ def test_k1_list_capacity_and_smem(k1):
     assert lib.scl_subtree_smem(kbl.MAX_LIST + 1, 128, f32, 3) == -1
     assert lib.scl_subtree_smem(1, 128, f32, 3) == lib.scl_subtree_smem(2, 128, f32, 3)
     assert lib.scl_subtree_smem(0, 128, f32, 3) == -1
+    fam = kbl.family(torch.float32)
     node = build_tree(512, range(256))
-    with pytest.raises(NotImplementedError, match="L=128"):  # a branched 512 at L = 128
-        kbl.check_smem(lib, kbl.build_schedule(node, 128, 128), kbl.family(torch.float32))
+    assert kbl.shared_bytes(lib, kbl.build_schedule(node, 128, 128), fam) == -1
+    assert kbl.shared_bytes(lib, kbl.build_schedule(node, 128, 64), fam) > 0
+    assert kbl.shared_bytes(lib, kbl.build_schedule(build_tree(128, range(64)), 129, 129),
+                            fam) == -1
+    wide = _emu.load_on_cpu("scl_wide")
+    smem, scratch = kbl.wide_plan(wide, 128, 512, 10, 8, fam.code)
+    assert scratch == 128 * 511 * 4 and smem < 96 * 1024
 
 
 # ---- K3 bf16 ----------------------------------------------------------------

@@ -90,7 +90,7 @@ def _inputs(rng, sched, n_batch, dtype, kind, live_one=False):
 def _run(k1, sched, llr, met, per_block):
     lib, fn = k1
     fam = kbl.family(llr.dtype)
-    kbl.check_smem(lib, sched, fam)
+    assert kbl.shared_bytes(lib, sched, fam) > 0
     ops, masks, spc = sched.device_consts(torch.device("cpu"))
     n_batch = llr.shape[-1]
     bits = torch.empty((sched.span, n_batch), dtype=torch.int32)
@@ -177,17 +177,19 @@ def test_k1_source_on_cpu_branched(k1, family, n_list):
 
 def test_k1_refuses_state_beyond_shared_memory(k1):
     """A branched span whose list state cannot fit one block's shared
-    memory is refused by the wrapper's check and by the kernel's launch; a
-    one-leaf schedule of that span reads device memory instead."""
+    memory is refused by the shared-memory kernel's launch, and the
+    wrapper's check sends it to the device-memory kernel (csrc/scl_wide.cu);
+    a one-leaf schedule of that span reads device memory in the
+    shared-memory kernel instead."""
     lib, fn = k1
     node = build_tree(8192, range(4096))
     assert node.kind == NodeKind.BRANCH
     sched = kbl.build_schedule(node, 8, 8)
-    with pytest.raises(NotImplementedError, match="232448"):
-        kbl.check_smem(lib, sched, kbl.family(torch.float32))
+    assert lib.scl_subtree_smem(8, 8192, 0, sched.ops.shape[0]) > 232448
+    assert kbl.shared_bytes(lib, sched, kbl.family(torch.float32)) == -1
     assert lib.scl_subtree_smem(8, 512, 0, 3) <= 20480  # the default span fits ~10 a SM
     leaf = kbl.build_schedule(_leaf(NodeKind.RATE1, 8192, []), 8, 8)
-    assert kbl.check_smem(lib, leaf, kbl.family(torch.float32)) < 48 * 1024
+    assert 0 < kbl.shared_bytes(lib, leaf, kbl.family(torch.float32)) < 48 * 1024
     ops, masks, spc = sched.device_consts(torch.device("cpu"))
     llr = torch.zeros((8, 8192, 1))
     met = torch.zeros((1, 8))

@@ -336,8 +336,8 @@ def _fake_cuda(*shapes_dtypes):
 def test_chunk_kernels_never_fall_back(monkeypatch):
     """A CUDA tensor reaches the kernel or raises; it never takes the plain
     version. Here there is no card and no nvcc, so every launch raises: L =
-    3 reaches K7's launch like L = 4, and L = 129, above the kernel's
-    limit, raises NotImplementedError before it."""
+    3 reaches K7's launch like L = 4, and so does L = 129, which the
+    device-memory kernel (csrc/scl_wide.cu) takes."""
     called = []
     monkeypatch.setattr(lk, "masked_sc_chunk_plain", lambda *a: called.append(a))
     monkeypatch.setattr(lk, "masked_scl_chunk_plain", lambda *a: called.append(a))
@@ -352,8 +352,9 @@ def test_chunk_kernels_never_fall_back(monkeypatch):
     llr3, met3 = _fake_cuda(((8, 3, 64), torch.float32), ((8, 3), torch.float32))
     with pytest.raises((RuntimeError, OSError)):  # a list size below its capacity
         lk.masked_scl_chunk(llr3, mask, met3)
-    with pytest.raises(NotImplementedError, match="L <= 128"):  # above the kernel's limit
-        llr129, met129 = _fake_cuda(((8, 129, 64), torch.float32), ((8, 129), torch.float32))
+    llr129, met129 = _fake_cuda(((8, 129, 64), torch.float32), ((8, 129), torch.float32))
+    assert lk.scl_library(129, 64) == "scl_wide"
+    with pytest.raises((RuntimeError, OSError)):  # above the shared-memory kernels' lists
         lk.masked_scl_chunk(llr129, mask, met129)
     assert not called and lk.LAUNCHES == before
 

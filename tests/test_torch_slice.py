@@ -252,7 +252,7 @@ def test_every_kernel_source_carries_its_notes():
     it replaces and what bounds it on the card."""
     assert set(_build.KERNELS) == {
         "butterfly_encode", "scl_subtree", "fastssc_subtree", "scan_sweep",
-        "large_sc_chunk", "large_scl_chunk", "large_scl_lists"}
+        "large_sc_chunk", "large_scl_chunk", "large_scl_lists", "scl_wide"}
     for name in _build.KERNELS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces" in text and "bounds it on an H100" in text, name
