@@ -253,13 +253,37 @@ levels in a device-memory scratch:
      per call at L = 256 (float32 on the path, char) and 128 at chunk 512,
      beside bounds and plain versions; CA-SCL-256 decode ms and device
      busy share at N = 1024 and 32768
- 47. {"kernels": [...]}, every family of all seven TPU kernels, K1 at L =
-     3, 12, 64 (every family), 128 and 1, and K7 at L = 1, 3, 64, 128
-     (float32) and 3, 64 (char); K1 from device memory at L = 256 (every
-     family), 512 and 128 at span 512, K7 at L = 256 (both families) and
-     128 at chunk 512
- 48. {"ok": true, "device": {...}}
-Without a CUDA device it exits non-zero before printing any result.
+
+Slice 14, the pypolar facade (polar_codes_torch.pypolar: PolarEncoder,
+PolarDecoder, Detector, Puncturer, as the reference library's Python
+module), which adds no kernel but reaches each of them by its type string
+and block length:
+ 47. the main path through the facade: frozen_bits(1024, 512, 0.0),
+     encode_vector with CRC16 on 4 batches of [1024, 64] bytes (K2), BPSK
+     and AWGN at 2 dB on the card, decode_vector of PolarDecoder(1024, 8,
+     f, "float") (K1 float32): bytes equal to np.packbits of the direct
+     SCLDecoder's decode, BLER in [1e-4, 5e-2], Detector(16).check true
+     on every correct block, one vector equal to its batch of one; then
+     "char" L = 8 (K1 char), "mixed" with CRC32 at B = 2048 (K3 float32,
+     K1 on the failed rows), "scan" L = 4 (K4), L = 1 "float" and "char"
+     (K3 float32, int8), (32768, 16384) "float" and "char" L = 8 at B = 32
+     (K7, K1 on pure chunks) and (131072, 65536) L = 1 at B = 16 (K6):
+     each equal to the port's model called directly, each kernel of the
+     route launched during its facade call; Puncturer(1000, f) round trips
+     on values and packed bytes
+ 48. the facade's duration_ns on the main path (median of 10 after
+     warm-up) beside the direct decode's CUDA-event time, its synchronised
+     wall time and the facade's device busy share (the profiler's device
+     time over the median duration_ns); the encoder's duration_ns beside
+     the direct encode's, checksum and K2, by CUDA events
+
+Then the kernels line, {"kernels": [...], "facade": {route: launches}}:
+every family of all seven TPU kernels, K1 at L = 3, 12, 64 (every family),
+128 and 1, and K7 at L = 1, 3, 64, 128 (float32) and 3, 64 (char); K1 from
+device memory at L = 256 (every family), 512 and 128 at span 512, K7 at L =
+256 (both families) and 128 at chunk 512; each entry's launches_by_path
+holds the facade's routes too. The last line is {"ok": true, "device":
+{...}}. Without a CUDA device it exits non-zero before printing any result.
 """
 
 import json
@@ -526,7 +550,10 @@ def main():
     # 45-46 ---------------------------------------------------------------
     s13 = run_slice13(card, k1_wide, k7_wide)
 
-    # 47 ------------------------------------------------------------------
+    # 47-48 ---------------------------------------------------------------
+    s14 = run_slice14(card)
+
+    # the kernels line ------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], k3k2["err"][entry["name"]])
@@ -559,7 +586,7 @@ def main():
         k1_ops += no
     k2_bytes = 2 * BATCH * N_LEN + N_LEN  # u and codeword u8, the mask
     k2_ops = 2 * BATCH * (N_LEN // 2) * (N_LEN.bit_length() - 1)  # two passes of XORs
-    emit({"kernels": [
+    entries = [
         {"name": "butterfly_encode", "route": "cuda",
          "source": "polar_codes_torch/csrc/butterfly_encode.cu",
          "replaces": "polar_codes_tpu/ops/butterfly_kernel.py:61",
@@ -598,8 +625,12 @@ def main():
          "max_abs_err": k1_lists["err"]["float32"], "ms": k1_lists["timed"][n_list][0],
          "plain_ms": k1_lists["timed"][n_list][1], **bound(*k1_lists["timed"][n_list][2:]),
          "library_ms": None}
-        for n_list in (3, 12)] + [s11["k3"]] + s12["entries"] + s13["entries"]})
-    # 48 ------------------------------------------------------------------
+        for n_list in (3, 12)] + [s11["k3"]] + s12["entries"] + s13["entries"]
+    for entry in entries:  # the facade's routes (phase 47)
+        if entry["name"] in s14["by_kernel"]:
+            entry.setdefault("launches_by_path", {}).update(s14["by_kernel"][entry["name"]])
+    emit({"kernels": entries, "facade": s14["routes"]})
+    # the last line ---------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3909,6 +3940,311 @@ def run_slice13(card, k1_held, k7_held):
           f"N = {N_SCL} scan {times['large_cascl256_scan']['decode_ms']:.1f} ms, tree "
           f"{times['large_cascl256_tree']['decode_ms']:.1f} ms at B = {B13_LARGE}")
     return {"entries": entries, "times": times}
+
+
+# ---- slice 14: the pypolar facade ------------------------------------------
+
+SEED14 = 20261028
+B14, BATCHES14 = 1024, 4  # the main path's batch and calls: ~15 block errors at 2 dB
+B14_ADAPTIVE, B14_SCL_LARGE, B14_SC_LARGE = 2048, 32, 16
+N_SC14, K_SC14 = 131072, 65536
+FACADE_REPS = 10
+# (route, N, K, list size, type string, CRC bits, batch): each route's facade
+# decode equals the port's model called directly; KERNELS14 names the
+# launch counts that must be non-zero after it
+ROUTES14 = (
+    ("char_l8", N_LEN, K_LEN, 8, "char", 16, B14),
+    ("mixed_l8_crc32", N_LEN, K_LEN, 8, "mixed", 32, B14_ADAPTIVE),
+    ("scan_l4", N_LEN, K_LEN, 4, "scan", 16, B14),
+    ("float_l1", N_LEN, K_LEN, 1, "float", 16, B14),
+    ("char_l1", N_LEN, K_LEN, 1, "char", 16, B14),
+    ("large_float_l8", N_SCL, K_SCL, 8, "float", 16, B14_SCL_LARGE),
+    ("large_char_l8", N_SCL, K_SCL, 8, "char", 16, B14_SCL_LARGE),
+    ("large_float_l1", N_SC14, K_SC14, 1, "float", 16, B14_SC_LARGE),
+)
+KERNELS14 = {
+    "encode": ("butterfly_encode",),
+    "float_l8": ("scl_subtree[float32]",),
+    "float_l8_one_vector": ("scl_subtree[float32]",),
+    "char_l8": ("scl_subtree[char]",),
+    "mixed_l8_crc32": ("fastssc_subtree[float32]", "scl_subtree[float32]"),
+    "scan_l4": ("scan_fused",),
+    "float_l1": ("fastssc_subtree[float32]",),
+    "char_l1": ("fastssc_subtree[int8]",),
+    "large_float_l8": ("masked_scl_chunk[float32]", "scl_subtree[float32]"),
+    "large_char_l8": ("masked_scl_chunk[char]",),
+    "large_float_l1": ("masked_sc_chunk[float32]",),
+}
+
+
+def _reset_all_counts():
+    from polar_codes_torch.ops import butterfly_kernel as bk
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    bk.LAUNCHES = 0
+    for counts in (kbl.LAUNCHES, kbl.WIDE_LAUNCHES, fk.LAUNCHES, sk.LAUNCHES, lk.LAUNCHES,
+                   lk.SCL_WIDE_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    kbl.LIST_LAUNCHES.clear()
+    lk.SCL_LIST_LAUNCHES.clear()
+
+
+def _all_counts():
+    """Every kernel's launch count since the last reset, by the kernels
+    line's names; zeros left out."""
+    import torch
+
+    from polar_codes_torch.ops import butterfly_kernel as bk
+    from polar_codes_torch.ops import fastssc_kernel as fk
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scan_kernel as sk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    torch.cuda.synchronize()
+    counts = {"butterfly_encode": bk.LAUNCHES,
+              **{f"scl_subtree[{f}]": c for f, c in kbl.LAUNCHES.items()},
+              **{f"fastssc_subtree[{f}]": c for f, c in fk.LAUNCHES.items()},
+              "scan_fused": sk.LAUNCHES["fused"], "scan_step": sk.LAUNCHES["step"],
+              "masked_sc_chunk[float32]": lk.LAUNCHES["sc"],
+              "masked_sc_chunk[char]": lk.LAUNCHES["sc_char"],
+              "masked_scl_chunk[float32]": lk.LAUNCHES["scl"],
+              "masked_scl_chunk[char]": lk.LAUNCHES["scl_char"]}
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_slice14(card):
+    """Phases 47-48: the pypolar facade (polar_codes_torch.pypolar) on the
+    card, every route against the port's model called directly, and its
+    times. Returns {"routes": launches by route, "by_kernel": {kernel:
+    {path: launches}}, "times": phase 48's numbers}."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from polar_codes_torch import pypolar
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.adaptive import AdaptiveDecoder
+    from polar_codes_torch.models.detectors import make_detector
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.fastssc import FastSSCDecoder
+    from polar_codes_torch.models.large import LargeSCDecoder, LargeSCLDecoder
+    from polar_codes_torch.models.scan import ScanDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.utils.timing import time_cuda
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED14)
+    rng = np.random.default_rng(SEED14)
+    modem = Bpsk()
+    frozen_of, encoders = {}, {}
+
+    def channel(n_len, k_len, crc, n_blocks):
+        """(info bytes with their checksum, as encode_vector wrote them back;
+        float32 LLRs [n_blocks, n_len]) through the facade's encoder, BPSK
+        and AWGN at EBN0_DB on the card."""
+        if n_len not in frozen_of:
+            frozen_of[n_len] = pypolar.frozen_bits(n_len, k_len, 0.0)
+        if (n_len, crc) not in encoders:
+            enc = pypolar.PolarEncoder(n_len, frozen_of[n_len], device=DEVICE)
+            enc.setErrorDetection(crc)
+            encoders[n_len, crc] = enc
+        info = rng.integers(0, 256, (n_blocks, k_len // 8), dtype=np.uint8)
+        code = encoders[n_len, crc].encode_vector(info)
+        bits = torch.from_numpy(np.unpackbits(code, axis=-1)).to(dev)
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+        llr = modem.demodulate(chan.transmit(modem.modulate(bits), gen))
+        return info, llr.cpu().numpy()
+
+    def direct_model(n_len, list_size, kind, crc):
+        """The port's model that the facade's route must equal."""
+        f, det = frozen_of[n_len], make_detector(crc)
+        dtype = torch.int8 if kind == "char" else torch.float32
+        kw = dict(detector=det, device=dev)
+        if n_len > pypolar._LARGE_N_THRESHOLD:
+            if list_size == 1:
+                return LargeSCDecoder(n_len, f, dtype=dtype, **kw)
+            return LargeSCLDecoder(n_len, f, list_size=list_size, dtype=dtype, **kw)
+        if list_size == 1:
+            return FastSSCDecoder(n_len, f, dtype=dtype, **kw)
+        if kind == "scan":
+            return ScanDecoder(n_len, f, iterations=list_size, **kw)
+        if kind == "mixed":
+            return AdaptiveDecoder(n_len, f, list_size=list_size, **kw)
+        return SCLDecoder(n_len, f, list_size=list_size, dtype=dtype, **kw)
+
+    def facade_input(llr, kind):
+        if kind == "char":
+            return np.clip(np.round(llr), -127, 127).astype(np.int8)
+        return llr
+
+    def held(route, got, direct, x):
+        """The facade's packed bytes equal the direct model's decode."""
+        info, _, _ = direct.decode(torch.from_numpy(x).to(dev))
+        want = np.packbits(info.cpu().numpy(), axis=-1)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad = int((got != want).reshape(got.shape[0], -1).any(-1).sum()) \
+                if got.shape == want.shape else "all"
+            raise AssertionError(f"facade route {route}: packed bytes differ from the direct "
+                                 f"model's on {bad} blocks")
+
+    def launched(route, counts):
+        need = [k for k in KERNELS14[route] if not counts.get(k)]
+        if need:
+            raise AssertionError(f"facade route {route}: {need} never launched: {counts}")
+        return counts
+
+    routes, outcomes = {}, {}
+
+    # 47 ------------------------------------------------------------------
+    phase(f"47 pypolar facade on the card: ({N_LEN}, {K_LEN}) \"float\" L = {LIST} CRC16, "
+          f"{BATCHES14} x {B14} blocks at {EBN0_DB} dB, and every other route against the "
+          f"port's model called directly")
+    dec = pypolar.PolarDecoder(N_LEN, LIST, pypolar.frozen_bits(N_LEN, K_LEN, 0.0), "float",
+                               device=DEVICE)
+    dec.setErrorDetection(16)
+    check16 = pypolar.Detector(16)
+    wrong = failed_check = 0
+    main_in = direct = None
+    for i in range(BATCHES14):
+        _reset_all_counts()
+        sent, llr = channel(N_LEN, K_LEN, 16, B14)
+        enc_counts = launched("encode", _all_counts())
+        _reset_all_counts()
+        out = dec.decode_vector(llr)
+        counts = launched("float_l8", _all_counts())
+        if i == 0:
+            routes["encode"], routes["float_l8"] = enc_counts, counts
+            main_in = (sent, llr)
+            direct = direct_model(N_LEN, LIST, "float", 16)
+        if out.shape != (B14, K_LEN // 8) or out.dtype != np.uint8:
+            raise AssertionError(f"facade main path: output {out.shape} {out.dtype}")
+        held("float_l8", out, direct, llr)
+        bad = (out != sent).any(axis=1)
+        wrong += int(bad.sum())
+        for blk in np.flatnonzero(~bad):
+            if not check16.check(out[blk]):
+                raise AssertionError(f"Detector(16).check fails on correct block {blk}")
+        failed_check += sum(not check16.check(out[blk]) for blk in np.flatnonzero(bad))
+    bler = wrong / (BATCHES14 * B14)
+    outcomes["float_l8"] = {"blocks": BATCHES14 * B14, "block_errors": wrong, "bler": bler,
+                            "crc_failures_among_errors": int(failed_check)}
+    emit({"path": "pypolar_float_l8", "n": N_LEN, "list_size": LIST, "ebn0_db": EBN0_DB,
+          **outcomes["float_l8"], "launches": routes["float_l8"],
+          "encode_launches": routes["encode"], "card": card})
+    if not 1e-4 <= bler <= 5e-2:
+        raise AssertionError(f"facade main path BLER {bler} outside [1e-4, 5e-2]")
+    sent, llr = main_in
+    one = sent[0].copy()
+    code_one = encoders[N_LEN, 16].encode_vector(one)
+    if not np.array_equal(one, sent[0]):
+        raise AssertionError("encode_vector of one vector changed a block that held its CRC")
+    direct_enc = PolarEncoder(N_LEN, frozen_of[N_LEN], detector=make_detector(16), device=dev)
+    want_code = direct_enc.encode(torch.from_numpy(np.unpackbits(one)).to(dev))
+    if not np.array_equal(code_one, np.packbits(want_code.cpu().numpy())):
+        raise AssertionError("encode_vector of one vector differs from PolarEncoder.encode")
+    _reset_all_counts()
+    got_one = dec.decode_vector(llr[0])
+    routes["float_l8_one_vector"] = launched("float_l8_one_vector", _all_counts())
+    if not np.array_equal(got_one, dec.decode_vector(llr[:1])[0]):
+        raise AssertionError("decode_vector of one vector differs from its batch of one")
+    held("float_l8_one_vector", got_one[None], direct, llr[:1])
+
+    for route, n_len, k_len, list_size, kind, crc, n_blocks in ROUTES14:
+        sent, llr = channel(n_len, k_len, crc, n_blocks)
+        rdec = pypolar.PolarDecoder(n_len, list_size, frozen_of[n_len], kind, device=DEVICE)
+        rdec.setErrorDetection(crc)
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        out = rdec.decode_vector(llr)
+        wall = time.perf_counter() - t0
+        routes[route] = launched(route, _all_counts())
+        held(route, out, direct_model(n_len, list_size, kind, crc), facade_input(llr, kind))
+        errors = int((out != sent).any(axis=1).sum())
+        outcomes[route] = {"decoder": type(rdec._dec).__name__, "blocks": n_blocks,
+                           "block_errors": errors, "first_call_s": wall}
+        emit({"path": f"pypolar_{route}", "n": n_len, "list_size": list_size, "type": kind,
+              "crc": crc, "ebn0_db": EBN0_DB, **outcomes[route], "launches": routes[route],
+              "card": card})
+
+    f_p = pypolar.frozen_bits(N_LEN, K_LEN, 0.0)
+    punct = pypolar.Puncturer(1000, f_p)
+    full = rng.standard_normal((B14, N_LEN)).astype(np.float32)
+    short = punct.puncture(full)
+    back = punct.depuncture(short)
+    keep = np.asarray(punct.blockOutputPositions())
+    dropped = np.setdiff1d(np.arange(N_LEN), keep)
+    packed = rng.integers(0, 256, (B14, N_LEN // 8), dtype=np.uint8)
+    short_p = punct.puncturePacked(packed)
+    if (punct.blockLength(), punct.parentBlockLength(), short.shape, short_p.shape) != \
+            (1000, N_LEN, (B14, 1000), (B14, 125)) \
+            or not np.array_equal(back[:, keep], full[:, keep]) or back[:, dropped].any() \
+            or not np.array_equal(punct.puncturePacked(punct.depuncturePacked(short_p)), short_p) \
+            or not np.array_equal(np.unpackbits(short_p, axis=-1),
+                                  np.unpackbits(packed, axis=-1)[:, keep]):
+        raise AssertionError("Puncturer(1000) round trip failed")
+    print(f"facade: {len(routes)} routes equal to the direct models; main path BLER {bler} "
+          f"({wrong} of {BATCHES14 * B14}); Puncturer(1000) round trips, packed and unpacked")
+
+    # 48 ------------------------------------------------------------------
+    phase(f"48 times: the facade's duration_ns on the main path (median of {FACADE_REPS}) "
+          "beside the direct call's CUDA-event time")
+    sent, llr = main_in
+    x = torch.from_numpy(llr).to(dev)
+
+    def facade_ms(call, duration):
+        for _ in range(3):
+            call()
+        samples = []
+        for _ in range(FACADE_REPS):
+            call()
+            samples.append(duration() / 1e6)
+        return statistics.median(samples), samples
+
+    dec_ms, dec_samples = facade_ms(lambda: dec.decode_vector(llr), dec.duration_ns)
+    direct_ms = time_cuda(lambda: direct.decode(x), reps=FACADE_REPS)
+
+    def direct_wall():
+        t0 = time.perf_counter()
+        direct.decode(x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    direct_wall()
+    direct_wall_ms = statistics.median(direct_wall() * 1e3 for _ in range(FACADE_REPS))
+    # the profiler's device time over the facade's own unprofiled duration_ns;
+    # the wall under the profiler holds the profiler's cost too
+    wall, busy = busy_share(lambda: dec.decode_vector(llr))
+    enc = encoders[N_LEN, 16]
+    enc_ms, _ = facade_ms(lambda: enc.encode_vector(sent.copy()), enc.duration_ns)
+    u = torch.from_numpy(np.unpackbits(sent, axis=-1)).to(dev)
+    # the checksum and K2, the device work that encode_vector does
+    direct_enc_ms = time_cuda(lambda: direct_enc.encode(u, generate_crc=True), reps=FACADE_REPS)
+    times = {"batch": B14, "decode_facade_ms": dec_ms, "decode_facade_samples_ms": dec_samples,
+             "decode_direct_cuda_event_ms": direct_ms,
+             "decode_direct_synced_wall_ms": direct_wall_ms,
+             "decode_host_cost_ms": dec_ms - direct_ms,
+             "decode_facade_device_busy_ms": busy,
+             "decode_facade_busy_share": busy / dec_ms,
+             "decode_facade_profiled_wall_ms": wall,
+             "decode_facade_busy_share_under_profiler": busy / wall,
+             "encode_facade_ms": enc_ms, "encode_direct_cuda_event_ms": direct_enc_ms,
+             "encode_host_cost_ms": enc_ms - direct_enc_ms}
+    emit({"metric": "pypolar_facade_times", "path": f"({N_LEN}, {K_LEN}) float L = {LIST} "
+          "CRC16", **times, "card": card})
+    print(f"facade decode {dec_ms:.3f} ms (duration_ns) vs direct {direct_ms:.3f} ms (CUDA "
+          f"events) at B = {B14} on {card}; encode {enc_ms:.3f} vs {direct_enc_ms:.3f} ms")
+
+    by_kernel = {}
+    for route, counts in routes.items():
+        for name, count in counts.items():
+            by_kernel.setdefault(name, {})[f"pypolar_{route}"] = count
+    return {"routes": routes, "outcomes": outcomes, "by_kernel": by_kernel, "times": times}
+
 
 if __name__ == "__main__":
     main()

@@ -91,6 +91,15 @@ class Detector:
         out[d:] = self.compute_np(out[:d])
         return out
 
+    def check_np(self, block_bits: np.ndarray) -> bool:
+        """True when a 1-D block's tail equals the checksum of its data
+        bits (always, without a tail)."""
+        block_bits = np.asarray(block_bits, dtype=np.uint8)
+        if self.tail_bits == 0:
+            return True
+        d = block_bits.shape[-1] - self.tail_bits
+        return bool(np.array_equal(self.compute_np(block_bits[:d]), block_bits[d:]))
+
     # ---- GF(2) affine map ---------------------------------------------
 
     def _is_linear(self) -> bool:

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..construction import frozen_bit_mask, info_indices
-from ..ops.butterfly import polar_transform_mxu
+from ..ops.butterfly import butterfly_transform, polar_transform_mxu
 from ..ops.butterfly_kernel import MAX_N, butterfly_encode
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .detectors import Detector, Dummy
@@ -87,6 +87,11 @@ class PolarEncoder:
             return self._encode_mxu(u).reshape(lead + (self.block_length,))
         code = butterfly_encode(u, self._mask_t, self.systematic)
         return code.reshape(lead + (self.block_length,))
+
+    def transform(self, bits: torch.Tensor) -> torch.Tensor:
+        """The raw N-stage butterfly (an involution), for decoders that
+        re-encode a codeword estimate to recover u."""
+        return butterfly_transform(bits)
 
     def _encode_mxu(self, u01: torch.Tensor) -> torch.Tensor:
         """[B, N] u-domain bits -> [B, N] uint8 codeword by the product form

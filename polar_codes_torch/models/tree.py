@@ -53,6 +53,11 @@ class CodeNode:
             return [self]
         return self.left.leaves() + self.right.leaves()
 
+    def node_count(self) -> int:
+        if self.kind != NodeKind.BRANCH:
+            return 1
+        return 1 + self.left.node_count() + self.right.node_count()
+
     def describe(self, depth: int = 0) -> str:
         """The tree as indented text, one node a line: kind[start:end]."""
         pad = "  " * depth

@@ -45,6 +45,11 @@ def g_update(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -> to
     return b + left_bipolar * a
 
 
+def combine_bipolar(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Combine in bipolar form: left XOR right is left * right."""
+    return left * right
+
+
 def f_minsum_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 min-sum f with an int16 intermediate (fip_char F)."""
     a16, b16 = a.to(torch.int16), b.to(torch.int16)
@@ -69,3 +74,15 @@ def g_update_sat(a: torch.Tensor, b: torch.Tensor, left_bipolar: torch.Tensor) -
     (value-equal to g_update_i8)."""
     s = b.to(torch.float32) + left_bipolar.to(torch.float32) * a.to(torch.float32)
     return torch.clamp(s, -127.0, 127.0).to(a.dtype)
+
+
+def split_llr(llr: torch.Tensor):
+    """Split [..., 2m] node LLRs into their (upper a, lower b) halves [..., m]."""
+    m = llr.shape[-1] // 2
+    return llr[..., :m], llr[..., m:]
+
+
+def merge_bits(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """The parent span's bipolar decisions from its children's:
+    [left * right, right]."""
+    return torch.cat([combine_bipolar(left, right), right], dim=-1)

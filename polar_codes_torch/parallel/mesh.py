@@ -8,8 +8,8 @@ own generator, and the int64 error counters are all-reduced (SUM) over the
 process group: NCCL on the card, gloo on the CPU. Codec kernels never
 communicate; all collective use is in this layer.
 
-Without a process group every function here is the identity: one process
-on one device.
+Without a process group every function here is the identity (host_aggregate
+only maps its values to NumPy): one process on one device.
 """
 
 from __future__ import annotations
@@ -20,6 +20,17 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+class GroupSum(torch.Tensor):
+    """A counter that sharded_counter_step has all-reduced over the process
+    group: its value is the same on every rank. torch hands the subclass on
+    through every operation on it (.cpu(), .clone(), .to(), arithmetic,
+    torch.stack), so a value computed from such counters stays a GroupSum,
+    as a JAX global array stays global. An operation that mixes a GroupSum
+    with a rank's own tensor returns a GroupSum as well; keep such mixes out
+    of what host_aggregate is given. A Python number taken from one
+    (.item(), int()) is a rank's own value again."""
 
 
 def _group_active() -> bool:
@@ -100,8 +111,8 @@ def sharded_counter_step(step_fn: Callable[..., Dict[str, torch.Tensor]]):
     """Lift a one-device step into a group-wide one: step_fn(*args) runs on
     this rank's device and returns scalar integer counters; the lifted
     function stacks them into one int64 tensor, all-reduces it (SUM) over
-    the group and returns the summed counters. Without a group it is
-    step_fn."""
+    the group and returns the summed counters as GroupSum tensors. Without
+    a group it is step_fn."""
     if not _group_active():
         return step_fn
 
@@ -110,6 +121,46 @@ def sharded_counter_step(step_fn: Callable[..., Dict[str, torch.Tensor]]):
         names = list(stats)
         packed = torch.stack([stats[k].to(torch.int64).reshape(()) for k in names])
         dist.all_reduce(packed, op=dist.ReduceOp.SUM)
-        return dict(zip(names, packed.unbind()))
+        return dict(zip(names, packed.as_subclass(GroupSum).unbind()))
 
     return lifted
+
+
+def _tree_map(fn, tree):
+    """fn on every leaf of nested dicts, lists and tuples (None stays)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def host_aggregate(tree):
+    """Every value of a nested dict, list or tuple as NumPy on this rank.
+
+    Without a process group, or in a group of one, each value is mapped to
+    NumPy. In a larger group a GroupSum (a counter that sharded_counter_step
+    returned, or a tensor computed from such counters) is already the
+    group's sum, the same on every rank, and is read locally: torch has no
+    counterpart of a global array's "not fully addressable" state that
+    tells the JAX package the same, so the type says it. Any other value is
+    this rank's own and is gathered from every rank (all_gather_object),
+    stacked on a new leading axis in rank order, as process_allgather
+    stacks it. Every rank must call it with the same tree."""
+    if not _group_active() or dist.get_world_size() == 1:
+        return _tree_map(_to_numpy, tree)
+
+    def to_host(value):
+        if isinstance(value, GroupSum):
+            return _to_numpy(value)
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, _to_numpy(value))
+        return np.stack(gathered)
+
+    return _tree_map(to_host, tree)

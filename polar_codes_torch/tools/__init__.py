@@ -1,9 +1,10 @@
 """Host-side analysis and construction tools, NumPy copies of
 polar_codes_tpu/tools/ on the port's construction and code tree: GF(2)
 matrices and bit-reversal helpers, 5G NR rate matching, frozen-bit
-strategy classes, noise calibration, and the decoder tree as text or a
-figure. The JAX package's results readers (analysis.py, report.py) read
-its benchmark's JSONL and are not ported."""
+strategy classes, noise calibration, the decoder tree as text or a
+figure, and the results readers: the simulator's CSVs and benchmark grids
+as curves, ratios and figures (analysis.py), and as one HTML report
+(report.py, `render_report`)."""
 
 from .code_tools import (
     polar_generator_matrix,
@@ -27,6 +28,11 @@ from .strategies import (
     get_frozen_bit_generator,
 )
 from .channel_tools import ebn0_to_sigma, sigma_to_ebn0, ebn0_to_esn0_linear
+from .analysis import (read_results_csv, summarize_results,
+                       merge_results, parse_bench_name,
+                       load_benchmark_jsonl, compare_grids,
+                       plot_bler_overlay, plot_fer_throughput_combo,
+                       plot_grid_throughput)
 from .visualize import render_tree_text, render_tree_figure
 
 __all__ = [
@@ -48,6 +54,15 @@ __all__ = [
     "ebn0_to_sigma",
     "sigma_to_ebn0",
     "ebn0_to_esn0_linear",
+    "read_results_csv",
+    "summarize_results",
+    "merge_results",
+    "parse_bench_name",
+    "load_benchmark_jsonl",
+    "compare_grids",
+    "plot_bler_overlay",
+    "plot_fer_throughput_combo",
+    "plot_grid_throughput",
     "render_tree_text",
     "render_tree_figure",
 ]

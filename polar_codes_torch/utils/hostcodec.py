@@ -1,12 +1,13 @@
-"""ctypes loader of native/libhostcodec.so for the CMAC detector.
+"""ctypes loader of native/libhostcodec.so: host-side CRC engines, the
+host polar transform and the CMAC detector's AES-128-CMAC.
 
 The port's own loader of the library the JAX package also uses
-(native/hostcodec.cpp), bound to its two CMAC entry points only. The
-library is built on first use with the Makefile in native/ (into the
-gitignored native/libhostcodec.so) and drives the system libcrypto's
-AES-128-CMAC. When make, the compiler or libcrypto is missing, the
-callers use the pure-Python RFC 4493 engine (utils/aes.py) instead; both
-give the same tags.
+(native/hostcodec.cpp). The library is built on first use with the
+Makefile in native/ (into the gitignored native/libhostcodec.so); CMAC
+drives the system libcrypto. When make, the compiler or libcrypto is
+missing, every entry point takes its NumPy or pure-Python route instead
+(the CRCs of models/detectors.py, the engine of utils/aes.py), with the
+same results.
 """
 
 from __future__ import annotations
@@ -49,12 +50,81 @@ def load() -> Optional[ctypes.CDLL]:
     except OSError:
         return None
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.hc_crc_msb_first.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint64, ctypes.c_uint,
+                                     ctypes.c_uint64]
+    lib.hc_crc_msb_first.restype = ctypes.c_uint64
+    lib.hc_crc32c_bytes.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint32]
+    lib.hc_crc32c_bytes.restype = ctypes.c_uint32
+    lib.hc_crc_rows.argtypes = [u8p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint64,
+                                ctypes.c_uint, ctypes.c_uint64, u64p]
+    lib.hc_crc_rows.restype = None
+    lib.hc_butterfly_rows.argtypes = [u8p, ctypes.c_size_t, ctypes.c_size_t]
+    lib.hc_butterfly_rows.restype = None
     lib.hc_cmac_available.argtypes = []
     lib.hc_cmac_available.restype = ctypes.c_int
     lib.hc_cmac_rows.argtypes = [u8p, u8p, ctypes.c_size_t, ctypes.c_size_t, u8p]
     lib.hc_cmac_rows.restype = ctypes.c_int
     _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """True when the native library is loaded."""
+    return load() is not None
+
+
+def crc_msb_first(bits: np.ndarray, poly: int, width: int, init: int) -> int:
+    """Non-reflected CRC over a 1-D {0,1} bit stream."""
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    lib = load()
+    if lib is None:
+        from ..models.detectors import crc_msb_first as py_crc
+
+        return py_crc(bits, poly, width, init)
+    return int(lib.hc_crc_msb_first(bits, bits.size, poly, width, init))
+
+
+def crc_rows(bits: np.ndarray, poly: int, width: int, init: int) -> np.ndarray:
+    """crc_msb_first of every row of a [rows, bits] array, as uint64."""
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    rows, row_bits = bits.shape
+    lib = load()
+    if lib is None:
+        from ..models.detectors import crc_msb_first as py_crc
+
+        return np.array([py_crc(row, poly, width, init) for row in bits], dtype=np.uint64)
+    out = np.empty(rows, dtype=np.uint64)
+    lib.hc_crc_rows(bits, row_bits, rows, poly, width, init, out)
+    return out
+
+
+def crc32c_bytes(data: bytes, init: int = 0) -> int:
+    """Reflected CRC-32C over bytes, no xor-out."""
+    lib = load()
+    if lib is None:
+        from ..models.detectors import crc32c_bytes as py_crc
+
+        return py_crc(data, init)
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    return int(lib.hc_crc32c_bytes(np.ascontiguousarray(buf), buf.size, init))
+
+
+def butterfly_rows(bits: np.ndarray) -> np.ndarray:
+    """The polar transform of every row of a [rows, N] {0,1} array, into a
+    new array (the input is not written)."""
+    bits = np.ascontiguousarray(bits, dtype=np.uint8).copy()
+    rows, n = bits.shape
+    lib = load()
+    if lib is None:
+        s = 1
+        while s < n:
+            for i in range(0, n, 2 * s):
+                bits[:, i : i + s] ^= bits[:, i + s : i + 2 * s]
+            s *= 2
+        return bits
+    lib.hc_butterfly_rows(bits, n, rows)
+    return bits
 
 
 def cmac_available() -> bool:
