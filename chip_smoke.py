@@ -277,6 +277,21 @@ and block length:
      time over the median duration_ns); the encoder's duration_ns beside
      the direct encode's, checksum and K2, by CUDA events
 
+Slice 15, the benchmark grid (`python -m polar_codes_torch.sim.benchmark`,
+the port of the JAX package's `polar-bench`), device timing
+(utils.timing.time_device_fn) and the route-free cost model
+(utils.costmodel, utils.profiling.roofline), which add no kernel:
+ 49. the grid through sim.benchmark.main: `--quick --fresh` (17 rows), then
+     `--filter` each of adaptive_float_n1024_l8, depthfirst_n1024_t8,
+     fastsscan_n1024_i4, sc_scan_float_n32768 and cascl_scan_float_n32768_l8
+     (with its bf16-carry row), into one JSON-lines file: every row printed,
+     no `error` row, each with the card's name and power limit and an
+     `mfu` and `hbm_util` in [0, 1]; K1-K7 launched; the same commands again
+     (the resume) run no row
+ 50. on the main path, (1024, 512) CA-SCL-8 CRC16 at B = 1024, and its
+     encode: time_device_fn against time_cuda (both positive, within 2x of
+     each other) and roofline with the analytic counts beside both times
+
 Then the kernels line, {"kernels": [...], "facade": {route: launches}}:
 every family of all seven TPU kernels, K1 at L = 3, 12, 64 (every family),
 128 and 1, and K7 at L = 1, 3, 64, 128 (float32) and 3, 64 (char); K1 from
@@ -553,6 +568,9 @@ def main():
     # 47-48 ---------------------------------------------------------------
     s14 = run_slice14(card)
 
+    # 49-50 ---------------------------------------------------------------
+    run_slice15(card)
+
     # the kernels line ------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
         if entry["name"] in k3k2["err"]:
@@ -638,8 +656,8 @@ def main():
 
 # ---- bounds: the least time the card could take for a call's work --------
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the card's roofs, one definition with the benchmark's roofline
+from polar_codes_torch.utils.profiling import HBM_BYTES_PER_S, SCALAR_OPS_PER_S  # noqa: E402
 
 
 def bound(n_bytes, n_ops):
@@ -4244,6 +4262,118 @@ def run_slice14(card):
         for name, count in counts.items():
             by_kernel.setdefault(name, {})[f"pypolar_{route}"] = count
     return {"routes": routes, "outcomes": outcomes, "by_kernel": by_kernel, "times": times}
+
+
+# ---- slice 15: the benchmark grid, device timing and the roofline --------
+
+# the full grid's rows of each kind that the quick grid lacks; with it they
+# launch K1-K7 (cascl_scan_float_n32768_l8 also names its bf16-carry row)
+GRID_FILTERS = ("adaptive_float_n1024_l8", "depthfirst_n1024_t8", "fastsscan_n1024_i4",
+                "sc_scan_float_n32768", "cascl_scan_float_n32768_l8")
+GRID_BATCH_BITS = 1 << 21  # the CLI's default: ~2 Mbit of code a timed call
+GRID_KERNELS = ("butterfly_encode", "scl_subtree[float32]", "scl_subtree[char]",
+                "fastssc_subtree[float32]", "fastssc_subtree[int8]", "scan_fused",
+                "scan_step", "masked_sc_chunk[float32]", "masked_scl_chunk[float32]")
+
+
+def run_slice15(card):
+    """Phases 49-50: the port's benchmark grid (python -m
+    polar_codes_torch.sim.benchmark) on the card through its main(), its
+    resume, and time_device_fn and roofline on the main path. Returns
+    {"rows": the grid's records, "launches": the grid's launches by kernel,
+    "times": phase 50's numbers}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.sim import benchmark
+    from polar_codes_torch.utils.profiling import roofline
+    from polar_codes_torch.utils.timing import time_cuda, time_device_fn
+
+    # 49 ------------------------------------------------------------------
+    phase(f"49 the benchmark grid on the card: --quick, then {', '.join(GRID_FILTERS)}; "
+          "then the same commands again (the resume)")
+    tmp = tempfile.mkdtemp(prefix="polar_bench_")
+    out = os.path.join(tmp, "grid.jsonl")
+    commands = [["--quick"]] + [["--filter", f] for f in GRID_FILTERS]
+    commands = [argv + ["-o", out, "--batch-bits", str(GRID_BATCH_BITS)] for argv in commands]
+    t0 = time.perf_counter()
+    try:
+        _reset_all_counts()
+        for i, argv in enumerate(commands):
+            if benchmark.main(argv + (["--fresh"] if i == 0 else [])) != 0:
+                raise AssertionError(f"sim.benchmark.main({argv}) returned non-zero")
+        launches = _all_counts()
+        grid_s = time.perf_counter() - t0
+        with open(out) as fh:
+            rows = [json.loads(line) for line in fh]
+        for argv in commands:  # the resume: every row is in the file
+            benchmark.main(argv)
+        with open(out) as fh:
+            again = sum(1 for _ in fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = [r["bench"] for r in benchmark.enumerate_rows(True)] + [
+        r["bench"] for f in GRID_FILTERS for r in benchmark.enumerate_rows(False)
+        if f in r["bench"]]
+    names = [r["bench"] for r in rows]
+    if names != want:
+        raise AssertionError(f"grid rows {names} != the commands' rows {want}")
+    if any("error" in r for r in rows):
+        raise AssertionError(f"grid rows failed: {[r for r in rows if 'error' in r]}")
+    for r in rows:
+        if not r.get("device_name") or r.get("power_limit_w") is None:
+            raise AssertionError(f"{r['bench']}: no card name or power limit: {r}")
+        for key in ("mfu", "hbm_util"):
+            if key not in r or not 0.0 <= r[key] <= 1.0:
+                raise AssertionError(f"{r['bench']}: {key} missing or outside [0, 1]: {r}")
+    if again != len(rows):
+        raise AssertionError(f"the resume ran {again - len(rows)} rows; it should run none")
+    emit({"grid_rows": len(rows), "grid_s": grid_s, "launches": launches, "card": card})
+    missing = [k for k in GRID_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the grid never launched {missing}: {launches}")
+    print(f"grid: {len(rows)} rows, no error, {grid_s:.1f} s; the resume ran none")
+
+    # 50 ------------------------------------------------------------------
+    phase(f"50 time_device_fn against time_cuda and the roofline on the main path, "
+          f"({N_LEN}, {K_LEN}) CA-SCL-{LIST} CRC16, B = {BATCH}")
+    dev = torch.device(DEVICE)
+    frozen = frozen_bits(N_LEN, K_LEN, 0.0, "BB")
+    det = CRC16()
+    enc = PolarEncoder(N_LEN, frozen, systematic=True, detector=det, device=dev)
+    dec = SCLDecoder(N_LEN, frozen, list_size=LIST, systematic=True, detector=det,
+                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20261029)
+    info = torch.randint(0, 2, (BATCH, K_LEN), generator=gen, device=dev, dtype=torch.uint8)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * K_LEN / N_LEN)
+    modem = Bpsk()
+    llr = modem.demodulate(chan.transmit(modem.modulate(enc.encode(info)), gen))
+    times = {}
+    for call, fn, x, model in (("decode", dec.decode, llr, dec),
+                               ("encode", enc.encode, info, enc)):
+        fn_ms = time_device_fn(fn, x, reps=REPS) * 1e3
+        event_ms = time_cuda(lambda: fn(x), reps=REPS)
+        roof = roofline(fn, x, seconds=fn_ms / 1e3, model=model, batch=BATCH)
+        times[call] = {"time_device_fn_ms": fn_ms, "time_cuda_ms": event_ms, **roof}
+        emit({"metric": f"{call}_roofline", "batch": BATCH, **times[call], "card": card})
+        if fn_ms <= 0 or event_ms <= 0 or max(fn_ms, event_ms) > 2 * min(fn_ms, event_ms):
+            raise AssertionError(f"{call}: time_device_fn {fn_ms} ms and time_cuda "
+                                 f"{event_ms} ms are not both positive within 2x")
+        if roof["cost_model"] != "analytic" or not 0.0 < roof["mfu"] <= 1.0 \
+                or not 0.0 < roof["hbm_util"] <= 1.0:
+            raise AssertionError(f"{call}: roofline {roof}")
+    print(f"decode {times['decode']['time_device_fn_ms']:.3f} ms (time_device_fn) vs "
+          f"{times['decode']['time_cuda_ms']:.3f} (time_cuda), mfu "
+          f"{times['decode']['mfu']:.2e}, hbm_util {times['decode']['hbm_util']:.2e} on {card}")
+    return {"rows": rows, "launches": launches, "times": times}
 
 
 if __name__ == "__main__":

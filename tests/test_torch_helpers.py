@@ -269,19 +269,17 @@ def test_host_aggregate_in_a_two_process_group(tmp_path):
 # ---- the public names of both packages -----------------------------------------
 
 # JAX names the port stands in for otherwise: the Pallas kernel builders (the
-# CUDA wrappers in the same modules replace them), and the benchmark and the
-# modules only it needs, which the port's benchmark brings.
+# CUDA wrappers in the same modules replace them), and utils/backend.py.
 NOT_PORTED = {
     "ops/butterfly_kernel.py": {"build_encode_kernel"},
     "ops/fastssc_kernel.py": {"build_fs_hybrid_decode"},
     "ops/large_kernel.py": {"build_masked_sc_chunk_kernel", "build_masked_scl_chunk_kernel"},
     "ops/scan_kernel.py": {"build_scan_kernel", "build_scan_step_kernel"},
     "ops/scl_kernel_bl.py": {"build_bl_hybrid_decode_paths"},
-    "sim/benchmark.py": None,
+    # on_tpu and resolve_backend pick XLA or Pallas from envelopes measured on
+    # the TPU; the port's route is the tensor's device (utils/device.py), and
+    # the plain versions are not a route on the card
     "utils/backend.py": None,
-    "utils/costmodel.py": None,
-    "utils/profiling.py": None,
-    "utils/timing.py": {"time_device_fn"},
 }
 
 
