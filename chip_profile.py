@@ -74,10 +74,25 @@ csrc/large_scl_chunk.cu, or an older tree's) and timed in one process on
 the K7 calls of a (32768, 16384) CA-SCL-8 decode at B = 128, float32 (with
 sub-blocks) and int8, a decode's calls within a burst, in rounds of
 alternating order.
+Last, `k7_lists_ab OLD/large_scl_lists.cu OLD/scl_wide.cu`: K7 above 32
+paths built from this tree's csrc/large_scl_lists.cu and csrc/scl_wide.cu
+and from the named older sources of the same names (another tree's: the
+same C interfaces), timed in one process on the same calls in rounds of
+alternating order: the K7 calls of a (32768, 16384) CA-SCL-64 and -128
+decode and of (8192, 4096) int8 CA-SCL-64 and -128 ones (B = 64, chunk 256,
+sub-blocks of 16; large_scl_lists), of a (32768, 16384) CA-SCL-256 decode
+and of (8192, 4096) int8 CA-SCL-256 and CA-SCL-128 at chunk 512 ones (B =
+32; scl_wide), chip_smoke.py phase 44's two timed calls (L = 128 at
+chunk 512, float32, and L = 256 char; B = 33), and this tree's scl_wide
+on the L = 64 and 128 calls and, built with K7's block at the other two
+of 256, 512 and 1024 threads, on the scl_wide calls; every build's
+outputs equal this tree's. Then the CA-SCL-64 (B = 128) and CA-SCL-256
+(B = 32) decodes on both schedules and the (1024, 512) CA-SCL-256 one (B
+= 256, K1 from device memory) with each tree's pair of libraries.
 
     python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops] [tree]
                             [depthfirst] [lists] [large_lists] [k1_ab SRC.cu ...]
-                            [k7_ab SRC.cu ...]
+                            [k7_ab SRC.cu ...] [k7_lists_ab OLD.cu OLD.cu]
 
 runs the named parts (all without arguments).
 
@@ -216,6 +231,8 @@ def main():
         large_lists(card, torch, dev, gen)
     if "k7_ab" in parts:
         k7_ab(card, torch, dev, gen, sources)
+    if "k7_lists_ab" in parts:
+        k7_lists_ab(card, torch, dev, gen, sources)
 
 
 def kernel_launches():
@@ -444,6 +461,179 @@ def k7_ab(card, torch, dev, gen, sources, rounds=4):
         print(json.dumps({"k7_ab": src, "ms_per_call_in_burst": times[src],
                           "calls": {name: len(c) for name, c in sets.items()},
                           "card": card}), flush=True)
+
+
+def k7_lists_ab(card, torch, dev, gen, sources, rounds=4):
+    """K7 above 32 paths: this tree's large_scl_lists and scl_wide libraries
+    against the older sources of the same names in `sources`, on the K7
+    calls of the decodes named in the module's docstring (a sample: a
+    decode's calls back to back) and on phase 44's two timed calls of
+    chip_smoke.py, in rounds of alternating order; scl_wide also as this
+    tree's source with K7's block at the other two of 256, 512 and 1024
+    threads. Then whole
+    decodes with each tree's pair of libraries. Every build's outputs equal
+    this tree's."""
+    import ctypes
+    import hashlib
+    import re
+    from pathlib import Path
+
+    import numpy as np
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder, _classify_chunks
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.utils.timing import time_cuda
+
+    if sorted(Path(s).stem for s in sources) != ["large_scl_lists", "scl_wide"]:
+        raise SystemExit("k7_lists_ab takes an older large_scl_lists.cu and scl_wide.cu")
+    nvcc = _build.nvcc_path()
+    this_wide = (_build.CSRC / "scl_wide.cu").read_text()
+    builds = [(Path(src).stem, Path(src).resolve().read_text(), "old") for src in sources]
+    size = re.findall(r"constexpr int kThreadsK7 = (\d+);", this_wide)
+    if len(size) != 1:
+        raise SystemExit("k7_lists_ab: kThreadsK7 not found in csrc/scl_wide.cu")
+    sizes = [t for t in (256, 512, 1024) if t != int(size[0])]
+    for threads in sizes:  # K7's block of this tree's scl_wide at another size
+        text = this_wide.replace(f"constexpr int kThreadsK7 = {size[0]};",
+                                 f"constexpr int kThreadsK7 = {threads};")
+        builds.append(("scl_wide", text, f"nt{threads}"))
+    libs, procs = {}, []
+    for stem, text, label in builds:
+        key = hashlib.sha256((text + repr((_build.NVCC_FLAGS, nvcc))).encode()).hexdigest()[:16]
+        src = _build.BUILD / f"{stem}_ab-{key}.cu"
+        out = _build.BUILD / f"lib{stem}_ab-{key}.so"
+        src.write_text(text)
+        procs.append((stem, label, out, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for stem, label, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {stem} ({label}):\n{log}")
+        libs[(stem, label)] = ctypes.CDLL(str(out))
+    new = {name: _build.load(name) for name in ("large_scl_lists", "scl_wide")}
+    old = {name: libs[(name, "old")] for name in new}
+
+    def lists(lib):
+        return lambda a, kw: lk.launch_scl(lib, *a, **kw)
+
+    def wide(lib):
+        return lambda a, kw: lk.launch_scl_wide(lib, *a, **kw)
+
+    arms = {  # the launch of each build
+        "lists": {"new": lists(new["large_scl_lists"]), "old": lists(old["large_scl_lists"]),
+                  "new_scl_wide": wide(new["scl_wide"])},
+        "wide": {"new": wide(new["scl_wide"]), "old": wide(old["scl_wide"]),
+                 **{f"new_nt{t}": wide(libs[("scl_wide", f"nt{t}")]) for t in sizes}},
+    }
+    det = CRC16()
+    codes = {}
+
+    def channel(n_len, k_len, n_batch, int8):
+        if n_len not in codes:
+            fz = frozen_bits(n_len, k_len, 0.0, "BB")
+            codes[n_len] = (fz, PolarEncoder(n_len, fz, detector=det, device=dev))
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+        info = torch.randint(0, 2, (n_batch, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        x = Bpsk().demodulate(chan.transmit(Bpsk().modulate(codes[n_len][1].encode(info)), gen))
+        return torch.clamp(torch.round(x * AMPL), -127, 127).to(torch.int8) if int8 else x
+
+    def phase44_call(n_list, m_len, family):
+        """chip_smoke.py phase 44's timed call of (L, chunk, family): B = 33,
+        sub-blocks of 16 of every class then rate-0 runs, integer LLRs in
+        [-2, 2], metrics in [-3, 0] out of rank order with one live path on
+        every other row and L - 1 on the rest."""
+        head = np.concatenate([np.ones(16), np.arange(16) % 3 == 0, np.zeros(16),
+                               np.arange(16) < 15, np.arange(16) == 0]).astype(np.uint8)
+        mask = (torch.rand(m_len, generator=gen, device=dev) < 0.5).to(torch.uint8)
+        span = 2
+        while span <= m_len // 2:
+            n_nodes = m_len // span
+            pick = torch.randperm(n_nodes, generator=gen, device=dev)[: max(1, n_nodes // 16)]
+            mask.view(n_nodes, span)[pick] = 1
+            span *= 2
+        mask[: head.size] = torch.as_tensor(head, device=dev)
+        sub_cls = torch.as_tensor(
+            _classify_chunks(list(mask.cpu().numpy().astype(bool).reshape(-1, 16))), device=dev)
+        x = torch.randint(-2, 3, (33, n_list, m_len), generator=gen, device=dev).float()
+        met = torch.randint(-3, 1, (33, n_list), generator=gen, device=dev).to(torch.float32)
+        met[0::2, 1:] = -1.0e30
+        met[1::2, -1] = -1.0e30
+        return [((x, mask, met, sub_cls), {"family": family})]
+
+    n_len, k_len, chunk = LARGE_SCL
+    sets = {}  # name: (arms, calls)
+    for name, n, k, n_list, n_batch, int8, m_len, kind in (
+            ("L64", n_len, k_len, 64, 64, False, chunk, "lists"),
+            ("L128", n_len, k_len, 128, 64, False, chunk, "lists"),
+            ("char_L64", 8192, 4096, 64, 64, True, chunk, "lists"),
+            ("char_L128", 8192, 4096, 128, 64, True, chunk, "lists"),
+            ("L256", n_len, k_len, 256, 32, False, chunk, "wide"),
+            ("char_L256", 8192, 4096, 256, 32, True, chunk, "wide"),
+            ("L128_chunk512", 8192, 4096, 128, 32, False, 512, "wide")):
+        calls = []
+        x = channel(n, k, n_batch, int8)
+        LargeSCLDecoder(n, codes[n][0], list_size=n_list, detector=det, chunk=m_len,
+                        subblock=16, dtype=torch.int8 if int8 else torch.float32, device=dev,
+                        chunk_fn=lambda *a, _c=calls, **kw: _c.append((a, kw)) or
+                        lk.masked_scl_chunk(*a, **kw)).decode_packed(x)
+        if lk.scl_library(n_list, m_len, 16) != ("scl_wide" if kind == "wide"
+                                                 else "large_scl_lists"):
+            raise SystemExit(f"k7_lists_ab: {name} is not served by {kind}")
+        sets[name] = (arms[kind], calls)
+    sets["phase44_L128_chunk512"] = (arms["wide"], phase44_call(128, 512, "float32"))
+    sets["phase44_char_L256"] = (arms["wide"], phase44_call(256, chunk, "char"))
+    for name, (arm, calls) in sets.items():
+        for a, kw in calls:
+            want = arm["new"](a, kw)
+            for label, fn in arm.items():
+                if label != "new" and not all(torch.equal(g, v) for g, v in zip(fn(a, kw), want)):
+                    raise SystemExit(f"k7_lists_ab: {label} differs from this tree on {name}")
+    times = {name: {label: [] for label in arm} for name, (arm, _) in sets.items()}
+    for rnd in range(rounds):
+        for name, (arm, calls) in sets.items():
+            labels = list(arm) if rnd % 2 == 0 else list(arm)[::-1]
+            for label in labels:
+                fn = arm[label]
+                reps = 3 if len(calls) > 1 else 20
+                ms = time_cuda(lambda: [fn(a, kw) for a, kw in calls], warmup=1, reps=reps)
+                times[name][label].append(ms / len(calls))
+    for name, (arm, calls) in sets.items():
+        print(json.dumps({"k7_lists_ab": name, "calls": len(calls), "batch": calls[0][0][0].shape[0],
+                          "ms_per_call_in_decode_burst": times[name], "card": card}), flush=True)
+
+    decode = {}
+    x1024 = channel(N_LEN, K_LEN, 256, False)
+    for name, n_list, n_batch in (("cascl64", 64, 128), ("cascl256", 256, 32),
+                                  ("cascl256_n1024", 256, 256)):
+        x = x1024 if name.endswith("n1024") else channel(n_len, k_len, n_batch, False)
+        for schedule in ("scan", "tree") if n_len == x.shape[1] else ("k1",):
+            if schedule == "k1":  # SCLDecoder: K1 from device memory at L = 256
+                dec = SCLDecoder(N_LEN, codes[N_LEN][0], list_size=n_list, detector=det,
+                                 device=dev)
+                row = decode.setdefault(name, {"new": [], "old": []})
+            else:
+                dec = LargeSCLDecoder(n_len, codes[n_len][0], list_size=n_list, detector=det,
+                                      chunk=chunk, subblock=16, schedule=schedule, device=dev)
+                row = decode.setdefault(f"{name}_{schedule}", {"new": [], "old": []})
+            for rnd in range(rounds):
+                for label in (("new", "old") if rnd % 2 == 0 else ("old", "new")):
+                    _build._LIBS.update(new if label == "new" else old)
+                    try:
+                        row[label].append(time_cuda(lambda: dec.decode(x), warmup=1, reps=3))
+                    finally:
+                        _build._LIBS.update(new)
+            print(json.dumps({"k7_lists_ab_decode": name if schedule == "k1"
+                              else f"{name}_{schedule}", "batch": n_batch,
+                              "decode_ms": row, "card": card}), flush=True)
 
 
 def large_paths(card, torch, dev, gen):

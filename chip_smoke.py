@@ -545,8 +545,8 @@ def main():
     s11 = run_slice11(card)
 
     # 40 ------------------------------------------------------------------
-    phase("40 K7 at L in (1, 3, 5, 12, 24, 33, 48, 64, 100, 128), both families, chunks 64 "
-          "and 256, B in (1, 181, 128); K1 at L = 1 and from device memory at W = 2, 4")
+    phase(f"40 K7 at L in {K7_NEW_LISTS}, both families, chunks 64 and 256, B in "
+          f"{K7_BATCHES}; K1 at L = 1 and from device memory at W = 2, 4")
     k7_lists = run_k7_lists(card)
 
     # 41-42 ---------------------------------------------------------------
@@ -3114,12 +3114,13 @@ def run_slice11(card):
 # ---- slice 12: LargeSCLDecoder at every list size -------------------------
 
 SEED12 = 20261026
-K7_NEW_LISTS = (1, 3, 5, 12, 24, 33, 48, 64, 100, 128)
+K7_NEW_LISTS = (1, 3, 5, 12, 24, 33, 48, 64, 65, 100, 127, 128)
 K7_BATCHES = (1, 181, 128)
 K7_NEW_DESIGN = ("the kernel of the list's capacity (32, 64 or 128) with the list size at "
-                 "run time; above 32 paths W packed words, every level in shared memory, "
-                 "the prune in passes; level 0 read from device memory where the pyramid "
-                 "does not fit")
+                 "run time; above 32 paths a block of 2 x capacity threads a codeword, W "
+                 "packed words, every level in shared memory, the prune a merge of lists "
+                 "in rank order; level 0 read from device memory where the pyramid does "
+                 "not fit")
 K1_ONE_PATH_SPANS = (256, 512, 1024, 2048)  # a pure chunk's span and the tree's leaves
 K1_WIDE_LEAVES = ((64, 1024), (64, 2048), (128, 512), (128, 2048))  # (L, span), device memory
 K1_WIDE_BATCHES = (1, 128)
@@ -3151,9 +3152,11 @@ def run_k7_lists(card):
     families, on integer LLRs in [-2, 2] (ties, signed zeros): chunks of 64
     and 256, B in K7_BATCHES, with and without sub-blocks (masks with every
     sub-block class), metrics of a decode's first call (one live path), all
-    live, or mixed (0 to L - 1 live at random slots), masks with rate-0
-    runs and all frozen (the re-take rule); at L = 100 and 128 on chunks of
-    256 the chunk's input stays in device memory. Then K1 on the one-leaf
+    live out of rank order, mixed (0 to L - 1 live at random slots, out of
+    rank order), or in rank order with a _NEG tail (what a decode hands on:
+    the merge's path), masks with rate-0 runs and all frozen (the re-take
+    rule); at L = 100, 127 and 128 on chunks of 256 the chunk's input stays
+    in device memory. Then K1 on the one-leaf
     schedules of the large-N decoders at L = 1 (spans 256-2048, every leaf
     kind, B in K7_BATCHES) and from device memory at W = 2 and 4 words (L
     = 64 and 128 at spans 512-2048). Bits, perms and metrics equal.
@@ -3180,7 +3183,7 @@ def run_k7_lists(card):
 
     def metrics(n_batch, n_list, how):
         met = torch.randint(-3, 1, (n_batch, n_list), generator=gen, device=dev).to(torch.float32)
-        if how != "live":  # every row (first) or every other row (mixed): one live path
+        if how in ("first", "mixed"):  # every row (first) or every other row: one live path
             rows = slice(None) if how == "first" else slice(None, None, 2)
             met[rows, 1:] = NEG
             met[rows, 0] = 0.0
@@ -3188,6 +3191,10 @@ def run_k7_lists(card):
             n_live = torch.randint(0, n_list, (n_batch, 1), generator=gen, device=dev)
             slot = torch.rand((n_batch, n_list), generator=gen, device=dev).argsort(1)
             met[1::2] = torch.where((slot >= n_live)[1::2], NEG, met[1::2])
+        if how == "ranked":  # in rank order, 1 to L live, then _NEG
+            n_live = torch.randint(1, n_list + 1, (n_batch, 1), generator=gen, device=dev)
+            rank = torch.arange(n_list, device=dev)[None]
+            met = torch.where(rank < n_live, met.sort(1, descending=True).values, NEG)
         return met
 
     # the chunk of the (32768, 16384) code whose sub-blocks hold the most
@@ -3199,7 +3206,8 @@ def run_k7_lists(card):
     cases = ((64, 181, True, "live", "classes"),
              (64, 128, False, "mixed", "frozen"), (CHUNK_SCL, 128, True, "mixed", "classes"),
              (CHUNK_SCL, 128, False, "first", "frozen"), (64, 181, False, "live", "rate-0 runs"),
-             (CHUNK_SCL, 1, True, "first", "classes"))
+             (CHUNK_SCL, 1, True, "first", "classes"), (CHUNK_SCL, 128, True, "ranked", "classes"),
+             (64, 181, False, "ranked", "rate-0 runs"))
     for n_list in K7_NEW_LISTS:
         for family in ("float32", "char"):
             for m_len, n_batch, with_sub, how, kind in cases:
@@ -3300,6 +3308,7 @@ def run_slice12(card, k7_l8, held):
     from polar_codes_torch.models.detectors import CRC16
     from polar_codes_torch.models.encoder import PolarEncoder
     from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import _build
     from polar_codes_torch.ops import large_kernel as lk
     from polar_codes_torch.ops import scl_kernel_bl as kbl
     from polar_codes_torch.utils.timing import time_cuda
@@ -3409,8 +3418,9 @@ def run_slice12(card, k7_l8, held):
           "decoded")
 
     # 42 ------------------------------------------------------------------
-    phase("42 times: K7 per call at L = 1, 3, 64, 128 beside its bound, K1 at L = 1, "
-          "launches per decode, CA-SCL-64 decode ms and busy share, phase 17's K7 at L = 8")
+    phase("42 times: K7 per call at L = 1, 3, 64, 128 beside its bound and the device-memory "
+          "kernel's on the same calls at L = 64, 128, K1 at L = 1, launches per decode, "
+          "CA-SCL-64 decode ms and busy share, phase 17's K7 at L = 8")
     entries = []
     sched7 = {sub: lk.scl_chunk_schedule(CHUNK_SCL, sub).tolist() for sub in (0, SUB)}
     med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
@@ -3421,6 +3431,14 @@ def run_slice12(card, k7_l8, held):
         i = ms.index(med(ms))
         args, kw = picks[i]
         plain_ms = time_cuda(lambda: lk.masked_scl_chunk_plain(*args, **kw), warmup=0, reps=1)
+        wide_ms = None  # the device-memory kernel on the same call, side by side
+        if n_list > 32:
+            wide = _build.load("scl_wide")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    lk.launch_scl_wide(wide, *args, **kw), lk.masked_scl_chunk(*args, **kw))):
+                raise AssertionError(f"K7 L={n_list}: the two kernels differ")
+            wide_ms = [time_cuda(lambda c=c: lk.launch_scl_wide(wide, *c[0], **c[1]), reps=REPS)
+                       for c in picks]
         sub_cls = args[3]
         work = k7_work(sched7[SUB if sub_cls is not None else 0],
                        [] if sub_cls is None else sub_cls.tolist(), n_list, args[0].shape[0])
@@ -3437,9 +3455,12 @@ def run_slice12(card, k7_l8, held):
                  "launches_per_decode": len(k7_calls), "list_size": n_list,
                  "max_abs_err": held["err"][family], "ms": ms[i], "ms_per_call": ms, "plain_ms": plain_ms,
                  **bound(*work), "library_ms": None}
+        if wide_ms is not None:
+            entry["scl_wide_ms_per_call"] = wide_ms
         entries.append(entry)
         emit({"kernel": entry["name"], "batch": B12, "chunk": CHUNK_SCL, "ms_per_call": ms,
-              "plain_ms": plain_ms, "bound_ms": entry["bound_ms"], "card": card})
+              "scl_wide_ms_per_call": wide_ms, "plain_ms": plain_ms,
+              "bound_ms": entry["bound_ms"], "card": card})
         if n_list == 1:  # K1 at one path on the pure chunks
             k1 = _time_k1(k1_calls, B12)
             k1_launches = sum(r["launches"]["scl_subtree"].get("float32,L=1", 0)
@@ -3481,6 +3502,9 @@ def run_slice12(card, k7_l8, held):
 SEED13 = 20261027
 WIDE_DESIGN = ("a block of 256 threads a codeword, the LLR levels in a device-memory "
                "scratch, the bookkeeping in shared memory, the prune a bitonic sort")
+WIDE_K7_DESIGN = ("a block of 1024 threads a codeword, the LLR levels in a device-memory "
+                  "scratch, the bookkeeping in shared memory, the prune a merge of lists "
+                  "in rank order")
 WIDE_SRC = "polar_codes_torch/csrc/scl_wide.cu"
 K1_WIDE_LISTS = (129, 160, 256, 512)
 K1_WIDE_BATCHES = (1, 181, 256)  # rotated over (L, family): every L sees every batch
@@ -3570,9 +3594,11 @@ def run_k7_wide(card):
     families, chunks of 64 and 256, B in K7_WIDE_BATCHES, with and without
     sub-blocks of every class, on integer LLRs in [-2, 2]: rows with one
     live path and rows with L - 1 (every other row each; the re-take
-    rule), and all rows live; then L = 128 at chunk 512 and L = 64 at chunk
-    1024. Every call through the device-memory kernel; bits, perms and
-    metrics equal. Returns {"err": per family, "calls": n, "timed": {name:
+    rule), all rows live (out of rank order), rows in rank order with a
+    _NEG tail on an all-frozen chunk of 256, and rows out of rank order
+    with _NEG at random slots; then L = 128 at chunk 512 and L = 64 at
+    chunk 1024. Every call through the device-memory kernel; bits, perms
+    and metrics equal. Returns {"err": per family, "calls": n, "timed": {name:
     (args, family)} of the calls phase 46 times}."""
     import numpy as np
     import torch
@@ -3594,9 +3620,17 @@ def run_k7_wide(card):
         if how == "1 and L-1 live":
             met[0::2, 1:] = NEG  # one live path
             met[1::2, -1] = NEG  # L - 1 live paths
+        elif how == "ranked":  # in rank order, 1 to L live, then _NEG
+            n_live = torch.randint(1, n_list + 1, (n_batch, 1), generator=gen, device=dev)
+            rank = torch.arange(n_list, device=dev)[None]
+            met = torch.where(rank < n_live, met.sort(1, descending=True).values, NEG)
+        elif how == "_NEG at random slots":  # out of rank order
+            met[torch.rand((n_batch, n_list), generator=gen, device=dev) < 0.3] = NEG
         return met
 
-    def mask_of(m_len):  # every sub-block class, then rate-0 runs at every span
+    def mask_of(m_len, how):  # every sub-block class, then rate-0 runs at every span
+        if how == "ranked":
+            return torch.ones(m_len, dtype=torch.uint8, device=dev)
         mask = rate0_mask(m_len, gen, dev)
         cls = head if m_len > head.numel() else head[16:]
         mask[: cls.numel()] = cls
@@ -3606,12 +3640,15 @@ def run_k7_wide(card):
              for n_list in K7_WIDE_LISTS for m_len in (64, CHUNK_SCL)
              for n_batch, sub, how in ((K7_WIDE_BATCHES[1], True, "1 and L-1 live"),
                                        (K7_WIDE_BATCHES[0], False, "live"))]
+    cases += [(n_list, m_len, K7_WIDE_BATCHES[1], sub, how) for n_list in K7_WIDE_LISTS
+              for m_len, sub, how in ((CHUNK_SCL, False, "ranked"),
+                                      (64, True, "_NEG at random slots"))]
     cases += [(n_list, m_len, K7_WIDE_BATCHES[1], True, "1 and L-1 live")
               for n_list, m_len in K7_PAST_SMEM]
     for n_list, m_len, n_batch, with_sub, how in cases:
         if lk.scl_library(n_list, m_len, SUB if with_sub else 0) != "scl_wide":
             raise AssertionError(f"K7 L={n_list} chunk {m_len}: not the device-memory kernel")
-        mask = mask_of(m_len)
+        mask = mask_of(m_len, how)
         sub_cls = None
         if with_sub:
             codes = _classify_chunks(list(mask.cpu().numpy().astype(bool).reshape(-1, SUB)))
@@ -3620,7 +3657,7 @@ def run_k7_wide(card):
         met = metrics(n_batch, n_list, how)
         for family in ("float32", "char"):
             where = (f"K7 {family} L={n_list} chunk {m_len} B={n_batch} sub-blocks "
-                     f"{with_sub}, {how}")
+                     f"{with_sub}, {how}" + (", all frozen" if how == "ranked" else ""))
             got = lk.masked_scl_chunk(x, mask, met, sub_cls, family)
             want = lk.masked_scl_chunk_plain(x, mask, met, sub_cls, family)
             _equal(where + ": bits", got[0], want[0])
@@ -3913,7 +3950,7 @@ def run_slice13(card, k1_held, k7_held):
                 if r["launches"]["masked_scl_chunk_by_list"].get("float32,L=256")}
     entries.append({
         "name": "masked_scl_chunk[float32,L=256]", "route": "cuda", "source": WIDE_SRC,
-        "redesigned": WIDE_DESIGN, "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
+        "redesigned": WIDE_K7_DESIGN, "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
         "launches": runs["large_cascl256_scan"]["launches"]["masked_scl_chunk_wide"]["float32"],
         "launches_by_path": k7_paths, "launches_per_decode": len(k7_calls), "list_size": 256,
         "batch": B13_LARGE, "max_abs_err": k7_held["err"]["float32"], "ms": med,
@@ -3930,7 +3967,7 @@ def run_slice13(card, k1_held, k7_held):
         path = "large_eq_cascl128_chunk512" if family == "float32" else "large_eq_cascl256_int8"
         launches = runs[path]["launches"]["masked_scl_chunk_wide"][family]
         entries.append({
-            "name": label, "route": "cuda", "source": WIDE_SRC, "redesigned": WIDE_DESIGN,
+            "name": label, "route": "cuda", "source": WIDE_SRC, "redesigned": WIDE_K7_DESIGN,
             "replaces": "polar_codes_tpu/ops/large_kernel.py:149", "launches": launches,
             "launches_by_path": {path: launches}, "list_size": n_list,
             "batch": x.shape[0], "max_abs_err": k7_held["err"][family], "ms": kms,

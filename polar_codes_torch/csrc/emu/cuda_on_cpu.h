@@ -7,7 +7,8 @@
 // static shared memory (a `__shared__` variable is a function-local
 // static, so one block runs at a time), int4, uint2 and uint4 (8- and
 // 16-byte loads), __nv_bfloat16 with its two
-// conversions (round to nearest even), and a card with the H100's opt-in
+// conversions (round to nearest even), atomicAdd, atomicOr and atomicMin on
+// 32-bit words (under one lock), and a card with the H100's opt-in
 // shared memory per block and SM count. A barrier that waits 60 s aborts: a
 // divergent __syncwarp, shuffle or ballot, which deadlocks on the card
 // too.
@@ -180,6 +181,29 @@ inline int __reduce_add_sync(unsigned, int v) {
     return static_cast<int>(r);
   });
 }
+
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return emu_exchange(v, [](const uint64_t* s) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= static_cast<unsigned>(s[i]);
+    return r;
+  });
+}
+
+// atomics: one lock for all (the kernels here use them on a few shared words)
+inline std::mutex emu_atomic_mu;
+template <class T, class Op>
+inline T emu_atomic(T* at, Op op) {
+  std::lock_guard<std::mutex> lock(emu_atomic_mu);
+  const T old = *at;
+  *at = op(old);
+  return old;
+}
+inline int atomicAdd(int* at, int v) { return emu_atomic(at, [=](int o) { return o + v; }); }
+inline unsigned atomicOr(unsigned* at, unsigned v) {
+  return emu_atomic(at, [=](unsigned o) { return o | v; });
+}
+inline int atomicMin(int* at, int v) { return emu_atomic(at, [=](int o) { return std::min(o, v); }); }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }

@@ -32,59 +32,84 @@
 // Capacities: 4 (L <= 4), 32 (L <= 32; one word a position, a lane a path;
 // capacity 4 packs 8 positions in a combine's ballot, 32 one), 64 (two
 // words) and 128 (four words). The list size is read by the prune (the
-// rank cut, the re-take rule, the new width) and by the `lane < L`
-// ballots; slots at or above it never become live and their bits stay 0.
-// The list is always full width here (metrics [B, L], inactive slots at
-// _NEG), so w * C = C * L > L at every prune and the TPU kernel's
+// rank cut, the re-take rule, the new width) and by the `tid < L` guards;
+// slots at or above it never become live and their bits stay 0. The list
+// is always full width here (metrics [B, L], inactive slots at _NEG), so
+// w * C = C * L > L at every prune and the TPU kernel's
 // progressive-widening branch never runs.
 //
-// Walk: one warp decodes one codeword and computes the chunk's post-order
-// walk itself from the leaf index, with the trigger and climb rules of K6:
-// before leaf k the levels from dl - tz(k) down are refreshed (f for a
-// left child, g for a right one, which gathers the parent's LLRs through
-// the left sibling's perm), and after it tz(~k) combines climb back up
-// (fork the left bits through the right child's perm, XOR, compose the
-// perms). With sub-blocks the walk's leaves are the sub-blocks; a pure one
-// takes its leaf rule and a mixed one runs the same walk over its bits.
-// The order of operations is that of the host's post-order schedule
-// (ops/large_kernel.py scl_chunk_schedule), which is not passed. The mask
-// (as 32-bit words), the class codes and the SPC table are staged into
-// shared memory once. Spans are powers of two: shifts and masks.
+// Mapping. Capacities 4 and 32: one warp a codeword, warp-synchronous.
+// Capacities 64 and 128: one block of 2 x capacity threads a codeword
+// (128 or 256: a thread per candidate of a bit), steps closed by a block
+// barrier (PTX barrier.sync without .aligned: the warp that holds path L -
+// 1 reaches it split whenever 32 does not divide L). Thread l < L holds
+// path l's metric in a register. F and
+// G run over (path, element) pairs; a combine gives each warp whole
+// positions (one ballot per word, lane = slot 32 k + lane, every word of
+// the position read before any is written); a bit's packed word k is warp
+// k's ballot; a sub-block's up to 8 L candidates spread over the block, R
+// = T / (2 x capacity) <= 4 a thread, and its decision bits go a warp per
+// (word, 32 positions).
+//
+// Walk: the block (or warp) computes the chunk's post-order walk itself
+// from the leaf index, with the trigger and climb rules of K6: before leaf
+// k the levels from dl - tz(k) down are refreshed (f for a left child, g
+// for a right one, which gathers the parent's LLRs through the left
+// sibling's perm), and after it tz(~k) combines climb back up (fork the
+// left bits through the right child's perm, XOR, compose the perms). With
+// sub-blocks the walk's leaves are the sub-blocks; a pure one takes its
+// leaf rule and a mixed one runs the same walk over its bits. The order of
+// operations is that of the host's post-order schedule (ops/large_kernel.py
+// scl_chunk_schedule), which is not passed. The mask (as 32-bit words), the
+// class codes and the SPC table are staged into shared memory once. Spans
+// are powers of two: shifts and masks.
 //
 // Up to 32 paths the lowest kRegLevels = 3 levels of a per-bit walk run in
 // registers, as in large_scl_chunk.cu: lane l < L holds path l's 8 LLRs
 // of a span-8 node, g's path-fork gather is a shuffle, a bit's 2 x
 // capacity candidates are ranked in registers (shuffles), its packed word
-// is one __ballot_sync. Above 32 paths (W = 2 or 4 words) a lane holds
-// paths lane + 32 k (k < W), and the walk's shared-memory levels go down
-// to span 1: a leaf's 2L candidates (up to 256) are staged in shared
-// memory and ranked against every value, its bits are one ballot per word
-// (lane = slot 32 k + lane), a combine's fork one ballot per position and
-// word. Registers would hold W paths' 8 LLRs a lane and need W shuffles
-// and a select per gathered element; at L >= 33 the prune (>= 66
-// candidates a bit, each compared with all) outweighs the span-2 f/g work
-// they would save. A pure sub-block's candidates (up to 8L) are ranked
-// from shared memory at every capacity, R of them a lane (R from the
-// count: 1, 2, 4, or 8 in passes of 256).
+// is one __ballot_sync; a sub-block's candidates are ranked from shared
+// memory, R of them a lane, each against all. Above 32 paths every level
+// down to span 1 is in shared memory.
+//
+// The prune above 32 paths is a merge. The T = C x L candidates of a leaf
+// (code l*C + c: path l, candidate c) form C lists, list c = {(l, c): l <
+// L} in path order. Every prune leaves its slots in rank order (slot r
+// takes rank r), so at an information bit the keep list (value m_l) is
+// already in rank order and only the flip list (m_l - |x_l|) needs
+// ordering. The kernel checks each list (a warp OR of "v_l < v_{l+1}",
+// one shared atomic a warp); a list out of order (a chunk's entry, frozen
+// bits, rate-0 sub-blocks, every list but rate-1's first of a sub-block)
+// is ordered by rank in runs of 32 paths (each candidate counts the 31
+// others of its run) and the runs merged by binary search. A candidate's
+// rank is then its place in its own list plus, for every other list, a
+// binary search for how many of that list beat it: at an information bit
+// at L = 128 about 32 compares and 4 searches a candidate, where the warp
+// kernel ranked each of the 256 against all 256. The rank is the same
+// total order as before (value descending, flat code ascending; float
+// compares, so -0.0 ties +0.0), so the result is the same permutation.
 //
 // Shared memory: the LLR pyramid (8 L M bytes: nl x 2M f32), the packed
-// bit words (4 W M), the perms of the open node at each level, the
-// candidates. Where the pyramid exceeds kMaxDynamic = 200 KiB, as at L =
-// 128, M = 256 (266 KB), level 0, the chunk's input, stays in device
-// memory, read where it lies by the level-0 f and g (coalesced: a
+// bit words (4 W M), the mask bits and the class codes, dynamic; the
+// perms of the open node at each level, the candidates, the merge's
+// ordered lists, static. Where the pyramid exceeds kMaxDynamic = 200 KiB,
+// as at L = 128, M = 256 (266 KB), level 0, the chunk's input, stays in
+// device memory, read where it lies by the level-0 f and g (coalesced: a
 // codeword's [L, M] input is contiguous) and by a sub-block leaf at level
 // 0, and only the levels below it (4 L M bytes, 135 KB there) are staged.
 // A chunk that does not fit even so is refused (-2); the wrapper sends
 // those to scl_wide.cu.
 //
 // What bounds it on an H100: the length of one codeword's dependent chain
-// (one warp a codeword, about one warp an SM at B = 128). Per bit a prune
-// by rank over 2L candidates, O(L^2 / 32) compares a lane, and the f/g
-// refreshes and combines, each closed by a __syncwarp. Measured
-// (chip_smoke.py phase 42, NVIDIA H100 80GB HBM3 at 700 W, (32768, 16384)
-// chunks, sub-blocks of 16, B = 64): 0.10 ms a call at L = 3, 1.0 ms at
-// L = 64, 3.5 ms at L = 128, against bounds of 0.08-2.6 us (bytes): the
-// chain, not bytes or arithmetic, sets the time.
+// (a codeword a block, B blocks over 132 SMs). Per bit the prune's ~6
+// barriers and its compare chain, and the f/g refreshes and combines,
+// each closed by a barrier. Bytes and arithmetic are far below that
+// (chip_smoke.py prints both beside the time). Measured (chip_profile.py
+// k7_lists_ab, NVIDIA H100 80GB HBM3 at 700 W, the K7 calls of a (32768,
+// 16384) decode, chunks of 256, sub-blocks of 16, B = 64): 0.45 ms a call
+// at L = 64 and 0.64 ms at L = 128, where the one-warp kernel it replaced
+// took 1.00 and 3.25 ms; char L = 64 ((8192, 4096), no sub-blocks) 0.97
+// ms (2.24); bounds 1.3-2.6 us.
 //
 // Two families, instantiations of one template (the TPU kernel's int8
 // flag): float32, and char, integer-valued LLRs in f32 with g clipped to
@@ -130,6 +155,7 @@ constexpr int kRegSpan = 1 << kRegLevels;
 constexpr int kRankRegs = 8;   // most candidates a lane ranks in one pass of prune_smem
 constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -1.0e30f;
+constexpr int kNoCode = 0x7fffffff;
 // dynamic shared memory a codeword may take (ops/large_kernel.py MAX_SCL_SMEM)
 constexpr size_t kMaxDynamic = 200 * 1024;
 enum { C_MIXED = 0, C_RATE0 = 1, C_RATE1 = 2, C_REP = 3, C_SPC = 4 };
@@ -147,6 +173,17 @@ __device__ __forceinline__ int sign_bit(float x) {
 
 __device__ __forceinline__ int log2i(int x) { return 31 - __clz(x); }
 
+// A block barrier that threads of one warp may reach at different times
+// (PTX barrier.sync without .aligned, sm_70 on); the CPU runner's
+// __syncthreads counts threads the same way.
+__device__ __forceinline__ void block_barrier() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.sync 0;" ::: "memory");
+#else
+  __syncthreads();
+#endif
+}
+
 struct FloatFamily {
   __device__ static float g(float a, float b, int bit) { return bit ? b - a : b + a; }
   __device__ static int hard(float x) { return sign_bit(x); }
@@ -162,6 +199,12 @@ struct CharFamily {
 // int32 words a packed position holds for a list of capacity L
 template <int L>
 constexpr int kWords = L > 32 ? L / 32 : 1;
+// threads a codeword: a warp up to 32 paths, a thread per candidate of a bit above
+template <int L>
+constexpr int kThreads = L > 32 ? 2 * L : 32;
+// entries of the merge's ordered lists (the block kernels only)
+template <int L>
+constexpr int kMerge = L > 32 ? L * kMaxCand : 1;
 
 template <int L>
 struct Shared {
@@ -173,6 +216,14 @@ struct Shared {
   int is[4][L];
   int par[L];               // SPC parity of each path
   int spc[32];              // SPC_TABLE
+  // the prune by merge (above 32 paths): list c's entries in rank order
+  // from SV[c L] (value, path), each candidate's place in its list, the
+  // lists out of order, the values above kNeg, the re-take candidate
+  float SV[kMerge<L>];
+  short R[kMerge<L>];
+  uint8_t SL[kMerge<L>];
+  unsigned bad;
+  int live, best;
 };
 
 // Dynamic shared memory of one codeword: the LLR levels (from level 0, or
@@ -186,12 +237,15 @@ size_t dynamic_bytes(int nl, int m, int sub, bool direct) {
          (sub ? m / sub : 0);
 }
 
-// One warp's view of the codeword: the shared state and the chunk. L is
-// the list's capacity (a power of two), nl the list size (nl <= L; slots
-// at or above it never become live).
+// One codeword's team (a warp up to capacity 32, a block above): the
+// shared state and the chunk. L is the list's capacity (a power of two),
+// nl the list size (nl <= L; slots at or above it never become live).
 template <int L, class Fam>
 struct Walker {
   static constexpr int NW = kWords<L>;  // packed words a position
+  static constexpr int NT = kThreads<L>;
+  static constexpr int NWARPS = NT / 32;
+  static constexpr bool kBlock = NT > 32;
 
   Shared<L>& s;
   const float* X0;          // level 0, [nl][M]: staged in shared memory, or the input
@@ -199,11 +253,23 @@ struct Walker {
   int* W;                   // [NW][M] packed bits (word k of position i at W[k M + i])
   const unsigned* Fm;       // [ceil(M / 32)] frozen mask bits
   const uint8_t* Cls;       // [M / sub] class codes
-  int m, D, lane, nl_arg;
-  float mreg[NW];           // path lane + 32 k's metric in mreg[k]
+  int m, D, tid, lane, warp, nl_arg;
+  float mreg;               // path tid's metric (tid < nl)
 
   __device__ int nl() const { return nl_arg; }
   __device__ int frozen(int pos) const { return (Fm[pos >> 5] >> (pos & 31)) & 1; }
+
+  // the team's barrier: a block's is PTX's barrier.sync without .aligned,
+  // which a warp may reach split (a per-path step leaves the warp holding
+  // path nl - 1 split at tid = nl); __syncthreads is bar.sync, the aligned
+  // form, and a split warp there lost a barrier phase on the card
+  __device__ void sync() const {
+    if constexpr (kBlock) {
+      block_barrier();
+    } else {
+      __syncwarp();
+    }
+  }
 
   // level d's LLRs, [nl][M >> d]
   __device__ const float* in_lvl(int d) const {
@@ -213,16 +279,10 @@ struct Walker {
     return X1 + nl_arg * (m - (m >> (d - 1)));
   }
 
-  // f(l, k) for each live slot l = lane + 32 k this lane holds
+  // f(l) on the live path this thread holds (thread l: path l)
   template <class F>
   __device__ __forceinline__ void for_paths(F f) const {
-    if constexpr (NW == 1) {
-      if (lane < nl()) f(lane, 0);
-    } else {
-#pragma unroll
-      for (int k = 0; k < NW; ++k)
-        if (lane + 32 * k < nl()) f(lane + 32 * k, k);
-    }
+    if (tid < nl()) f(tid);
   }
 
   // path l's decision bit at position pos
@@ -239,11 +299,11 @@ struct Walker {
     const int len = m >> q, lh = D - q - 1, h = 1 << lh;
     const float* Xq = in_lvl(q);
     float* Y = out_lvl(q + 1);
-    for (int t = lane; t < (nl() << lh); t += 32) {
+    for (int t = tid; t < (nl() << lh); t += NT) {
       const int l = t >> lh, i = t & (h - 1);
       Y[t] = f_bits(Xq[l * len + i], Xq[l * len + i + h]);
     }
-    __syncwarp();
+    sync();
   }
 
   // g from level q into level q + 1 (node at offset off, whose left half's
@@ -252,13 +312,13 @@ struct Walker {
     const int len = m >> q, lh = D - q - 1, h = 1 << lh;
     const float* Xq = in_lvl(q);
     float* Y = out_lvl(q + 1);
-    for (int t = lane; t < (nl() << lh); t += 32) {
+    for (int t = tid; t < (nl() << lh); t += NT) {
       const int l = t >> lh, i = t & (h - 1);
       const int p = s.P[q + 1][l];  // left child's perm: slot -> parent slot
       Y[t] = Fam::g(Xq[p * len + i], Xq[p * len + i + h], bit_of(off + i, l));
     }
-    for_paths([&](int l, int) { s.P[q][l] = s.P[q + 1][l]; });
-    __syncwarp();
+    for_paths([&](int l) { s.P[q][l] = s.P[q + 1][l]; });
+    sync();
   }
 
   // the node at level q, offset off: left bits forked through the right
@@ -278,11 +338,11 @@ struct Walker {
         if (lane < kPer && base + lane < h)
           W[off + base + lane] = static_cast<int>((b >> (lane * L)) & kMask) ^ W[off + h + base + lane];
       }
-    } else {  // one ballot per position and word, lane = slot 32 k + lane
+    } else {  // a warp per position: one ballot a word, lane = slot 32 k + lane
       int src[NW];
 #pragma unroll
       for (int k = 0; k < NW; ++k) src[k] = lane + 32 * k < nl() ? p[lane + 32 * k] : -1;
-      for (int i = 0; i < h; ++i) {
+      for (int i = warp; i < h; i += NWARPS) {
         unsigned b[NW];
 #pragma unroll
         for (int k = 0; k < NW; ++k) b[k] = __ballot_sync(kAll, src[k] >= 0 && bit_of(off + i, src[k]));
@@ -292,11 +352,11 @@ struct Walker {
           if (lane == k) W[k * m + off + i] = static_cast<int>(b[k]) ^ W[k * m + off + h + i];
       }
     }
-    int c[NW];
-    for_paths([&](int l, int k) { c[k] = s.P[q][p[l]]; });
-    __syncwarp();
-    for_paths([&](int l, int k) { s.P[q][l] = c[k]; });
-    __syncwarp();
+    int c = 0;
+    for_paths([&](int l) { c = s.P[q][p[l]]; });
+    sync();
+    for_paths([&](int l) { s.P[q][l] = c; });
+    sync();
   }
 
   // Top-nl of T <= TC candidates into s.pc / s.pv (slot -> code, value).
@@ -340,7 +400,7 @@ struct Walker {
       }
     }
     if (kk < nl) {  // warp-uniform: the re-take rule fills the rest
-      int best = 0x7fffffff;
+      int best = kNoCode;
 #pragma unroll
       for (int r = 0; r < kPer; ++r) {
         const int t = lane + 32 * r;
@@ -355,16 +415,16 @@ struct Walker {
     __syncwarp();
   }
 
-  // A sub-block's candidates, or any above 32 paths: the same prune on
-  // the T candidates of s.V. Lanes hold R
-  // candidates each (R from T: 1, 2, 4, or 8 in passes of 256), and each
-  // pass reads every value once from shared memory.
+  // A sub-block's candidates up to 32 paths: the same prune on the T
+  // candidates of s.V. Lanes hold R candidates each (R from T: 1, 2, 4,
+  // or 8 in passes of 256), and each pass reads every value once from
+  // shared memory.
   __device__ void prune_smem(int T) {
     const int nl = this->nl();
     int k = 0;
     for (int t = lane; t < T; t += 32) k += s.V[t] > kNeg;
     const int kk = max(__reduce_add_sync(kAll, k), 1);
-    int best = 0x7fffffff;
+    int best = kNoCode;
     const int per = (T + 31) >> 5;
     if (per == 1) {
       rank_pass<1>(T, 0, kk, best);
@@ -418,6 +478,120 @@ struct Walker {
     }
   }
 
+  // how many of the n entries of list c (C = 1 << lgc lists) from place a
+  // on, in rank order, beat candidate t of value v: a binary search
+  __device__ int beaten_by(int c, int lgc, int a, int n, float v, int t) const {
+    const int base = c * nl() + a;
+    int lo = 0;
+    while (n > 0) {
+      const int half = n >> 1, at = base + lo + half;
+      const float o = s.SV[at];
+      const int u = (static_cast<int>(s.SL[at]) << lgc) | c;
+      if (o > v || (o == v && u < t)) {
+        lo += half + 1;
+        n -= half + 1;
+      } else {
+        n = half;
+      }
+    }
+    return lo;
+  }
+
+  // Above 32 paths: top-nl of the T = nl << lgc candidates of s.V into
+  // s.pc / s.pv by merging the C = 1 << lgc lists (list c: candidates (l,
+  // c), l < nl), with the rank rule and the re-take rule of prune().
+  __device__ void prune_merge(int lgc) {
+    const int nl = this->nl(), C = 1 << lgc, T = nl << lgc;
+    // the lists out of rank order, and the values above kNeg
+    unsigned bad = 0;
+    int live = 0;
+    for (int t = tid; t < T; t += NT) {
+      const float v = s.V[t];
+      live += v > kNeg;
+      if (t + C < T && v < s.V[t + C]) bad |= 1u << (t & (C - 1));
+    }
+    bad = __reduce_or_sync(kAll, bad);
+    live = __reduce_add_sync(kAll, live);
+    if (lane == 0) {
+      if (bad) atomicOr(&s.bad, bad);
+      atomicAdd(&s.live, live);
+    }
+    sync();
+    const unsigned unsorted = s.bad;
+    const int kk = max(s.live, 1);
+    // each candidate's place in its list where the list is in rank order,
+    // else in its run of 32 paths; the lists (or runs) in rank order
+    for (int t = tid; t < T; t += NT) {
+      const int l = t >> lgc, c = t & (C - 1);
+      const float v = s.V[t];
+      int r = l;
+      if ((unsorted >> c) & 1) {
+        const int g = l & ~31, e = min(g + 32, nl);
+        r = g;
+        for (int u = g; u < e; ++u) {
+          const float o = s.V[(u << lgc) | c];
+          r += (o > v) | ((o == v) & (u < l));
+        }
+      }
+      s.R[t] = static_cast<short>(r);
+      s.SV[c * nl + r] = v;
+      s.SL[c * nl + r] = static_cast<uint8_t>(l);
+    }
+    sync();
+    if (unsorted && nl > 32) {  // a list out of order: its runs merged
+      for (int t = tid; t < T; t += NT) {
+        const int l = t >> lgc, c = t & (C - 1);
+        if (!((unsorted >> c) & 1)) continue;
+        const float v = s.V[t];
+        const int g = l & ~31;
+        int r = s.R[t] - g;
+        for (int a = 0; a < nl; a += 32)
+          if (a != g) r += beaten_by(c, lgc, a, min(32, nl - a), v, t);
+        s.R[t] = static_cast<short>(r);
+      }
+      sync();
+      for (int t = tid; t < T; t += NT) {
+        const int l = t >> lgc, c = t & (C - 1);
+        if ((unsorted >> c) & 1) {
+          s.SV[c * nl + s.R[t]] = s.V[t];
+          s.SL[c * nl + s.R[t]] = static_cast<uint8_t>(l);
+        }
+      }
+      sync();
+    }
+    // rank: the place in its own list and, in each other list, how many beat it
+    int best = kNoCode;
+    for (int t = tid; t < T; t += NT) {
+      const int c = t & (C - 1);
+      const float v = s.V[t];
+      int r = s.R[t];
+      for (int c2 = 0; c2 < C; ++c2)
+        if (c2 != c) r += beaten_by(c2, lgc, 0, nl, v, t);
+      if (r < kk && r < nl) {
+        s.pc[r] = t;
+        s.pv[r] = v;
+      }
+      if (r < kk || v == kNeg) best = min(best, t);
+    }
+    if (kk < nl) {  // block-uniform: the re-take rule's candidate
+      best = __reduce_min_sync(kAll, best);
+      if (lane == 0) atomicMin(&s.best, best);
+    }
+    sync();
+    if (kk < nl) {  // the re-take rule fills the rest
+      for (int r = kk + tid; r < nl; r += NT) {
+        s.pc[r] = s.best;
+        s.pv[r] = kNeg;
+      }
+      sync();
+    }
+    if (tid == 0) {  // for the next prune, past at least one more barrier
+      s.bad = 0;
+      s.live = 0;
+      s.best = kNoCode;
+    }
+  }
+
   // A span-1 leaf at position pos with lane l < nl holding path l's LLR x:
   // returns the packed word; perm (slot -> path) and the metrics follow
   // the prune.
@@ -429,7 +603,7 @@ struct Walker {
 #pragma unroll
     for (int r = 0; r < kPer; ++r) {  // candidate t = 2 l + c
       const int t = lane + 32 * r, l = (t >> 1) & 31;
-      const float xl = __shfl_sync(kAll, x, l), ml = __shfl_sync(kAll, mreg[0], l);
+      const float xl = __shfl_sync(kAll, x, l), ml = __shfl_sync(kAll, mreg, l);
       v[r] = ml + ((t & 1) ? (fz ? kNeg : -fabsf(xl)) : (fz ? fminf(xl, 0.f) : 0.f));
     }
     prune<T>(v, 2 * nl);
@@ -438,7 +612,7 @@ struct Walker {
     __syncwarp();  // slots read before the next prune writes them
     perm = code >> 1;
     const float xs = __shfl_sync(kAll, x, perm);
-    if (lane < nl) mreg[0] = value;
+    if (lane < nl) mreg = value;
     return __ballot_sync(kAll, lane < nl && !fz && (Fam::hard(xs) ^ (code & 1)));
   }
 
@@ -490,33 +664,33 @@ struct Walker {
   }
 
   // Above 32 paths: a span-1 leaf at level d (path l's LLR at level d's
-  // element l), position pos, its candidates and prune in shared memory
-  __device__ void wide_leaf(int d, int pos) {
+  // element l), position pos: its candidates and the prune by merge in
+  // shared memory, word k of its bits warp k's ballot
+  __device__ void bit_leaf(int d, int pos) {
     const float* Xd = in_lvl(d);
     const int fz = frozen(pos);
-    for_paths([&](int l, int k) {
+    for_paths([&](int l) {
       const float x = Xd[l];
-      s.V[2 * l] = mreg[k] + (fz ? fminf(x, 0.f) : 0.f);
-      s.V[2 * l + 1] = mreg[k] + (fz ? kNeg : -fabsf(x));
+      s.V[2 * l] = mreg + (fz ? fminf(x, 0.f) : 0.f);
+      s.V[2 * l + 1] = mreg + (fz ? kNeg : -fabsf(x));
     });
-    __syncwarp();
-    prune_smem(2 * nl());
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {  // word k: lane = slot 32 k + lane
-      const int j = 32 * k + lane;
+    sync();
+    prune_merge(1);
+    if (warp < NW) {  // word k = warp: lane = slot 32 k + lane
+      const int j = 32 * warp + lane;
       int bit = 0;
       if (j < nl() && !fz) {
         const int code = s.pc[j];
         bit = Fam::hard(Xd[code >> 1]) ^ (code & 1);
       }
       const unsigned b = __ballot_sync(kAll, bit);
-      if (lane == k) W[k * m + pos] = static_cast<int>(b);
+      if (lane == 0) W[warp * m + pos] = static_cast<int>(b);
     }
-    for_paths([&](int l, int k) {
-      mreg[k] = s.pv[l];
+    for_paths([&](int l) {
+      mreg = s.pv[l];
       s.P[d][l] = s.pc[l] >> 1;
     });
-    __syncwarp();
+    sync();
   }
 
   // the per-bit walk of the node at level d0 (span 2^lg), offset off0: up
@@ -524,8 +698,8 @@ struct Walker {
   // the levels above in shared memory; above 32 paths every level in
   // shared memory, down to the span-1 leaves
   __device__ void walk_bits(int d0, int lg, int off0) {
-    if constexpr (NW > 1) {
-      walk(d0, lg, 0, off0, [&](int, int off) { wide_leaf(d0 + lg, off); });
+    if constexpr (kBlock) {
+      walk(d0, lg, 0, off0, [&](int, int off) { bit_leaf(d0 + lg, off); });
     } else {
       switch (lg) {
         case 1: reg_node<2>(d0, off0); return;
@@ -542,7 +716,7 @@ struct Walker {
   // their positions, first position on ties: by rank in (|x|, position)
   __device__ void weakest(const float* Xd, int lg, int count) {
     const int len = 1 << lg;
-    for (int e = lane; e < (nl() << lg); e += 32) {
+    for (int e = tid; e < (nl() << lg); e += NT) {
       const int l = e >> lg, i = e & (len - 1);
       const float a = fabsf(Xd[e]);
       int n = 0;
@@ -555,7 +729,7 @@ struct Walker {
         s.is[n][l] = i;
       }
     }
-    __syncwarp();
+    sync();
   }
 
   // the survivor in slot j (j < nl) of a sub-block's prune: its source
@@ -595,36 +769,34 @@ struct Walker {
     const int lg = D - d, len = 1 << lg;
     const float* Xd = in_lvl(d);
     if (cls == C_RATE0) {
-      for_paths([&](int l, int k) {
+      for_paths([&](int l) {
         float acc = 0.f;
         for (int i = 0; i < len; ++i) acc = acc + fminf(Xd[l * len + i], 0.f);
-        mreg[k] = mreg[k] + acc;
+        mreg = mreg + acc;
         s.P[d][l] = l;
       });
-#pragma unroll
-      for (int k = 0; k < NW; ++k)
-        for (int i = lane; i < len; i += 32) W[k * m + off + i] = 0;
-      __syncwarp();
+      for (int t = tid; t < NW * len; t += NT) W[(t >> lg) * m + off + (t & (len - 1))] = 0;
+      sync();
       return;
     }
     int lgc;
     if (cls == C_REP) {
       lgc = 1;
-      for_paths([&](int l, int k) {
+      for_paths([&](int l) {
         float z = 0.f, o = 0.f;
         for (int i = 0; i < len; ++i) {
           const float x = Xd[l * len + i];
           z = z + fminf(x, 0.f);
           o = o + fmaxf(x, 0.f);
         }
-        s.V[2 * l] = mreg[k] + z;
-        s.V[2 * l + 1] = mreg[k] + -o;
+        s.V[2 * l] = mreg + z;
+        s.V[2 * l + 1] = mreg + -o;
       });
     } else if (cls == C_RATE1) {
       lgc = 2;
       weakest(Xd, lg, 2);
-      for_paths([&](int l, int k) {
-        const float mt = mreg[k], m0 = s.ms[0][l], m1 = s.ms[1][l];
+      for_paths([&](int l) {
+        const float mt = mreg, m0 = s.ms[0][l], m1 = s.ms[1][l];
         s.V[4 * l] = mt + 0.f;
         s.V[4 * l + 1] = mt + -m0;
         s.V[4 * l + 2] = mt + -m1;
@@ -633,12 +805,12 @@ struct Walker {
     } else {  // C_SPC
       lgc = 3;
       weakest(Xd, lg, 4);
-      for_paths([&](int l, int k) {
+      for_paths([&](int l) {
         int neg = 0;
         for (int i = 0; i < len; ++i) neg += Fam::hard(Xd[l * len + i]);
         const int odd = neg & 1;
         s.par[l] = odd;
-        const float mt = mreg[k], m0 = s.ms[0][l];
+        const float mt = mreg, m0 = s.ms[0][l];
         for (int c = 0; c < 8; ++c) {
           const int tm = s.spc[24 + c];
           float tc = 0.f;
@@ -650,24 +822,30 @@ struct Walker {
         }
       });
     }
-    __syncwarp();
-    prune_smem(nl() << lgc);
-    // the decision bits: one ballot per position and word, lane = slot 32 k + lane
+    sync();
+    if constexpr (kBlock) {
+      prune_merge(lgc);
+    } else {
+      prune_smem(nl() << lgc);
+    }
+    // the decision bits: a warp per (word, 32 positions), one ballot per
+    // position, lane = slot 32 k + lane
+    const int chunks = (len + 31) >> 5;
 #pragma unroll 1
-    for (int k = 0; k < NW; ++k) {
-      const int j = 32 * k + lane;
+    for (int pair = warp; pair < NW * chunks; pair += NWARPS) {
+      const int k = pair / chunks, i0 = (pair - k * chunks) << 5, j = 32 * k + lane;
       const bool live = j < nl();
       const Slot t = live ? slot(j, lgc, cls) : Slot{};
-      for (int i = 0; i < len; ++i) {
+      for (int i = i0; i < i0 + 32 && i < len; ++i) {
         const unsigned word = __ballot_sync(kAll, live && slot_bit(t, cls, Xd, len, i));
         if (lane == (i & 31)) W[k * m + off + i] = static_cast<int>(word);
       }
     }
-    for_paths([&](int l, int k) {
-      mreg[k] = s.pv[l];
+    for_paths([&](int l) {
+      mreg = s.pv[l];
       s.P[d][l] = s.pc[l] >> lgc;
     });
-    __syncwarp();
+    sync();
   }
 
   // The post-order walk of the node at level d0, offset off0, over its
@@ -693,14 +871,15 @@ struct Walker {
 };
 
 template <int L, class Fam>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kThreads<L>)
 masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict__ llr,
                         const uint8_t* __restrict__ mask,
                         const float* __restrict__ met_in,
                         const int* __restrict__ sub_cls, int sub,
                         int* __restrict__ bits_out, int* __restrict__ perm_out,
                         float* __restrict__ met_out, int m, int list_size, int direct) {
-  constexpr int NW = kWords<L>;
+  using Team = Walker<L, Fam>;
+  constexpr int NW = kWords<L>, NT = Team::NT, NWARPS = Team::NWARPS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nl = list_size;
   const bool dir = direct;
@@ -710,26 +889,31 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
   unsigned* Fm = reinterpret_cast<unsigned*>(W + NW * m);  // [M / 32] mask bits
   uint8_t* Cls = reinterpret_cast<uint8_t*>(Fm + n_words);  // [M / sub]
   __shared__ Shared<L> s;
-  const int b = blockIdx.x, lane = threadIdx.x;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const float* in = llr + (size_t)b * nl * m;
   if (!dir)
-    for (int t = lane; t < nl * m; t += 32) X[t] = in[t];
-  for (int w = 0; w < n_words; ++w) {
+    for (int t = tid; t < nl * m; t += NT) X[t] = in[t];
+  for (int w = warp; w < n_words; w += NWARPS) {
     const int pos = 32 * w + lane;
     const unsigned word = __ballot_sync(kAll, pos < m && mask[pos] != 0);
     if (lane == 0) Fm[w] = word;
   }
   const int n_sub = sub ? m / sub : 0;
-  for (int i = lane; i < n_sub; i += 32) Cls[i] = static_cast<uint8_t>(sub_cls[i]);
-  s.spc[lane] = spc_tab[lane];
-  for (int l = lane; l < L; l += 32)
+  for (int i = tid; i < n_sub; i += NT) Cls[i] = static_cast<uint8_t>(sub_cls[i]);
+  if (tid < 32) s.spc[tid] = spc_tab[tid];
+  for (int l = tid; l < L; l += NT)
     for (int d = 0; d < kMaxLevels; ++d) s.P[d][l] = l;
-  __syncwarp();
+  if (tid == 0) {
+    s.bad = 0;
+    s.live = 0;
+    s.best = kNoCode;
+  }
 
-  Walker<L, Fam> wk{s, dir ? in : X, dir ? X : X + nl * m, W, Fm, Cls, m,
-                            log2i(m), lane, nl, {}};
-  wk.for_paths([&](int l, int k) { wk.mreg[k] = met_in[(size_t)b * nl + l]; });
+  Team wk{s, dir ? in : X, dir ? X : X + nl * m, W, Fm, Cls, m, log2i(m), tid, lane, warp, nl,
+          0.f};
+  wk.sync();
+  wk.for_paths([&](int l) { wk.mreg = met_in[(size_t)b * nl + l]; });
   if (sub == 0) {
     wk.walk_bits(0, wk.D, 0);
   } else {
@@ -745,10 +929,10 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
 
   // bits [B, M] (one word), or [B, ceil(nl / 32), M]
   const int out_words = NW == 1 ? 1 : (nl + 31) >> 5;
-  for (int i = lane; i < out_words * m; i += 32) bits_out[(size_t)b * out_words * m + i] = W[i];
-  wk.for_paths([&](int l, int k) {
+  for (int i = tid; i < out_words * m; i += NT) bits_out[(size_t)b * out_words * m + i] = W[i];
+  wk.for_paths([&](int l) {
     perm_out[(size_t)b * nl + l] = s.P[0][l];
-    met_out[(size_t)b * nl + l] = wk.mreg[k];
+    met_out[(size_t)b * nl + l] = wk.mreg;
   });
 }
 
@@ -764,8 +948,9 @@ int launch(const int* spc_tab, const float* llr, const uint8_t* mask, const floa
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch, 32, smem, stream>>>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm,
-                                      met_out, m, list_size, static_cast<int>(direct));
+  constexpr int threads = kThreads<L>;
+  kernel<<<batch, threads, smem, stream>>>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm,
+                                           met_out, m, list_size, static_cast<int>(direct));
   return static_cast<int>(cudaGetLastError());
 }
 

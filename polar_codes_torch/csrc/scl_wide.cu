@@ -34,18 +34,23 @@
 // (rate0, rate1, rep, spc: K1's leaf rules) and skips the `skip` ops of
 // its per-bit walk, or goes on into them.
 //
-// Mapping: one block of kThreads (256) threads per codeword, ops separated
-// by __syncthreads. The LLR levels d >= 1 (L x (span - 1) values of the
-// state type) lie in a device-memory scratch of the wrapper's ([B] x
-// `scratch` bytes from PyTorch's caching allocator on the call's stream,
-// codeword b's at b x scratch); level 0 is read where the input lies.
-// The bookkeeping stays in shared memory: the packed bit words [W][span],
-// the metrics, the perms of the open nodes [levels][L], the candidate
-// values [L x C], the prune's sort keys, the leaf scratch. Each of these
-// arrays goes to shared memory while the card's opt-in shared memory per
-// block has room, in that order, and to the device scratch otherwise
-// (make_plan; only lists and spans far past the JAX package's defaults
-// spill). Inside an op:
+// Mapping: one block per codeword, ops separated by a block barrier (PTX
+// barrier.sync without .aligned, which a split warp may reach): 256
+// threads for K1, 1024 for K7 (a thread per candidate of a bit up to L =
+// 512). Level 0 is read where the input lies; the LLR levels d >= 1 (L x
+// (span - 1) values of the state type) lie in a device-memory scratch of
+// the wrapper's ([B] x `scratch` bytes from PyTorch's caching allocator
+// on the call's stream, codeword b's at b x scratch). The bookkeeping
+// stays in shared memory: the packed bit words [W][span], the metrics,
+// the perms of the open nodes [levels][L], the candidate values [L x C],
+// the prune's work array, the leaf scratch. Each of these arrays goes to
+// shared memory while the card's opt-in shared memory per block has room,
+// in that order, and to the device scratch otherwise (make_plan, one plan
+// for K1 and K7; only lists and spans far past the JAX package's defaults
+// spill). Keeping K7's deepest levels in the shared memory left (levels
+// >= 2 at L = 256 on chunks of 256) was measured on the card and gave the
+// same time: those levels' reads and writes stay in the 50 MB L2 at these
+// batches. Inside an op:
 //   F, G      threads over (path, element) pairs;
 //   COMBINE   a warp per (word, position): lane j forks slot 32 k + j's
 //             left bit through the right child's perm, one ballot a word,
@@ -54,33 +59,52 @@
 //             is written before all are read);
 //   LEAF      a thread per path for the weakest magnitudes (one pass
 //             keeping the K smallest (|x|, index) keys) and the sums; a
-//             thread per candidate for its value; the prune a bitonic sort
-//             of the T = w x C keys (value descending, flat code l*C + c
-//             ascending) in shared memory, log2(T) (log2(T) + 1) / 2
-//             stages of T / 2 compare-exchanges, where the kernels above
-//             count each candidate's rank against all T (O(T^2) work);
-//             the decision bits a warp per (word, 32 positions), one
-//             ballot a position, lane = slot 32 k + lane.
-// The prune keeps the rule of the kernel it stands in for: K1 takes each
-// candidate once (slots r < min(T, L) take rank r; while T <= L every
-// candidate keeps its code as its slot); K7 keeps the TPU kernel's _NEG
+//             thread per candidate for its value; the prune; the decision
+//             bits a warp per (word, 32 positions), one ballot a
+//             position, lane = slot 32 k + lane.
+// The prune ranks the T = w x C candidates by (value descending, flat
+// code l*C + c ascending) and keeps the rule of the kernel it stands in
+// for. K1: a bitonic sort of the T keys in shared memory, log2(T)
+// (log2(T) + 1) / 2 stages of T / 2 compare-exchanges; each candidate
+// taken once (slots r < min(T, L) take rank r; while T <= L every
+// candidate keeps its code as its slot). K7: a merge of the C lists (list
+// c = candidates (l, c) in path order), with the TPU kernel's _NEG
 // re-take rule (with k values above _NEG, slots r < max(k, 1) take rank r
 // and every later slot the smallest code among those taken and those
 // exactly at _NEG, with value _NEG; ops/large_kernel.py prune_by_rank).
+// Every prune leaves its slots in rank order, so at an information bit
+// the keep list (value m_l) is in rank order already; the block checks
+// each list (a warp OR of "v_l < v_{l+1}", one shared atomic a warp). A
+// list out of order (a chunk's entry, frozen bits, sub-blocks) is ranked
+// in runs of 32 paths (each candidate counts the others of its run) and
+// its runs merged by binary search. A candidate's rank is its place in its
+// own list plus, for each other list, a binary search for how many of it
+// beat the candidate: at an information bit at L = 256, 32 compares and
+// 8 searches a candidate, where the bitonic sort of the 512 keys took 45
+// barrier stages. An ordered list holds paths only (the work array's 8
+// bytes a candidate: the lists and each candidate's place); a search step
+// reads an entry's value through its path.
 //
 // What bounds it on an H100: the dependent chain of one codeword's block
-// steps, each closed by a __syncthreads, at one block per codeword (B
-// blocks over 132 SMs): per leaf the sort's O(log^2 T) barriers, per F, G
-// and COMBINE one or two barriers and the level's reads and writes, which
-// stay in the 50 MB L2 at the batches of the paths. Bytes (each input read
-// once, each output written once) and arithmetic are far below that
-// (chip_smoke.py prints both beside the time).
+// steps, each closed by a barrier, at one block per codeword (B
+// blocks over 132 SMs): per leaf the prune's barriers and compare chain
+// (K1: the sort's O(log^2 T) barriers), per F, G and COMBINE one or two
+// barriers and the level's reads and writes, which stay in the 50 MB L2
+// at the batches of the paths. Bytes (each input read once, each output
+// written once) and arithmetic are far below that (chip_smoke.py prints
+// both beside the time). Measured (chip_profile.py k7_lists_ab, NVIDIA
+// H100 80GB HBM3 at 700 W, a decode's K7 calls back to back, the parent's
+// 256-thread kernel with the bitonic sort in the same run): 1.105-1.107
+// ms a call at L = 256, B = 32 (parent 1.271-1.273; 512 threads
+// 1.198-1.200, 256 threads 1.877-1.879); char at L = 256 2.692-2.695
+// (3.066-3.069); L = 128 on chunks of 512 1.242-1.248 (1.467-1.474). K1
+// at L = 256: 3.9-4.5 ms a (1024, 512) decode at B = 256.
 //
 // Numerics: every sum is sequential over the span in f32 on one thread,
 // in the plain versions' order, and the build disables FMA contraction;
-// the sort keys order -0.0 and +0.0 as equal (ties by code), as the rank
-// comparisons do; so kernel and plain versions agree bit for bit in every
-// family.
+// the sort keys and the merge's float compares order -0.0 and +0.0 as
+// equal (ties by code), as the plain versions' rank comparisons do; so
+// kernel and plain versions agree bit for bit in every family.
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int scl_wide_plan(int list_size, int span, int levels, int ncand,
@@ -113,13 +137,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // one block a codeword
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreadsK1 = 256;  // one block a codeword: K1's
+constexpr int kThreadsK7 = 1024;  // K7's (a thread per candidate of a bit up to L = 512)
+constexpr int kMaxWarps = kThreadsK7 / 32;
 constexpr int kOpWords = 8;
 constexpr int kMaxLevels = 16;
 constexpr int kStatic = 1024;  // shared bytes kept for the static arrays
 constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -1.0e30f;
+constexpr int kNoCode = 0x7fffffff;
 enum { OP_F = 0, OP_G = 1, OP_COMBINE = 2, OP_LEAF = 3, OP_SUB = 4 };
 enum { K_RATE0 = 0, K_RATE1 = 1, K_REP = 2, K_SPC = 3, K_ENUM = 4, K_BIT = 5 };
 enum { C_MIXED = 0, C_RATE0 = 1, C_RATE1 = 2, C_REP = 3, C_SPC = 4 };
@@ -191,8 +217,9 @@ struct ChunkCharFamily {
 // One codeword's arrays besides the LLR levels, in the order they claim
 // shared memory: metrics, perms [levels][L], prune slots (code, value),
 // weakest magnitudes and indices [4][L], SPC parities, bit words
-// [W][span], candidate values [L x C], and a work array (the prune's sort
-// keys, or a combine's staged words).
+// [W][span], candidate values [L x C], and a work array (K1: the prune's
+// sort keys; K7: the merge's ordered lists and places; or a combine's
+// staged words).
 enum { A_M, A_P, A_PC, A_PV, A_MS, A_IS, A_PAR, A_W, A_V, A_WORK, kArrays };
 
 struct Plan {
@@ -220,7 +247,9 @@ Plan make_plan(int nl, int span, int levels, int ncand, int state_bytes, long lo
   p.levels = levels;
   p.ncand = ncand;
   const long long T = (long long)nl * ncand;
-  long long work = 8 * pow2_at_least(T);  // sort keys, or a combine's staged words
+  // K1's sort keys, K7's merge (ordered lists and places: 8 T bytes), or a
+  // combine's staged words
+  long long work = 8 * pow2_at_least(T);
   work = work > 2LL * p.words * span ? work : 2LL * p.words * span;
   const long long bytes[kArrays] = {4LL * nl, 4LL * levels * nl, 4LL * nl, 4LL * nl,
                                     16LL * nl, 16LL * nl, 4LL * nl, 4LL * p.words * span,
@@ -262,7 +291,6 @@ struct Args {
   const int* sub_cls;
   int sub;
   unsigned char* scratch;
-  int retake;
 };
 
 // A leaf's survivor in one slot: the path it descends from, its
@@ -272,10 +300,14 @@ struct Slot {
   int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
 };
 
-// One block's view of its codeword.
-template <class Fam>
+// One block's view of its codeword: K1's (NT = 256, the bitonic prune
+// with K1's take-once rule) or K7's (NT = 1024, the prune by merge with the
+// _NEG re-take rule).
+template <class Fam, bool K7>
 struct Block {
   using S = typename Fam::State;
+  static constexpr int NT = K7 ? kThreadsK7 : kThreadsK1;
+  static constexpr int NWARPS = NT / 32;
   float* M;
   int* P;
   int* pc;
@@ -285,19 +317,34 @@ struct Block {
   int* par;
   int* W;  // word k of position i at W[k span + i]
   float* V;
-  unsigned long long* keys;  // the work array, as sort keys
+  unsigned long long* keys;  // the work array, as K1's sort keys
   int* tmp;                  // the work array, as staged words
+  int* SL;                   // the work array, as K7's ordered lists (the
+  int* R;                    // paths, list c from SL[c w]) and places
   S* X;                      // levels d >= 1
   const S* in;               // level 0: element (l, i) at in[l sl + i si]
   long long sl, si;
   const int* masks;
   const uint8_t* mask;
   const int* spc;
-  int* red;  // [kWarps]
-  int nl, NW, span, tid, lane, warp, retake;
+  int* red;    // [NWARPS]
+  int* flags;  // K7's prune: lists out of order, values above kNeg, re-take code
+  int nl, NW, span, tid, lane, warp;
 
   __device__ int bit_of(int pos, int l) const {
     return (W[(l >> 5) * span + pos] >> (l & 31)) & 1;
+  }
+
+  // the block's barrier: PTX's barrier.sync without .aligned, which a warp
+  // may reach split (a loop over paths or candidates leaves the warp that
+  // holds the last one split); __syncthreads is bar.sync, the aligned form
+  // (the CPU runner's __syncthreads counts threads the same way)
+  __device__ static void bar() {
+#ifdef __CUDA_ARCH__
+    asm volatile("barrier.sync 0;" ::: "memory");
+#else
+    __syncthreads();
+#endif
   }
 
   __device__ S* lvl(int d) const { return X + (size_t)nl * (span - (span >> (d - 1))); }
@@ -310,20 +357,20 @@ struct Block {
   __device__ int block_sum(int v) {
     v = __reduce_add_sync(kAll, v);
     if (lane == 0) red[warp] = v;
-    __syncthreads();
+    bar();
     int s = 0;
-    for (int q = 0; q < kWarps; ++q) s += red[q];
-    __syncthreads();
+    for (int q = 0; q < NWARPS; ++q) s += red[q];
+    bar();
     return s;
   }
 
   __device__ int block_min(int v) {
     v = __reduce_min_sync(kAll, v);
     if (lane == 0) red[warp] = v;
-    __syncthreads();
+    bar();
     int s = red[0];
-    for (int q = 1; q < kWarps; ++q) s = min(s, red[q]);
-    __syncthreads();
+    for (int q = 1; q < NWARPS; ++q) s = min(s, red[q]);
+    bar();
     return s;
   }
 
@@ -331,11 +378,11 @@ struct Block {
   __device__ void F(int d, int len, int w) {
     const int h = len >> 1, lh = log2i(h), n = w << lh;
     S* Y = lvl(d + 1);
-    for (int t = tid; t < n; t += kThreads) {
+    for (int t = tid; t < n; t += NT) {
       const int l = t >> lh, i = t & (h - 1);
       Y[t] = Fam::store(Fam::f(at(d, len, l, i), at(d, len, l, i + h)));
     }
-    __syncthreads();
+    bar();
   }
 
   // g from level d into level d + 1 (node at offset off, whose left half's
@@ -345,12 +392,12 @@ struct Block {
     const int h = len >> 1, lh = log2i(h), n = w << lh;
     S* Y = lvl(d + 1);
     const int* p = P + (d + 1) * nl;  // slots -> parent slots
-    for (int t = tid; t < n; t += kThreads) {
+    for (int t = tid; t < n; t += NT) {
       const int l = t >> lh, i = t & (h - 1);
       Y[t] = Fam::store(Fam::g(at(d, len, p[l], i), at(d, len, p[l], i + h), bit_of(off + i, l)));
     }
-    for (int l = tid; l < w; l += kThreads) P[d * nl + l] = p[l];
-    __syncthreads();
+    for (int l = tid; l < w; l += NT) P[d * nl + l] = p[l];
+    bar();
   }
 
   // the node at level d, offset off: left bits forked through the right
@@ -359,18 +406,18 @@ struct Block {
     const int h = len >> 1, lh = log2i(h);
     const int* p = P + (d + 1) * nl;  // right child's perm
     int* pd = P + d * nl;
-    for (int pair = warp; pair < (NW << lh); pair += kWarps) {
+    for (int pair = warp; pair < (NW << lh); pair += NWARPS) {
       const int k = pair >> lh, i = pair & (h - 1), j = 32 * k + lane;
       const int src = j < w ? p[j] : -1;
       const unsigned b = __ballot_sync(kAll, src >= 0 && bit_of(off + i, src));
       if (lane == 0) tmp[pair] = static_cast<int>(b) ^ W[k * span + off + h + i];
     }
-    for (int l = tid; l < w; l += kThreads) pc[l] = pd[p[l]];
-    __syncthreads();
-    for (int t = tid; t < (NW << lh); t += kThreads)
+    for (int l = tid; l < w; l += NT) pc[l] = pd[p[l]];
+    bar();
+    for (int t = tid; t < (NW << lh); t += NT)
       W[(t >> lh) * span + off + (t & (h - 1))] = tmp[t];
-    for (int l = tid; l < w; l += kThreads) pd[l] = pc[l];
-    __syncthreads();
+    for (int l = tid; l < w; l += NT) pd[l] = pc[l];
+    bar();
   }
 
   // The K (|x|, index)-smallest entries of each path l < w of the span-len
@@ -379,7 +426,7 @@ struct Block {
   // (|x| bits, index) in order, which is K1's first-index-on-ties rule.
   template <int K>
   __device__ void weakest(int d, int len, int w) {
-    for (int l = tid; l < w; l += kThreads) {
+    for (int l = tid; l < w; l += NT) {
       unsigned long long best[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) best[k] = ~0ull;
@@ -406,7 +453,7 @@ struct Block {
       }
       par[l] = neg;
     }
-    __syncthreads();
+    bar();
   }
 
   // Candidate c of path l of a leaf of `kind`: its metric delta. Sums run
@@ -460,25 +507,26 @@ struct Block {
     return (static_cast<unsigned long long>(~ord) << 32) | static_cast<unsigned>(t);
   }
 
-  // The prune of the T candidate values in V into pc / pv (slot -> code,
-  // value); returns the new width.
+  // K1's prune of the T candidate values in V into pc / pv (slot -> code,
+  // value): a bitonic sort of the keys, each candidate taken once; returns
+  // the new width.
   __device__ int prune(int T) {
     if (T <= nl) {  // every candidate survives, its code its slot
-      for (int t = tid; t < T; t += kThreads) {
+      for (int t = tid; t < T; t += NT) {
         pc[t] = t;
         pv[t] = V[t];
       }
-      __syncthreads();
+      bar();
       return T;
     }
     int n2 = 1;
     while (n2 < T) n2 <<= 1;
-    for (int t = tid; t < n2; t += kThreads)
+    for (int t = tid; t < n2; t += NT)
       keys[t] = t < T ? key_of(V[t], t) : (0xffffffffull << 32) | static_cast<unsigned>(t);
-    __syncthreads();
+    bar();
     for (int size = 2; size <= n2; size <<= 1) {
       for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int t = tid; t < (n2 >> 1); t += kThreads) {
+        for (int t = tid; t < (n2 >> 1); t += NT) {
           const int i = 2 * t - (t & (stride - 1)), j = i + stride;
           const unsigned long long x = keys[i], y = keys[j];
           if ((x > y) == ((i & size) == 0)) {
@@ -486,39 +534,129 @@ struct Block {
             keys[j] = x;
           }
         }
-        __syncthreads();
+        bar();
       }
     }
-    if (!retake) {
-      for (int r = tid; r < nl; r += kThreads) {
-        const int code = static_cast<int>(keys[r] & 0xffffffffu);
-        pc[r] = code;
-        pv[r] = V[code];
-      }
-    } else {
-      int k = 0;
-      for (int t = tid; t < T; t += kThreads) k += V[t] > kNeg;
-      const int kk = max(block_sum(k), 1);
-      for (int r = tid; r < min(kk, nl); r += kThreads) {
-        const int code = static_cast<int>(keys[r] & 0xffffffffu);
-        pc[r] = code;
-        pv[r] = V[code];
-      }
-      if (kk < nl) {  // the re-take rule fills the rest
-        int best = 0x7fffffff;
-        for (int r = tid; r < T; r += kThreads) {
-          const int code = static_cast<int>(keys[r] & 0xffffffffu);
-          if (r < kk || V[code] == kNeg) best = min(best, code);
-        }
-        best = block_min(best);
-        for (int r = kk + tid; r < nl; r += kThreads) {
-          pc[r] = best;
-          pv[r] = kNeg;
-        }
-      }
+    for (int r = tid; r < nl; r += NT) {
+      const int code = static_cast<int>(keys[r] & 0xffffffffu);
+      pc[r] = code;
+      pv[r] = V[code];
     }
-    __syncthreads();
+    bar();
     return nl;
+  }
+
+  // how many of the n entries of list c (C = 1 << lgc lists of w) from
+  // place a on, in rank order, beat candidate t of value v: a binary search
+  // (an entry's value read through its path)
+  __device__ int beaten_by(int c, int lgc, int w, int a, int n, float v, int t) const {
+    const int base = c * w + a;
+    int lo = 0;
+    while (n > 0) {
+      const int half = n >> 1, at = base + lo + half;
+      const int u = (SL[at] << lgc) | c;
+      const float o = V[u];
+      if (o > v || (o == v && u < t)) {
+        lo += half + 1;
+        n -= half + 1;
+      } else {
+        n = half;
+      }
+    }
+    return lo;
+  }
+
+  // K7's prune: top-nl of the T = w << lgc candidates of V into pc / pv by
+  // merging the C = 1 << lgc lists (list c: candidates (l, c), l < w),
+  // ranked by (value desc, code asc), with the _NEG re-take rule. A list
+  // in rank order (a bit's keep list after a prune) is taken as it is; a
+  // list out of order is ranked in runs of 32 paths and its runs merged by
+  // binary search; a candidate's rank is its place in its list plus, for
+  // each other list, a binary search for those that beat it.
+  __device__ void prune_merge(int w, int lgc) {
+    const int C = 1 << lgc, T = w << lgc;
+    unsigned bad = 0;
+    int live = 0;
+    for (int t = tid; t < T; t += NT) {
+      const float v = V[t];
+      live += v > kNeg;
+      if (t + C < T && v < V[t + C]) bad |= 1u << (t & (C - 1));
+    }
+    bad = __reduce_or_sync(kAll, bad);
+    live = __reduce_add_sync(kAll, live);
+    if (lane == 0) {
+      if (bad) atomicOr(reinterpret_cast<unsigned*>(&flags[0]), bad);
+      atomicAdd(&flags[1], live);
+    }
+    bar();
+    const unsigned unsorted = static_cast<unsigned>(flags[0]);
+    const int kk = max(flags[1], 1);
+    // each candidate's place in its list where the list is in rank order,
+    // else in its run of 32 paths; the lists (or runs) in rank order
+    for (int t = tid; t < T; t += NT) {
+      const int l = t >> lgc, c = t & (C - 1);
+      const float v = V[t];
+      int r = l;
+      if ((unsorted >> c) & 1) {
+        const int g = l & ~31, e = min(g + 32, w);
+        r = g;
+        for (int u = g; u < e; ++u) {
+          const float o = V[(u << lgc) | c];
+          r += (o > v) | ((o == v) & (u < l));
+        }
+      }
+      R[t] = r;
+      SL[c * w + r] = l;
+    }
+    bar();
+    if (unsorted && w > 32) {  // a list out of order: its runs merged
+      for (int t = tid; t < T; t += NT) {
+        const int l = t >> lgc, c = t & (C - 1);
+        if (!((unsorted >> c) & 1)) continue;
+        const float v = V[t];
+        const int g = l & ~31;
+        int r = R[t] - g;
+        for (int a = 0; a < w; a += 32)
+          if (a != g) r += beaten_by(c, lgc, w, a, min(32, w - a), v, t);
+        R[t] = r;
+      }
+      bar();
+      for (int t = tid; t < T; t += NT) {
+        const int l = t >> lgc, c = t & (C - 1);
+        if ((unsorted >> c) & 1) SL[c * w + R[t]] = l;
+      }
+      bar();
+    }
+    int best = kNoCode;
+    for (int t = tid; t < T; t += NT) {
+      const int c = t & (C - 1);
+      const float v = V[t];
+      int r = R[t];
+      for (int c2 = 0; c2 < C; ++c2)
+        if (c2 != c) r += beaten_by(c2, lgc, w, 0, w, v, t);
+      if (r < kk && r < nl) {
+        pc[r] = t;
+        pv[r] = v;
+      }
+      if (r < kk || v == kNeg) best = min(best, t);
+    }
+    if (kk < nl) {  // block-uniform: the re-take rule's candidate
+      best = __reduce_min_sync(kAll, best);
+      if (lane == 0) atomicMin(&flags[2], best);
+    }
+    bar();
+    if (kk < nl) {  // the re-take rule fills the rest
+      for (int r = kk + tid; r < nl; r += NT) {
+        pc[r] = flags[2];
+        pv[r] = kNeg;
+      }
+      bar();
+    }
+    if (tid == 0) {  // for the next prune, past at least one more barrier
+      flags[0] = 0;
+      flags[1] = 0;
+      flags[2] = kNoCode;
+    }
   }
 
   // Slot j's survivor after a prune of w2 slots (j < w2), for its bits
@@ -564,14 +702,14 @@ struct Block {
   __device__ void leaf(int d, int len, int off, int kind, int aux, int nc, int& w) {
     int* pd = P + d * nl;
     if (kind == K_RATE0) {
-      for (int l = tid; l < w; l += kThreads) {
+      for (int l = tid; l < w; l += NT) {
         float acc = 0.f;
         for (int i = 0; i < len; ++i) acc = acc + fminf(at(d, len, l, i), 0.f);
         M[l] = M[l] + acc;
         pd[l] = l;
       }
-      for (int t = tid; t < NW * len; t += kThreads) W[(t / len) * span + off + t % len] = 0;
-      __syncthreads();
+      for (int t = tid; t < NW * len; t += NT) W[(t / len) * span + off + t % len] = 0;
+      bar();
       return;
     }
     if (kind == K_RATE1 && len > 1) {
@@ -579,24 +717,30 @@ struct Block {
     } else if (kind == K_SPC) {
       weakest<4>(d, len, w);
     } else if (kind == K_ENUM) {
-      for (int l = tid; l < w; l += kThreads) {
+      for (int l = tid; l < w; l += NT) {
         float sa = 0.f;
         for (int i = 0; i < len; ++i) sa = sa + fabsf(at(d, len, l, i));
         ms[l] = sa;
       }
-      __syncthreads();
+      bar();
     }
     const int fz = kind == K_BIT && mask[off] != 0;
     const int T = w * nc;
-    for (int t = tid; t < T; t += kThreads) {
+    for (int t = tid; t < T; t += NT) {
       const int l = t / nc, c = t - l * nc;
       V[t] = M[l] + delta(kind, d, len, l, c, aux, fz);
     }
-    __syncthreads();
-    const int w2 = prune(T);
+    bar();
+    int w2;
+    if constexpr (K7) {  // K7's candidates: 2, 4 or 8 a path, w = L
+      prune_merge(w, log2i(nc));
+      w2 = nl;
+    } else {
+      w2 = prune(T);
+    }
     // decision bits: a warp per (word k, 32 positions), lane = slot 32 k + lane
     const int chunks = (len + 31) >> 5;
-    for (int pair = warp; pair < NW * chunks; pair += kWarps) {
+    for (int pair = warp; pair < NW * chunks; pair += NWARPS) {
       const int k = pair / chunks, i0 = (pair - k * chunks) << 5, j = 32 * k + lane;
       const Slot t = slot(j, w2, kind, len, aux, nc, fz);
       for (int i = i0; i < i0 + 32 && i < len; ++i) {
@@ -604,26 +748,29 @@ struct Block {
         if ((i & 31) == lane) W[k * span + off + i] = static_cast<int>(b);
       }
     }
-    for (int l = tid; l < w2; l += kThreads) {
+    for (int l = tid; l < w2; l += NT) {
       M[l] = pv[l];
       pd[l] = pc[l] / nc;
     }
-    __syncthreads();
+    bar();
     w = w2;
   }
 };
 
-template <class Fam>
-__global__ void __launch_bounds__(kThreads)
+template <class Fam, bool K7>
+__global__ void __launch_bounds__(K7 ? kThreadsK7 : kThreadsK1)
 wide_kernel(Args<typename Fam::State> a, Plan p) {
+  using Team = Block<Fam, K7>;
+  constexpr int NT = Team::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int spc[32];
-  __shared__ int red[kWarps];
+  __shared__ int red[kMaxWarps];
+  __shared__ int flags[3];
   const int b = blockIdx.x, tid = threadIdx.x;
   unsigned char* dev = a.scratch + (size_t)b * p.scratch;
   unsigned char* base[kArrays];
   for (int q = 0; q < kArrays; ++q) base[q] = (((p.in_dev >> q) & 1) ? dev : smem) + p.off[q];
-  Block<Fam> k;
+  Team k;
   k.M = reinterpret_cast<float*>(base[A_M]);
   k.P = reinterpret_cast<int*>(base[A_P]);
   k.pc = reinterpret_cast<int*>(base[A_PC]);
@@ -635,6 +782,9 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
   k.V = reinterpret_cast<float*>(base[A_V]);
   k.keys = reinterpret_cast<unsigned long long*>(base[A_WORK]);
   k.tmp = reinterpret_cast<int*>(base[A_WORK]);
+  const int t_max = p.nl * p.ncand;
+  k.SL = reinterpret_cast<int*>(base[A_WORK]);
+  k.R = reinterpret_cast<int*>(base[A_WORK]) + t_max;
   k.X = reinterpret_cast<typename Fam::State*>(dev);
   k.in = a.llr + b * a.sb;
   k.sl = a.sl;
@@ -643,18 +793,23 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
   k.mask = a.mask;
   k.spc = spc;
   k.red = red;
+  k.flags = flags;
   k.nl = p.nl;
   k.NW = p.words;
   k.span = p.span;
   k.tid = tid;
   k.lane = tid & 31;
   k.warp = tid >> 5;
-  k.retake = a.retake;
 
   if (tid < 32) spc[tid] = a.spc_tab[tid];
-  for (int t = tid; t < p.levels * p.nl; t += kThreads) k.P[t] = t % p.nl;
-  for (int l = tid; l < a.w_in; l += kThreads) k.M[l] = a.met_in[(size_t)b * a.w_in + l];
-  __syncthreads();
+  if (tid == 0) {
+    flags[0] = 0;
+    flags[1] = 0;
+    flags[2] = kNoCode;
+  }
+  for (int t = tid; t < p.levels * p.nl; t += NT) k.P[t] = t % p.nl;
+  for (int l = tid; l < a.w_in; l += NT) k.M[l] = a.met_in[(size_t)b * a.w_in + l];
+  Team::bar();
 
   int w = a.w_in;
   for (int q = 0; q < a.n_ops; ++q) {
@@ -680,11 +835,11 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
     }
   }
 
-  for (int t = tid; t < p.words * p.span; t += kThreads) {
+  for (int t = tid; t < p.words * p.span; t += NT) {
     const int kw = t / p.span, i = t - kw * p.span;
     a.bits[b * a.ob + kw * a.ok + i * a.oi] = k.W[t];
   }
-  for (int l = tid; l < a.w_out; l += kThreads) {
+  for (int l = tid; l < a.w_out; l += NT) {
     a.perm[(size_t)b * a.w_out + l] = k.P[l];
     a.met_out[(size_t)b * a.w_out + l] = k.M[l];
   }
@@ -712,17 +867,18 @@ bool bad_shape(int list_size, int span, int levels, int ncand) {
          levels > kMaxLevels || ncand < 1 || span > (1 << (kMaxLevels - 1));
 }
 
-template <class Fam>
+template <class Fam, bool K7>
 int launch(const Args<typename Fam::State>& a, int list_size, int span, int levels, int ncand,
            int batch, cudaStream_t stream) {
   const Plan p = make_plan(list_size, span, levels, ncand, sizeof(typename Fam::State),
                            smem_budget());
-  auto kernel = wide_kernel<Fam>;
+  auto kernel = wide_kernel<Fam, K7>;
   const size_t smem = static_cast<size_t>(p.smem);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch, kThreads, smem, stream>>>(a, p);
+  constexpr int threads = Block<Fam, K7>::NT;
+  kernel<<<batch, threads, smem, stream>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -759,10 +915,10 @@ int k1(const void* ops, int n_ops, const void* enum_masks, const void* spc_tab, 
   a.ob = 1;
   a.ok = (long long)span * batch;
   a.oi = batch;
-  return launch<Fam>(a, list_size, span, levels, ncand, batch, st);
+  return launch<Fam, false>(a, list_size, span, levels, ncand, batch, st);
 }
 
-// K7: input [B, L, M], bits [B, W, M], the _NEG re-take rule
+// K7: input [B, L, M], bits [B, W, M], the prune by merge
 template <class Fam>
 int k7(const void* ops, int n_ops, const void* spc_tab, const void* llr, const void* mask,
        const void* met, const void* sub_cls, int sub, void* bits, void* perm, void* met_out,
@@ -773,14 +929,13 @@ int k7(const void* ops, int n_ops, const void* spc_tab, const void* llr, const v
   a.mask = static_cast<const uint8_t*>(mask);
   a.sub_cls = static_cast<const int*>(sub_cls);
   a.sub = sub;
-  a.retake = 1;
   a.sb = (long long)list_size * chunk;
   a.sl = chunk;
   a.si = 1;
   a.ob = (long long)words * chunk;
   a.ok = chunk;
   a.oi = 1;
-  return launch<Fam>(a, list_size, chunk, log2_host(chunk) + 1, sub ? 8 : 2, batch, st);
+  return launch<Fam, true>(a, list_size, chunk, log2_host(chunk) + 1, sub ? 8 : 2, batch, st);
 }
 
 }  // namespace

@@ -41,19 +41,25 @@ positions). perm maps each output slot to the input slot it descends
 from. K7 takes any L >= 1 at any chunk: where one codeword's state fits
 shared memory, L = 2, 4, 8, 16, 32 in kernels of their own size (library
 large_scl_chunk), every other L in the kernel of its capacity (4, 32, 64
-or 128) with the list size at run time (library large_scl_lists;
+or 128) with the list size at run time (library large_scl_lists: a warp a
+codeword up to 32 paths, a block of 2 x capacity threads above;
 `scl_library` picks); every other (L, chunk) in csrc/scl_wide.cu, a block
-a codeword with the LLR levels in a device-memory scratch, which walks
-the chunk as a schedule (scl_chunk_schedule, widened by `wide_chunk_ops`).
+of 1024 threads a codeword with the LLR levels in a device-memory
+scratch, which walks the chunk as a schedule (scl_chunk_schedule,
+widened by `wide_chunk_ops`).
 
 A prune round ranks candidates by (value desc, flat code l*C + c asc) and
 leaves _NEG on the candidate it took, as the TPU kernel's iterative
 extraction does: once only values <= _NEG remain (inactive list
 slots), a taken candidate can be taken again. This shows only in inactive
-slots. The kernel computes the same result by rank (each candidate counts
-the candidates that beat it) with the re-take rule written out;
-`prune_by_rank` is that computation in torch ops, held against the
-iterative prune by the CPU tests, and the plain version prunes with it.
+slots. The kernels compute the same result by rank with the re-take rule
+written out: up to 32 paths each candidate counts the candidates that
+beat it; above, the C lists of a leaf (list c: the candidates (l, c) in
+path order) are merged, a list already in rank order (a bit's keep list:
+every prune leaves its slots in rank order) taken as it is, the others
+ranked in runs of 32 paths and merged by binary search. `prune_by_rank`
+is the rank computation in torch ops, held against the iterative prune
+by the CPU tests, and the plain version prunes with it.
 
 `masked_sc_chunk` and `masked_scl_chunk` run their plain versions for CPU
 tensors and the CUDA kernels for CUDA tensors, never one in place of the
@@ -356,13 +362,15 @@ def _bind_scl(lib):
 
 def scl_chunk_smem(n_list: int, m_len: int, sub: int = 0, direct: bool = False) -> int:
     """Shared-memory bytes of one codeword of the shared-memory K7 kernels
-    besides their fixed bookkeeping: the LLR levels (8 L M bytes, or 4 L M
-    with level 0 read from device memory: `direct`), W words of packed bits
-    a position (those of the capacity that serves L: 1 up to 32 paths, 2 up
-    to 64, 4 up to MAX_LIST; n_words(L) above, which those kernels do not
-    take), the mask bits and the class codes. The kernels compute the same
-    (csrc/large_scl_lists.cu dynamic_bytes) and read level 0 from device
-    memory where the staged state exceeds MAX_SCL_SMEM."""
+    besides their fixed bookkeeping (the perms, the candidates and, above
+    32 paths, the merge's ordered lists: static, beside these): the LLR
+    levels (8 L M bytes, or 4 L M with level 0 read from device memory:
+    `direct`), W words of packed bits a position (those of the capacity
+    that serves L: 1 up to 32 paths, 2 up to 64, 4 up to MAX_LIST;
+    n_words(L) above, which those kernels do not take), the mask bits and
+    the class codes. The kernels compute the same (csrc/large_scl_lists.cu
+    dynamic_bytes) and read level 0 from device memory where the staged
+    state exceeds MAX_SCL_SMEM."""
     words = (1 if n_list <= 32 else 2 if n_list <= 64 else 4 if n_list <= MAX_LIST
              else n_words(n_list))
     return ((4 if direct else 8) * n_list * m_len + 4 * words * m_len

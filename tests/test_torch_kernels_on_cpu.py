@@ -5,14 +5,18 @@ thread per CUDA thread), against their plain versions.
 Small shapes, inputs from a seed with numpy: integer LLRs in [-2, 2]
 (ties, signed zeros through f) and Gaussian ones; K6 on masks with rate-0
 runs, all-frozen, all-free and random chunks; K7 at every list size with
-and without sub-blocks of every class (1 to 64 paths: the kernels of a
-fixed list size, the run-time sizes 1 and 3 and two words at 64), on rows
-with one live path and with 0 to L - 1 live paths at random slots, and at
-L = 100 and 128 on a chunk of 256 whose input stays in device memory. Tolerance: none for K6 (x and u
-bit-equal) and for K7's bits and perms; K7 metrics exactly equal in char,
-within 1e-4 in float32 (the card's tolerance; these integer and Gaussian
-inputs give equal metrics). On the card `chip_smoke.py` holds the nvcc
-builds to the same rules.
+and without sub-blocks of every class (1 to 100 paths: the kernels of a
+fixed list size, the run-time sizes 1 and 3, and the block kernels above
+32 paths: W = 2 words at 33 (one path in the second) and 64, W = 4 at
+100 (four in the last)), on rows with one live path and with 0 to L - 1
+live paths at random slots, and at L = 100 and 128 on a chunk of 256
+whose input stays in device memory; the block kernels' prune by merge at
+L = 33, 100 and 128 on rows entering in rank order with a _NEG tail and
+out of rank order with _NEG at random slots, on all-frozen and rate-0-run
+masks. Tolerance: none for K6 (x and u bit-equal) and for K7's bits and
+perms; K7 metrics exactly equal in char, within 1e-4 in float32 (the
+card's tolerance; these integer and Gaussian inputs give equal metrics).
+On the card `chip_smoke.py` holds the nvcc builds to the same rules.
 """
 
 import numpy as np
@@ -90,52 +94,84 @@ _CLASS_MASK = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1, 1, 1, 0, 1, 0, 0, 0,
                         1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0], np.uint8)
 
 
-def _check_k7(k7, family, n_list, mask_np, sub, n_batch, rng):
-    """K7's CPU build against its plain version on one mask, integer and
-    Gaussian LLRs, a row with one live path and rows with 0 to L - 1."""
+def _k7_call(k7, family, llr, mask_np, met, sub, what):
+    """One call of K7's CPU build against its plain version."""
     from polar_codes_torch.models.large import _classify_chunks
 
-    m_len = mask_np.size
+    n_batch, n_list, m_len = llr.shape
     mask = torch.as_tensor(mask_np)
     sub_cls = (torch.as_tensor(_classify_chunks(list(mask_np.reshape(-1, sub))))
                if sub else None)
     words = lk.n_words(n_list)
+    spc, none = lk._scl_consts(torch.device("cpu"))
+    bits = torch.empty((n_batch, m_len) if words == 1 else (n_batch, words, m_len),
+                       dtype=torch.int32)
+    perm = torch.empty((n_batch, n_list), dtype=torch.int32)
+    m_out = torch.empty((n_batch, n_list), dtype=torch.float32)
+    assert k7(n_list, m_len, sub)(None, 0, spc.data_ptr(), llr.data_ptr(),
+              mask.data_ptr(), met.data_ptr(),
+              (none if sub_cls is None else sub_cls).data_ptr(), sub, bits.data_ptr(),
+              perm.data_ptr(), m_out.data_ptr(), n_list, m_len, n_batch,
+              lk._FAMILIES[family].code, None) == 0
+    pb, pp, pm = lk.masked_scl_chunk_plain(llr, mask, met, sub_cls, family)
+    assert torch.equal(bits, pb), what
+    assert torch.equal(perm, pp), what
+    if family == "char":
+        assert torch.equal(m_out, pm), what
+    else:
+        torch.testing.assert_close(m_out, pm, rtol=1e-4, atol=1e-4)
+
+
+def _check_k7(k7, family, n_list, mask_np, sub, n_batch, rng):
+    """K7's CPU build against its plain version on one mask, integer and
+    Gaussian LLRs, a row with one live path and rows with 0 to L - 1."""
     for kind in ("ints", "gauss"):
-        llr = torch.as_tensor(_llr(rng, (n_batch, n_list, m_len), family, kind))
+        llr = torch.as_tensor(_llr(rng, (n_batch, n_list, mask_np.size), family, kind))
         met = rng.integers(-3, 1, (n_batch, n_list)).astype(np.float32)
         met[0, 1:] = lk._NEG  # one live path
         for row in range(1, n_batch):
             met[row, rng.permutation(n_list)[rng.integers(0, n_list):]] = lk._NEG
-        met = torch.as_tensor(met)
-        spc, none = lk._scl_consts(torch.device("cpu"))
-        bits = torch.empty((n_batch, m_len) if words == 1 else (n_batch, words, m_len),
-                           dtype=torch.int32)
-        perm = torch.empty((n_batch, n_list), dtype=torch.int32)
-        m_out = torch.empty((n_batch, n_list), dtype=torch.float32)
-        assert k7(n_list, m_len, sub)(None, 0, spc.data_ptr(), llr.data_ptr(),
-                  mask.data_ptr(), met.data_ptr(),
-                  (none if sub_cls is None else sub_cls).data_ptr(), sub, bits.data_ptr(),
-                  perm.data_ptr(), m_out.data_ptr(), n_list, m_len, n_batch,
-                  lk._FAMILIES[family].code, None) == 0
-        pb, pp, pm = lk.masked_scl_chunk_plain(llr, mask, met, sub_cls, family)
-        assert torch.equal(bits, pb), kind
-        assert torch.equal(perm, pp), kind
-        if family == "char":
-            assert torch.equal(m_out, pm), kind
-        else:
-            torch.testing.assert_close(m_out, pm, rtol=1e-4, atol=1e-4)
+        _k7_call(k7, family, llr, mask_np, torch.as_tensor(met), sub, kind)
 
 
 # L = 1 and 3 run in the capacity-2 and -4 kernels with the list size at
-# run time, L = 64 in capacity 64 with two words a position; the CPU runner
-# puts a barrier at every warp sync and cannot show a race (chip_smoke.py
-# phase 40 holds the nvcc build on the card)
+# run time, L = 33 and 64 in capacity 64's block with two words a position,
+# L = 100 in capacity 128's with four; the CPU runner puts a barrier at
+# every warp sync and cannot show a race (chip_smoke.py phase 40 holds the
+# nvcc build on the card)
 @pytest.mark.parametrize("sub", [0, 4])
-@pytest.mark.parametrize("n_list", lk.SCL_LISTS + (1, 3, 64))
+@pytest.mark.parametrize("n_list", lk.SCL_LISTS + (1, 3, 64, 33, 100))
 @pytest.mark.parametrize("family", FAMILIES)
 def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
     rng = np.random.default_rng(100 * n_list + sub + len(family))
     _check_k7(k7, family, n_list, _CLASS_MASK, sub, 2, rng)
+
+
+# the merge's paths: a row in rank order with a _NEG tail (each bit's keep
+# list taken as it is), a row out of rank order with _NEG at random slots
+# (every list ranked in runs of 32 and the runs merged) and a row with one
+# live path; all frozen (the re-take rule at every bit, keep lists out of
+# order) or rate-0 runs (sub-blocks of every class with sub = 4)
+_MERGE_MASKS = {"all frozen": np.ones(16, np.uint8),
+                "rate-0 runs": np.array([1, 1, 1, 1, 0, 1, 1, 0, 0, 0, 1, 1, 1, 1, 1, 1,
+                                         1, 0, 1, 0, 0, 0, 0, 0, 1, 1, 0, 1, 0, 0, 0, 0],
+                                        np.uint8)}
+
+
+@pytest.mark.parametrize("family,n_list,mask,sub", [
+    ("float32", 128, "rate-0 runs", 4), ("char", 128, "all frozen", 0),
+    ("char", 100, "rate-0 runs", 0), ("float32", 33, "all frozen", 0),
+    ("char", 33, "rate-0 runs", 4)])
+def test_k7_block_prune_by_merge_on_cpu(k7, family, n_list, mask, sub):
+    rng = np.random.default_rng(7 * n_list + sub + len(family))
+    mask_np = _MERGE_MASKS[mask]
+    met = rng.integers(-6, 1, (3, n_list)).astype(np.float32)
+    met[0] = -np.sort(-met[0])
+    met[0, rng.integers(1, n_list):] = lk._NEG  # in rank order, then _NEG
+    met[1, rng.random(n_list) < 0.3] = lk._NEG  # out of rank order
+    met[2, 1:] = lk._NEG  # one live path
+    llr = torch.as_tensor(_llr(rng, (3, n_list, mask_np.size), family, "ints"))
+    _k7_call(k7, family, llr, mask_np, torch.as_tensor(met), sub, mask)
 
 
 @pytest.mark.slow

@@ -9,10 +9,14 @@ at L = 160 for ~100 s). Then the device-memory kernel's CUDA source
 (csrc/scl_wide.cu), built for the CPU by ops/_emu.py, against the plain
 versions: K1 at L = 129 and 160 on every leaf kind and on a branched
 subtree (span <= 32, B <= 3), entered at one path and at L, a family each
-case; K7 at L = 129 and 160 on chunks of 32 and 64, with and without
-sub-blocks of every class, all live and one live path (the _NEG re-take
-rule), a family each. Plus the wrappers' routing: which shapes the
-shared-memory kernels keep and which go to device memory.
+case; K7 at L = 129, 160 and 256 on chunks of 32 and 64, with and
+without sub-blocks of every class, all live and one live path (the _NEG
+re-take rule), a family each, and its prune by merge on rows entering in
+rank order with a _NEG tail and out of rank order with _NEG at random
+slots, on an all-frozen chunk and on one with rate-0 runs and every
+sub-block class. Plus the wrappers' routing: which shapes the
+shared-memory kernels keep and which go to device memory, and the one
+plan of the device-memory kernel's two entries.
 
 Inputs from numpy seeds: CRC-coded blocks through BPSK/AWGN ("gauss"), and
 the same rounded to integers in [-2, 2] ("ints": metric ties, exact zeros).
@@ -216,7 +220,7 @@ _K7_MASKS = {
 }
 
 
-@pytest.mark.parametrize("n_list,family", [(129, "float32"), (160, "char")])
+@pytest.mark.parametrize("n_list,family", [(129, "float32"), (160, "char"), (256, "float32")])
 def test_k7_wide_source_on_cpu(wide, n_list, family):
     rng = np.random.default_rng(n_list + len(family))
     for m_len, sub, how in ((64, 16, "live"), (32, 16, "one"), (32, 0, "live")):
@@ -230,6 +234,48 @@ def test_k7_wide_source_on_cpu(wide, n_list, family):
         got = lk.launch_scl_wide(wide, llr, mask, met, sub_cls, family)
         want = lk.masked_scl_chunk_plain(llr, mask, met, sub_cls, family)
         _equal(f"chunk {m_len}, sub {sub}, {how}", got, want)
+
+
+@pytest.mark.parametrize("n_list,family,mask", [(129, "char", "all frozen"),
+                                                (256, "char", "classes")])
+def test_k7_wide_prune_by_merge_on_cpu(wide, n_list, family, mask):
+    """Rows entering in rank order with a _NEG tail (each bit's keep list
+    taken as it is) and out of rank order with _NEG at random slots (each
+    list ranked in runs of 32 paths, the runs merged); an all-frozen chunk
+    (the re-take rule at every bit) or one with rate-0 runs and every
+    sub-block class."""
+    rng = np.random.default_rng(3 * n_list + len(mask))
+    m_len = 32
+    mask_np = np.ones(m_len, np.uint8) if mask == "all frozen" else _K7_MASKS[32]
+    sub_cls = None if mask == "all frozen" else torch.as_tensor(
+        _classify_chunks(list(mask_np.astype(bool).reshape(-1, 16))))
+    met = rng.integers(-6, 1, (2, n_list)).astype(np.float32)
+    met[0] = -np.sort(-met[0])
+    met[0, rng.integers(1, n_list):] = NEG  # in rank order, then _NEG
+    met[1, rng.random(n_list) < 0.3] = NEG  # out of rank order
+    llr = torch.as_tensor(rng.integers(-2, 3, (2, n_list, m_len)).astype(np.float32))
+    met = torch.as_tensor(met)
+    got = lk.launch_scl_wide(wide, llr, torch.as_tensor(mask_np), met, sub_cls, family)
+    _equal(mask, got, lk.masked_scl_chunk_plain(llr, torch.as_tensor(mask_np), met, sub_cls,
+                                                family))
+
+
+def test_wide_one_plan_for_k1_and_k7(wide):
+    """K1 and K7 share one plan: every LLR level d >= 1 in the device
+    scratch, the bookkeeping in shared memory, and a work array that holds
+    K1's sort keys (8 bytes a candidate, to a power of two) and K7's merge
+    (12 bytes a candidate). K7's char family (f32 state) plans as float32;
+    there is no other plan code."""
+    f32, char = kbl.WIDE_FAMILY_CODES["float32"], kbl.WIDE_FAMILY_CODES["chunk_char"]
+    for n_list, m_len in ((129, 64), (256, 256), (128, 512), (64, 1024)):
+        levels, n_cand = m_len.bit_length(), 8
+        plan = kbl.wide_plan(wide, n_list, m_len, levels, n_cand, f32)
+        assert plan == kbl.wide_plan(wide, n_list, m_len, levels, n_cand, char)
+        assert plan[1] == -(-n_list * (m_len - 1) * 4 // 16) * 16  # levels only in device memory
+        n_t = n_list * n_cand
+        assert 16 * n_t + 4 * levels * n_list < plan[0] <= 232448 - 1024
+    with pytest.raises(ValueError, match="no device-memory plan"):
+        kbl.wide_plan(wide, 256, 256, 9, 8, max(kbl.WIDE_FAMILY_CODES.values()) + 1)
 
 
 def test_wide_routing_and_plan(wide):
