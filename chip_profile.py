@@ -233,6 +233,10 @@ def main():
         k7_ab(card, torch, dev, gen, sources)
     if "k7_lists_ab" in parts:
         k7_lists_ab(card, torch, dev, gen, sources)
+    if "k1_lists_ab" in parts:
+        k1_lists_ab(card, torch, dev, gen, sources)
+    if "k1_wide_ops" in parts:
+        k1_wide_ops(card, torch, dev, gen, sources)
 
 
 def kernel_launches():
@@ -636,6 +640,243 @@ def k7_lists_ab(card, torch, dev, gen, sources, rounds=4):
                               "decode_ms": row, "card": card}), flush=True)
 
 
+def _wide_launcher_before_strides(torch, lib):
+    """K1's entry of an scl_wide build without the input strides (llr
+    [w_in, span, B] contiguous): launch(sched, llr, metrics) -> (bits,
+    perm, metrics), as launch_wide."""
+    import ctypes
+
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    fn = lib.scl_subtree_wide
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.scl_wide_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.scl_wide_plan.restype = ctypes.c_int
+    chunk = lib.masked_scl_chunk_wide  # K7's entry, unchanged
+    chunk.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    chunk.restype = ctypes.c_int
+
+    def launch(sched, llr, metrics):
+        llr = llr.contiguous()
+        fam, dev, n_batch = kbl.FAMILIES[llr.dtype], llr.device, llr.shape[-1]
+        ops, masks, spc = sched.device_consts(dev)
+        ncand = max(1, int(sched.ops[:, 6].max()))
+        scratch = kbl.wide_scratch(lib, dev, n_batch, sched.list_size, sched.span,
+                                   sched.levels, ncand, fam.code, "scl_subtree (older)")
+        words = kbl.n_words(sched.list_size)
+        shape = (sched.span, n_batch) if words == 1 else (words, sched.span, n_batch)
+        bits = torch.empty(shape, dtype=torch.int32, device=dev)
+        perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
+        met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
+        err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
+                 llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
+                 met.data_ptr(), scratch.data_ptr(), sched.list_size, sched.w_in,
+                 sched.w_out, sched.span, sched.levels, ncand, n_batch, fam.code,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"older scl_subtree_wide failed: CUDA error {err}")
+        return bits, perm, met
+
+    return launch
+
+
+def k1_lists_ab(card, torch, dev, gen, sources, rounds=4):
+    """K1 above 32 paths: this tree's scl_subtree and scl_wide libraries
+    against the older sources of the same names in `sources`, in one
+    process, on the same calls in rounds of alternating order (a set's
+    calls back to back, ms a call and a set): the K1 calls of (1024, 512)
+    CRC16 CA-SCL decodes at L = 33 and 64 (B = 1024) and 100 and 128 (B =
+    256) in float32, and at L = 64 and 128 in int8 and bf16 too; at L =
+    256 (B = 256, every family), 512 (B = 64) and 128 at kernel_span 512
+    (B = 256), from device memory; the 30 pure leaves of a (32768, 16384)
+    CA-SCL-256 tree decode (B = 32) and the 58 pure chunks of a CA-SCL-64
+    scan decode (B = 128). Beside them this tree's scl_wide on the L <= 128
+    calls at span 128, and on the device-memory calls this tree's scl_wide
+    built with K1's block at the other two of 256, 512 and 1024 threads;
+    and K7's calls of the CA-SCL-256 scan decode through each tree's
+    scl_wide.
+    Every build's outputs equal this tree's. Then whole decodes with each
+    tree's pair of libraries: (1024, 512) CA-SCL-64 (B = 1024) and -256 (B
+    = 256), (32768, 16384) CA-SCL-64 (B = 128) and -256 (B = 32) on both
+    schedules."""
+    import ctypes
+    import hashlib
+    import re
+    from pathlib import Path
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    if sorted(Path(s).stem for s in sources) != ["scl_subtree", "scl_wide"]:
+        raise SystemExit("k1_lists_ab takes an older scl_subtree.cu and scl_wide.cu")
+    nvcc = _build.nvcc_path()
+    this_wide = (_build.CSRC / "scl_wide.cu").read_text()
+    builds = [(Path(src).stem, Path(src).resolve().read_text(), "old") for src in sources]
+    size = re.findall(r"constexpr int kThreadsK1 = (\d+);", this_wide)
+    if len(size) != 1:
+        raise SystemExit("k1_lists_ab: kThreadsK1 not found in csrc/scl_wide.cu")
+    sizes = [t for t in (256, 512, 1024) if t != int(size[0])]
+    for threads in sizes:  # K1's block of this tree's scl_wide at another size
+        text = this_wide.replace(f"constexpr int kThreadsK1 = {size[0]};",
+                                 f"constexpr int kThreadsK1 = {threads};")
+        builds.append(("scl_wide", text, f"nt{threads}"))
+    libs, procs = {}, []
+    for stem, text, label in builds:
+        key = hashlib.sha256((text + repr((_build.NVCC_FLAGS, nvcc))).encode()).hexdigest()[:16]
+        src = _build.BUILD / f"{stem}_ab-{key}.cu"
+        out = _build.BUILD / f"lib{stem}_ab-{key}.so"
+        src.write_text(text)
+        procs.append((stem, label, out, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for stem, label, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {stem} ({label}):\n{log}")
+        libs[(stem, label)] = ctypes.CDLL(str(out))
+    new = {name: _build.load(name) for name in ("scl_subtree", "scl_wide")}
+    old = {name: libs[(name, "old")] for name in new}
+    old_wide = _wide_launcher_before_strides(torch, old["scl_wide"])
+    arms = {  # the launch of each build (the older arm is given contiguous inputs)
+        "shared": {"new": lambda c: kbl.launch(new["scl_subtree"], *c),
+                   "old": lambda c: kbl.launch(old["scl_subtree"], *c),
+                   "new_scl_wide": lambda c: kbl.launch_wide(new["scl_wide"], *c)},
+        "wide": {"new": lambda c: kbl.launch_wide(new["scl_wide"], *c),
+                 "old": lambda c: old_wide(*c),
+                 **{f"new_{label}": (lambda c, _l=lib: kbl.launch_wide(_l, *c))
+                    for (stem, label), lib in libs.items()
+                    if stem == "scl_wide" and label != "old"}},
+    }
+    det = CRC16()
+    codes = {}
+
+    def channel(n_len, k_len, n_batch):
+        if n_len not in codes:
+            fz = frozen_bits(n_len, k_len, 0.0, "BB")
+            codes[n_len] = (fz, PolarEncoder(n_len, fz, detector=det, device=dev))
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (1.5 / 10.0) * k_len / n_len)
+        info = torch.randint(0, 2, (n_batch, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        return Bpsk().demodulate(chan.transmit(Bpsk().modulate(codes[n_len][1].encode(info)),
+                                               gen))
+
+    def scl_calls(n_list, n_batch, dtype, span=None):
+        x = channel(N_LEN, K_LEN, n_batch)
+        if dtype == torch.int8:
+            x = torch.clamp(torch.round(x * AMPL), -127, 127).to(torch.int8)
+        calls = []
+        SCLDecoder(N_LEN, codes[N_LEN][0], list_size=n_list, detector=det, dtype=dtype,
+                   kernel_span=span, device=dev,
+                   subtree_fn=lambda *a: calls.append(a) or kbl.scl_subtree(*a)
+                   ).decode_packed(x)
+        return calls
+
+    sets = {}  # name: (arm, calls, batch)
+    fams = {"float32": torch.float32, "int8": torch.int8, "bf16": torch.bfloat16}
+    for n_list, n_batch, kinds in ((33, 1024, ("float32",)), (64, 1024, tuple(fams)),
+                                   (100, 256, ("float32",)), (128, 256, tuple(fams))):
+        for kind in kinds:
+            sets[f"L{n_list}_{kind}"] = ("shared", scl_calls(n_list, n_batch, fams[kind]),
+                                         n_batch)
+    for kind in fams:
+        sets[f"L256_{kind}"] = ("wide", scl_calls(256, 256, fams[kind]), 256)
+    sets["L512_float32"] = ("wide", scl_calls(512, 64, torch.float32), 64)
+    sets["L128_span512_float32"] = ("wide", scl_calls(128, 256, torch.float32, 512), 256)
+    n_len, k_len, chunk = LARGE_SCL
+    for name, n_list, n_batch, schedule in (("tree_leaves_L256", 256, 32, "tree"),
+                                            ("pure_chunks_L64", 64, 128, "scan")):
+        x = channel(n_len, k_len, n_batch)
+        calls = []
+        LargeSCLDecoder(n_len, codes[n_len][0], list_size=n_list, detector=det, chunk=chunk,
+                        subblock=16, schedule=schedule, device=dev,
+                        subtree_fn=lambda *a, _c=calls: _c.append(a) or kbl.scl_subtree(*a)
+                        ).decode_packed(x)
+        sets[name] = ("wide" if n_list > kbl.MAX_LIST else "shared", calls, n_batch)
+    for name, (kind, calls, _) in sets.items():
+        for c in calls:
+            if (kbl.shared_bytes(new["scl_subtree"], c[0], kbl.family(c[1].dtype)) < 0) != (
+                    kind == "wide"):
+                raise SystemExit(f"k1_lists_ab: a {name} call is not served by {kind}")
+            want = arms[kind]["new"](c)
+            for label, fn in arms[kind].items():
+                if label != "new" and not all(torch.equal(g, v) for g, v in zip(fn(c), want)):
+                    raise SystemExit(f"k1_lists_ab: {label} differs from this tree on {name}")
+    times = {name: {label: [] for label in arms[kind]} for name, (kind, _, _) in sets.items()}
+    for rnd in range(rounds):
+        for name, (kind, calls, _) in sets.items():
+            dense = [(sched, x.contiguous(), m) for sched, x, m in calls]
+            labels = list(arms[kind]) if rnd % 2 == 0 else list(arms[kind])[::-1]
+            for label in labels:
+                fn, use = arms[kind][label], dense if label == "old" else calls
+                times[name][label].append(
+                    time_cuda(lambda: [fn(c) for c in use], warmup=1, reps=3))
+            del dense
+    # K7's entry of the same library (its prune restructured around K1's):
+    # the 70 K7 calls of the CA-SCL-256 scan decode, each tree's build
+    k7_calls = []
+    LargeSCLDecoder(n_len, codes[n_len][0], list_size=256, detector=det, chunk=chunk,
+                    subblock=16, device=dev,
+                    chunk_fn=lambda *a, **kw: k7_calls.append((a, kw)) or
+                    lk.masked_scl_chunk(*a, **kw)).decode_packed(channel(n_len, k_len, 32))
+    k7_times = {"new": [], "old": []}
+    for rnd in range(rounds):
+        for label in (("new", "old") if rnd % 2 == 0 else ("old", "new")):
+            lib = new["scl_wide"] if label == "new" else old["scl_wide"]
+            k7_times[label].append(time_cuda(
+                lambda: [lk.launch_scl_wide(lib, *a, **kw) for a, kw in k7_calls],
+                warmup=1, reps=3) / len(k7_calls))
+    print(json.dumps({"k1_lists_ab": "k7_L256_scan_calls", "calls": len(k7_calls),
+                      "batch": 32, "ms_per_call": k7_times, "card": card}), flush=True)
+    for name, (kind, calls, n_batch) in sets.items():
+        print(json.dumps({"k1_lists_ab": name, "kernel": kind, "calls": len(calls),
+                          "batch": n_batch, "ms_per_set": times[name],
+                          "ms_per_call": {k: [t / len(calls) for t in v]
+                                          for k, v in times[name].items()},
+                          "card": card}), flush=True)
+
+    decode = {}
+    for name, n_list, n_batch, n_len in (("cascl64_n1024", 64, 1024, N_LEN),
+                                         ("cascl256_n1024", 256, 256, N_LEN),
+                                         ("cascl64", 64, 128, LARGE_SCL[0]),
+                                         ("cascl256", 256, 32, LARGE_SCL[0])):
+        x = channel(n_len, LARGE_SCL[1] if n_len != N_LEN else K_LEN, n_batch)
+        for schedule in ("scan", "tree") if n_len != N_LEN else (None,):
+            if schedule is None:
+                dec = SCLDecoder(n_len, codes[n_len][0], list_size=n_list, detector=det,
+                                 device=dev)
+                label = name
+            else:
+                dec = LargeSCLDecoder(n_len, codes[n_len][0], list_size=n_list, detector=det,
+                                      chunk=chunk, subblock=16, schedule=schedule, device=dev)
+                label = f"{name}_{schedule}"
+            row = decode.setdefault(label, {"new": [], "old": []})
+            launch_wide = kbl.launch_wide
+            for rnd in range(rounds):
+                for arm in (("new", "old") if rnd % 2 == 0 else ("old", "new")):
+                    _build._LIBS.update(new if arm == "new" else old)
+                    if arm == "old":  # the older entry, on the copy its glue made
+                        kbl.launch_wide = lambda _lib, *c: old_wide(*c)
+                    try:
+                        row[arm].append(time_cuda(lambda: dec.decode(x), warmup=1, reps=3))
+                    finally:
+                        _build._LIBS.update(new)
+                        kbl.launch_wide = launch_wide
+            print(json.dumps({"k1_lists_ab_decode": label, "batch": n_batch,
+                              "decode_ms": row, "card": card}), flush=True)
+
+
 def large_paths(card, torch, dev, gen):
     """Profile the large-N decodes, float32 and int8, and split each into
     its layers."""
@@ -864,16 +1105,17 @@ K1_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "leaf rate0", 4: "leaf rate1", 5: "
             14: "G at level 0"}
 
 
-def profile_build(name, macro):
-    """csrc/<name>.cu built with -D<macro> (its clock64 probes) into
-    build/lib<name>_profile-<hash>.so, loaded."""
+def profile_build(name, macro, src=None):
+    """csrc/<name>.cu (or the source file `src`) built with -D<macro> (its
+    clock64 probes) into build/lib<name>_profile-<hash>.so, loaded."""
     import ctypes
     import hashlib
+    from pathlib import Path
 
     from polar_codes_torch.ops import _build
 
     nvcc = _build.nvcc_path()
-    src = _build.CSRC / f"{name}.cu"
+    src = _build.CSRC / f"{name}.cu" if src is None else Path(src).resolve()
     flags = (*_build.NVCC_FLAGS, f"-D{macro}")
     key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
     out = _build.BUILD / f"lib{name}_profile-{key}.so"
@@ -888,12 +1130,14 @@ def profile_build(name, macro):
 
 def k1_ops(card, torch, dev, frozen, llr):
     """Where a K1 call's time goes, per codeword: K1 built with -DK1_PROFILE
-    (clock64 probes, summed by lane 0 of every warp; csrc/scl_subtree.cu)
-    on the two calls of one float32 CA-SCL-8 decode at B = 181 and 2048,
-    and on the large-N pure chunks' one-leaf span-256 schedules at B = 128.
-    Prints cycles and ops per codeword by op kind and leaf phase ("F" and
-    "G" include their level-0 calls, the leaf kinds include their
-    phases, "schedule" is the whole call after the launch)."""
+    (clock64 probes, summed once a codeword; csrc/scl_subtree.cu) on the
+    two calls of one float32 CA-SCL-8 decode at B = 181 and 2048, on the
+    large-N pure chunks' one-leaf span-256 schedules at B = 128, and on
+    the eight calls of a CA-SCL-64 (B = 1024) and a CA-SCL-128 (B = 256)
+    decode, summed over the decode. Prints cycles and ops per codeword by
+    op kind and leaf phase ("F" and "G" include their level-0 calls, the
+    leaf kinds include their phases, "schedule" is the whole call after
+    the launch)."""
     import ctypes
 
     from polar_codes_torch.models.detectors import CRC16
@@ -910,22 +1154,29 @@ def k1_ops(card, torch, dev, frozen, llr):
     dec = SCLDecoder(N_LEN, frozen, list_size=LIST, detector=CRC16(), device=dev,
                      subtree_fn=lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a))
     dec.decode_packed(llr)
-    runs = [(f"N={N_LEN} CA-SCL-8 call {i}, w {s.w_in}->{s.w_out}", s, x[..., :b].contiguous(),
-             m[:b].contiguous()) for b in (181, BATCH) for i, (s, x, m) in enumerate(calls)]
+    runs = [(f"N={N_LEN} CA-SCL-8 call {i}, w {s.w_in}->{s.w_out}",
+             [(s, x[..., :b].contiguous(), m[:b].contiguous())])
+            for b in (181, BATCH) for i, (s, x, m) in enumerate(calls)]
     gen = torch.Generator(device=dev).manual_seed(11)
     for kind in (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC):
         sched = scl_kernel_bl.build_schedule(_sub_leaf(kind, 256), LIST, LIST)
         x = torch.randn((LIST, 256, B_LARGE), generator=gen, device=dev) * 2.0 + 1.0
         m = torch.randn((B_LARGE, LIST), generator=gen, device=dev) * 10.0
-        runs.append((f"one leaf {kind.value} span 256", sched, x, m))
-    for name, sched, x, m in runs:
-        scl_kernel_bl.launch(lib, sched, x, m)
-        torch.cuda.synchronize()
+        runs.append((f"one leaf {kind.value} span 256", [(sched, x, m)]))
+    for n_list, n_batch in ((64, 1024), (128, 256)):
+        big = []
+        SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), device=dev,
+                   subtree_fn=lambda *a, _c=big: _c.append(a) or scl_kernel_bl.scl_subtree(*a)
+                   ).decode_packed(llr[:n_batch])
+        runs.append((f"N={N_LEN} CA-SCL-{n_list}, its {len(big)} calls", big))
+    for name, group in runs:
+        for _ in range(2):  # the second pass counted
+            lib.scl_subtree_profile(buf)
+            for sched, x, m in group:
+                scl_kernel_bl.launch(lib, sched, x, m)
+            torch.cuda.synchronize()
         lib.scl_subtree_profile(buf)
-        scl_kernel_bl.launch(lib, sched, x, m)
-        torch.cuda.synchronize()
-        lib.scl_subtree_profile(buf)
-        n_batch = x.shape[-1]
+        n_batch = group[0][1].shape[-1]
         print(json.dumps({
             "k1_ops": name, "batch": n_batch,
             "cycles_per_codeword": {v: buf[k] / n_batch for k, v in K1_SLOTS.items()
@@ -933,6 +1184,117 @@ def k1_ops(card, torch, dev, frozen, llr):
             "ops_per_codeword": {v: buf[k + 32] / n_batch for k, v in K1_SLOTS.items()
                                  if buf[k + 32]},
             "card": card}), flush=True)
+
+
+K1W_SLOTS = {**K1_SLOTS, 11: "leaf: decision bits and survivors", 13: "leaf: sums"}
+del K1W_SLOTS[14]
+
+
+def k1_wide_calls(torch, dev, gen):
+    """{name: (calls, batch)}: the K1 calls of a (1024, 512) CA-SCL-256
+    decode at B = 256 (every family's own LLR state) and of a (32768, 16384)
+    CA-SCL-256 tree decode at B = 32 (its 30 pure leaves of 256-2048, one
+    leaf a schedule), float32, CRC16, 1.5 dB; every call through
+    csrc/scl_wide.cu."""
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    det = CRC16()
+    out = {}
+
+    def channel(n_len, k_len, n_batch):
+        frozen = frozen_bits(n_len, k_len, 0.0, "BB")
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (1.5 / 10.0) * k_len / n_len)
+        info = torch.randint(0, 2, (n_batch, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        enc = PolarEncoder(n_len, frozen, detector=det, device=dev)
+        return frozen, Bpsk().demodulate(chan.transmit(Bpsk().modulate(enc.encode(info)), gen))
+
+    frozen, x = channel(N_LEN, K_LEN, 256)
+    for name, dtype in (("n1024_L256", torch.float32), ("n1024_L256_int8", torch.int8),
+                        ("n1024_L256_bf16", torch.bfloat16)):
+        calls = []
+        xin = torch.clamp(torch.round(x * AMPL), -127, 127).to(torch.int8) \
+            if dtype == torch.int8 else x
+        SCLDecoder(N_LEN, frozen, list_size=256, detector=det, dtype=dtype, device=dev,
+                   subtree_fn=lambda *a, _c=calls: _c.append(a) or kbl.scl_subtree(*a)
+                   ).decode_packed(xin)
+        out[name] = (calls, 256)
+    n_len, k_len, chunk = LARGE_SCL
+    frozen, x = channel(n_len, k_len, 32)
+    calls = []
+    LargeSCLDecoder(n_len, frozen, list_size=256, detector=det, chunk=chunk, subblock=16,
+                    schedule="tree", device=dev,
+                    subtree_fn=lambda *a: calls.append(a) or kbl.scl_subtree(*a)
+                    ).decode_packed(x)
+    out["n32768_L256_tree_leaves"] = (calls, 32)
+    shared = _build.load("scl_subtree")
+    for name, (calls, _) in out.items():
+        for sched, x, m in calls:
+            if kbl.shared_bytes(shared, sched, kbl.family(x.dtype)) >= 0:
+                raise SystemExit(f"k1_wide_calls: a {name} call is not the device-memory "
+                                 "kernel's")
+    return out
+
+
+def k1_wide_ops(card, torch, dev, gen, sources):
+    """Where K1's device-memory kernel (csrc/scl_wide.cu) spends a call:
+    each scl_wide source in `sources` (this tree's csrc/scl_wide.cu when
+    none is named) built with -DK1W_PROFILE (clock64 probes, thread 0 of
+    each block at the block's barriers) on the calls of k1_wide_calls.
+    Prints, per source and call set, cycles and ops per codeword by op
+    kind and leaf phase, summed over the set's calls, and the set's ms
+    (the probe build, CUDA events, a set's calls back to back). Every
+    build's outputs equal this tree's kernel's."""
+    import ctypes
+    from pathlib import Path
+
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    sources = [s for s in sources if s.endswith("scl_wide.cu")] or [
+        str(_build.CSRC / "scl_wide.cu")]
+    sets = k1_wide_calls(torch, dev, gen)
+    want = {name: [kbl.scl_subtree(*c) for c in calls] for name, (calls, _) in sets.items()}
+    buf = (ctypes.c_ulonglong * 64)()
+    for src in sources:
+        lib = profile_build("scl_wide", "K1W_PROFILE", src)
+        lib.scl_wide_profile.argtypes = [ctypes.c_void_p]
+        strided = "llr_sl" in Path(src).read_text()
+        if strided:
+            launch = lambda *c, _lib=lib: kbl.launch_wide(_lib, *c)  # noqa: E731
+        else:  # an older entry, on contiguous copies made before the timing
+            launch = _wide_launcher_before_strides(torch, lib)
+        for name, (calls, n_batch) in sets.items():
+            if not strided:
+                calls = [(sched, x.contiguous(), m) for sched, x, m in calls]
+            for _ in range(2):  # the second pass counted
+                lib.scl_wide_profile(buf)
+                got = [launch(*c) for c in calls]
+                torch.cuda.synchronize()
+            lib.scl_wide_profile(buf)
+            counts = list(buf)
+            for g, w in zip(got, want[name]):
+                if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                    raise SystemExit(f"k1_wide_ops: {src} differs from this tree on {name}")
+            ms = time_cuda(lambda: [launch(*c) for c in calls], warmup=1, reps=3)
+            lib.scl_wide_profile(buf)
+            print(json.dumps({
+                "k1_wide_ops": name, "source": src, "batch": n_batch, "calls": len(calls),
+                "ms_probe_build": ms,
+                "cycles_per_codeword": {v: counts[k] / n_batch for k, v in K1W_SLOTS.items()
+                                        if counts[k + 32]},
+                "ops_per_codeword": {v: counts[k + 32] / n_batch for k, v in K1W_SLOTS.items()
+                                     if counts[k + 32]},
+                "card": card}), flush=True)
 
 
 SCAN_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "long op", 7: "subtree op", 4: "stage-in",

@@ -179,10 +179,12 @@ simulator's `listlength`, AdaptiveDecoder(list_schedule=(3, 12)); K3's bf16
 family under FastSSCDecoder(dtype=bfloat16) and
 AdaptiveDecoder(fast_dtype=bfloat16):
  36. K1 against its plain version at L = 3, 5, 12, 24, 64, 128, B in (1,
-     181, 2048), every family: every subtree call of an N = 1024 CA-SCL
-     decode on integer LLRs in [-2, 2], and one-leaf schedules of every
-     kind with rows of one live path; bits, perms and metrics equal; K1's
-     calls at L = 3 and 12 timed at B = 2048
+     181, 2048), and at L = 33, 65, 100 (a warp split at tid = L in the
+     block kernels) at B in (1, 181), every family: every subtree call of
+     an N = 1024 CA-SCL decode on integer LLRs in [-2, 2], and one-leaf
+     schedules of every kind (ENUM with 8 and 16 candidates) with rows of
+     one live path; bits, perms and metrics equal; K1's calls at L = 3 and
+     12 timed at B = 2048
  37. (1024, 512) CA-SCL-64 CRC16 at B = 1024, 1.5 dB, in float32, int8 and
      bf16, and CA-SCL-128 at B = 256: decisions and packed words equal to
      the plain route, metrics within 1e-4, every CRC failure a wrong
@@ -233,8 +235,9 @@ levels in a device-memory scratch:
  43. K1 from device memory against its plain version at L = 129, 160,
      256, 512, every family, B in (1, 181, 256) (each L at every batch):
      every subtree call of an N = 1024 CA-SCL decode on integer LLRs in
-     [-2, 2]; L = 128 at kernel_span 512 and L = 64 at 1024; bits, perms,
-     metrics equal, every call through the device-memory kernel
+     [-2, 2]; L = 128 at kernel_span 512, L = 64 and 33 at 1024, L = 65
+     and 100 at 512; bits, perms, metrics equal, every call through the
+     device-memory kernel
  44. K7 from device memory against its plain version at L = 129, 160,
      256, both families, chunks 64 and 256, with and without sub-blocks
      of every class, rows with 1 and L - 1 live paths; L = 128 at chunk
@@ -249,8 +252,9 @@ levels in a device-memory scratch:
      from device memory; against CA-SCL-64); the plain routes at (8192,
      4096): CA-SCL-256 on both schedules and in int8, CA-SCL-128 at chunk
      512 (the plain route at N = 32768 and L = 256 would take minutes)
- 46. K1 per decode at L = 256 (every family), 512 and 128 at span 512, K7
-     per call at L = 256 (float32 on the path, char) and 128 at chunk 512,
+ 46. K1 per decode at L = 256 (every family), 512 and 128 at span 512,
+     and in shared memory at L = 64 (B = 1024) and 128 (B = 256), K7 per
+     call at L = 256 (float32 on the path, char) and 128 at chunk 512,
      beside bounds and plain versions; CA-SCL-256 decode ms and device
      busy share at N = 1024 and 32768
 
@@ -291,6 +295,16 @@ the port of the JAX package's `polar-bench`), device timing
  50. on the main path, (1024, 512) CA-SCL-8 CRC16 at B = 1024, and its
      encode: time_device_fn against time_cuda (both positive, within 2x of
      each other) and roofline with the analytic counts beside both times
+
+Slice 17, K1 above 32 paths redesigned (scl_subtree.cu's capacities 64
+and 128 a block of 2 x capacity threads a codeword, scl_wide.cu's K1 1024
+threads, both with a prune by merge; the large-N glue hands K1 its
+batch-first leaves as views):
+ 51. K1's one-leaf schedules on the glue's [L, S, B] views at L = 64,
+     span 256, B = 128 (the CA-SCL-64 pure chunks, every family) and L =
+     256, span 2048, B = 32 (the CA-SCL-256 tree's leaves, from device
+     memory, read in place), every pure leaf kind, integer and Gaussian
+     LLRs, rows of one live path: bits, perms, metrics equal
 
 Then the kernels line, {"kernels": [...], "facade": {route: launches}}:
 every family of all seven TPU kernels, K1 at L = 3, 12, 64 (every family),
@@ -537,8 +551,8 @@ def main():
     s10 = run_slice10(card)
 
     # 36 ------------------------------------------------------------------
-    phase("36 K1 at L in (3, 5, 12, 24, 64, 128), B in (1, 181, 2048), every family, on "
-          "ties and rows of one live path")
+    phase(f"36 K1 at L in {K1_NEW_LISTS}, B in (1, 181, 2048) ({K1_SPLIT_LISTS} at 1 and 181), "
+          "every family, on ties and rows of one live path")
     k1_lists = run_k1_lists(card)
 
     # 37-39 ---------------------------------------------------------------
@@ -553,8 +567,8 @@ def main():
     s12 = run_slice12(card, slice3["k7_l8"], k7_lists)
 
     # 43 ------------------------------------------------------------------
-    phase("43 K1 from device memory at L in (129, 160, 256, 512), every family, B in (1, 181, "
-          "256); L = 128 at kernel_span 512 and L = 64 at 1024")
+    phase(f"43 K1 from device memory at L in {K1_WIDE_LISTS}, every family, B in (1, 181, 256); "
+          f"(L, kernel_span) in {K1_PAST_SMEM}")
     k1_wide = run_k1_wide(card)
 
     # 44 ------------------------------------------------------------------
@@ -570,6 +584,11 @@ def main():
 
     # 49-50 ---------------------------------------------------------------
     run_slice15(card)
+
+    # 51 ------------------------------------------------------------------
+    phase("51 K1 one-leaf schedules on the large-N glue's batch-first views: L = 64, span 256, "
+          "B = 128; L = 256, span 2048, B = 32")
+    k1_leaves = run_k1_leaves(card)
 
     # the kernels line ------------------------------------------------------
     for entry in slice2["kernels"]:  # K3: phase 26's calls and bursts too
@@ -647,6 +666,9 @@ def main():
     for entry in entries:  # the facade's routes (phase 47)
         if entry["name"] in s14["by_kernel"]:
             entry.setdefault("launches_by_path", {}).update(s14["by_kernel"][entry["name"]])
+    for entry in entries:  # phase 51's one-leaf calls
+        if entry["name"] in ("scl_subtree[float32,L=64]", "scl_subtree[float32,L=256]"):
+            entry["max_abs_err"] = max(entry["max_abs_err"], k1_leaves["err"]["float32"])
     emit({"kernels": entries, "facade": s14["routes"]})
     # the last line ---------------------------------------------------------
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2748,9 +2770,11 @@ def run_slice10(card):
 # ---- slice 11: every list size, K3 bf16 -----------------------------------
 
 SEED11 = 20261025
-K1_NEW_LISTS = (3, 5, 12, 24, 64, 128)
-K1_NEW_DESIGN = ("the capacity's instantiation at any list size below it; above 32 paths "
-                 "W packed words, a lane per path, the prune in passes")
+K1_NEW_LISTS = (3, 5, 12, 24, 33, 64, 65, 100, 128)
+K1_SPLIT_LISTS = (33, 65, 100)  # a warp split at tid = L: B in K1_BATCHES[:2] only
+K1_NEW_DESIGN = ("the capacity's instantiation at any list size below it; up to 32 paths "
+                 "a warp a codeword, above 32 W packed words and a block of 2 x capacity "
+                 "threads a codeword, the prune a merge of lists in rank order")
 B11, B11_L128, EBN0_11 = 1024, 256, 1.5  # the CA-SCL-64 paths' batch; L = 128's; Eb/N0
 LL_LISTS = (16, 64)  # sim.cli listlength --l-min, --l-max
 
@@ -2766,9 +2790,11 @@ def _fams():
 def run_k1_lists(card):
     """Phase 36. K1 against its plain version at L in K1_NEW_LISTS (odd
     sizes in a power-of-two instantiation; 64 and 128 with two and four
-    packed words), B in K1_BATCHES, every family: every subtree call of
-    an N = 1024 CA-SCL decode on integer LLRs in [-2, 2] (ties, signed
-    zeros), and at B = 181 one-leaf schedules of every kind entered at
+    packed words; 33, 65 and 100 leave the warp that holds path L - 1 split
+    at each block barrier, B in (1, 181) only), B in K1_BATCHES, every
+    family: every subtree call of an N = 1024 CA-SCL decode on integer
+    LLRs in [-2, 2] (ties, signed zeros), and at B = 181 one-leaf
+    schedules of every kind (ENUM with 8 and 16 candidates) entered at
     w_in = L with every other row holding one live path; bits, perms and
     metrics equal. Then K1's calls of the float32 decodes at L = 3 and 12
     timed at B = 2048, beside their plain versions. Returns {"err": the
@@ -2807,7 +2833,7 @@ def run_k1_lists(card):
     timed = {}
     for n_list in K1_NEW_LISTS:
         for dtype, state in _fams().items():
-            for n_batch in K1_BATCHES:
+            for n_batch in K1_BATCHES[:2] if n_list in K1_SPLIT_LISTS else K1_BATCHES:
                 calls = []
 
                 def record(sched, x, m):
@@ -2829,6 +2855,8 @@ def run_k1_lists(card):
                 leaves = [_sub_leaf(k, 128) for k in
                           (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC)]
                 leaves += [CodeNode(0, 8, np.array([0, 1, 2, 4, 5]), NodeKind.ENUM),
+                           CodeNode(0, 16, np.array([0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 13]),
+                                    NodeKind.ENUM),
                            CodeNode(0, 1, np.zeros(0, np.int64), NodeKind.RATE1)]
                 for node in leaves:
                     one = kbl.build_schedule(node, n_list, n_list)
@@ -3500,15 +3528,18 @@ def run_slice12(card, k7_l8, held):
 # ---- slice 13: lists above 128 paths, list state in device memory --------
 
 SEED13 = 20261027
-WIDE_DESIGN = ("a block of 256 threads a codeword, the LLR levels in a device-memory "
-               "scratch, the bookkeeping in shared memory, the prune a bitonic sort")
+WIDE_DESIGN = ("a block of 1024 threads a codeword, the LLR levels in a device-memory "
+               "scratch, the bookkeeping in shared memory, the prune a pairwise merge of "
+               "lists in rank order cut at L (each candidate taken once), the input read "
+               "at its strides")
 WIDE_K7_DESIGN = ("a block of 1024 threads a codeword, the LLR levels in a device-memory "
                   "scratch, the bookkeeping in shared memory, the prune a merge of lists "
                   "in rank order")
 WIDE_SRC = "polar_codes_torch/csrc/scl_wide.cu"
 K1_WIDE_LISTS = (129, 160, 256, 512)
 K1_WIDE_BATCHES = (1, 181, 256)  # rotated over (L, family): every L sees every batch
-K1_PAST_SMEM = ((128, 512), (64, 1024))  # (L, kernel_span): branched spans past shared memory
+# (L, kernel_span): branched spans past shared memory (33, 65, 100: split warps)
+K1_PAST_SMEM = ((128, 512), (64, 1024), (33, 1024), (65, 512), (100, 512))
 K7_WIDE_LISTS = (129, 160, 256)
 K7_PAST_SMEM = ((128, 512), (64, 1024))  # (L, chunk) past shared memory at L <= 128
 K7_WIDE_BATCHES = (1, 33)
@@ -3891,8 +3922,9 @@ def run_slice13(card, k1_held, k7_held):
           "kernels; kernel routes == plain routes at N = 1024 and 8192")
 
     # 46 ------------------------------------------------------------------
-    phase("46 times: K1 per decode at L = 256 (every family), 512 and 128 at span 512, K7 per "
-          "call at L = 256 and 128 at chunk 512, decode ms and device busy share")
+    phase("46 times: K1 per decode at L = 256 (every family), 512 and 128 at span 512, and at "
+          "L = 64 and 128 in shared memory, K7 per call at L = 256 and 128 at chunk 512, decode "
+          "ms and device busy share")
     entries = []
 
     def k1_times(calls, n_batch):
@@ -3932,6 +3964,15 @@ def run_slice13(card, k1_held, k7_held):
             **bound(n_bytes, n_ops), "library_ms": None})
         emit({"kernel": label, "batch": n_batch, "ms_per_decode": ms, "ms_per_call": per_call,
               "plain_ms": plain_ms, "bound_ms": entries[-1]["bound_ms"], "card": card})
+    for n_list, n_batch in ((64, B11), (128, B11_L128)):  # the block kernels, shared memory
+        calls = []
+        SCLDecoder(N_LEN, frozen_of[N_LEN][0], list_size=n_list, detector=det, device=dev,
+                   subtree_fn=lambda *a, _c=calls: _c.append(a) or kbl.scl_subtree(*a)
+                   ).decode_packed(channel(N_LEN, K_LEN, n_batch, EBN0_13)[1])
+        per_call, ms, plain_ms, n_bytes, n_ops = k1_times(calls, n_batch)
+        emit({"kernel": f"scl_subtree[float32,L={n_list}]", "batch": n_batch,
+              "ms_per_decode": ms, "ms_per_call": per_call, "plain_ms": plain_ms,
+              **bound(n_bytes, n_ops), "card": card})
     if tree_calls:  # the tree schedule's pure leaves at L = 256, from device memory
         leaf = k1_times(tree_calls, B13_LARGE)
         emit({"kernel": "scl_subtree[float32,L=256] tree leaves", "batch": B13_LARGE,
@@ -3995,6 +4036,70 @@ def run_slice13(card, k1_held, k7_held):
           f"N = {N_SCL} scan {times['large_cascl256_scan']['decode_ms']:.1f} ms, tree "
           f"{times['large_cascl256_tree']['decode_ms']:.1f} ms at B = {B13_LARGE}")
     return {"entries": entries, "times": times}
+
+
+# ---- K1 one-leaf schedules as the large-N glue hands them over -----------
+
+# (L, span, B, families): the CA-SCL-64 pure chunks at N = 32768 (the
+# shared-memory block kernel) and the CA-SCL-256 tree's longest leaves
+# (the device-memory kernel)
+K1_LEAF_CASES = ((64, 256, 128, ("float32", "char", "bfloat16")),
+                 (256, 2048, 32, ("float32",)))
+
+
+def run_k1_leaves(card):
+    """Phase 51. K1's one-leaf schedules as the large-N decoders build them
+    (w_in = L, a pure chunk's leaf of each kind) on the glue's batch-first
+    [B, L, S] tensor handed over as an [L, S, B] view: K1_LEAF_CASES, the
+    shared-memory kernel taking a contiguous copy, the device-memory kernel
+    reading the view in place; integer LLRs in [-2, 2] and Gaussian ones,
+    every other row with one live path; bits, perms and metrics equal to
+    the plain version. Returns {"err": the largest metric difference per
+    family (0), "calls": the number held}."""
+    import torch
+
+    from polar_codes_torch.models.tree import NodeKind
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.ops.large_kernel import _sub_leaf
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED13 + 3)
+    states = {"float32": torch.float32, "char": torch.int16, "bfloat16": torch.bfloat16}
+    err = dict.fromkeys(states, 0.0)
+    checked = 0
+    for n_list, span, n_batch, fams in K1_LEAF_CASES:
+        for kind in (NodeKind.RATE0, NodeKind.RATE1, NodeKind.REP, NodeKind.SPC):
+            sched = kbl.build_schedule(_sub_leaf(kind, span), n_list, n_list)
+            for fam in fams:
+                for draw in ("ints", "gauss"):
+                    shape = (n_batch, n_list, span)
+                    if draw == "ints":
+                        x = torch.randint(-2, 3, shape, generator=gen, device=dev).float()
+                    else:
+                        x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+                        if fam == "char":
+                            x = torch.clamp(torch.round(x * 10.0), -127, 127)
+                    x = x.to(states[fam]).permute(1, 2, 0)  # the glue's view
+                    m = torch.randint(-3, 1, (n_batch, n_list), generator=gen,
+                                      device=dev).to(torch.float32)
+                    m[::2, 1:] = NEG
+                    wide = _wide_count()
+                    got = kbl.scl_subtree(sched, x, m)
+                    want = kbl.scl_subtree_plain(sched, x, m)
+                    torch.cuda.synchronize()
+                    where = f"K1 {fam} L={n_list} one leaf {kind.value} span {span}, {draw}"
+                    if (_wide_count() - wide == 1) != (n_list > kbl.MAX_LIST):
+                        raise AssertionError(f"{where}: not through the expected kernel")
+                    _equal(where + " bits", got[0], want[0])
+                    _equal(where + " perm", got[1], want[1])
+                    if not torch.isfinite(got[2]).all():
+                        raise AssertionError(where + ": metrics not finite")
+                    err[fam] = max(err[fam], _equal(where + " metrics", got[2], want[2]))
+                    checked += 1
+    emit({"k1_leaves_checked_calls": checked, "cases": K1_LEAF_CASES, "max_abs_err": err,
+          "card": card})
+    print(f"K1: {checked} one-leaf calls on the glue's views equal to the plain version")
+    return {"err": err, "calls": checked}
 
 
 # ---- slice 14: the pypolar facade ------------------------------------------

@@ -13,10 +13,16 @@
 // divergent __syncwarp, shuffle or ballot, which deadlocks on the card
 // too.
 #pragma once
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+
 #include <algorithm>
+#include <atomic>
 #include <chrono>
+#include <climits>
+#include <ctime>
 #include <cmath>
-#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -69,28 +75,35 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
+// A barrier of n threads: a count and a phase, the waiters asleep on the
+// phase word (a futex), so that a release wakes them all at once with no
+// lock to take in turn; the last thread's release orders every thread's
+// earlier writes before every later read.
 class EmuBarrier {
  public:
   explicit EmuBarrier(unsigned n) : n_(n) {}
   void wait() {
-    std::unique_lock<std::mutex> lock(mu_);
-    const unsigned phase = phase_;
-    if (++count_ == n_) {
-      count_ = 0;
-      ++phase_;
-      cv_.notify_all();
+    const unsigned phase = phase_.load(std::memory_order_acquire);
+    if (count_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      count_.store(0, std::memory_order_relaxed);
+      phase_.store(phase + 1, std::memory_order_release);
+      syscall(SYS_futex, &phase_, FUTEX_WAKE_PRIVATE, INT_MAX, nullptr, nullptr, 0);
       return;
     }
-    if (!cv_.wait_for(lock, std::chrono::seconds(60), [&] { return phase_ != phase; })) {
-      std::fprintf(stderr, "cuda_on_cpu: a barrier waited 60 s (divergent warp sync?)\n");
-      std::abort();
+    const auto start = std::chrono::steady_clock::now();
+    const timespec step{1, 0};
+    while (phase_.load(std::memory_order_acquire) == phase) {
+      syscall(SYS_futex, &phase_, FUTEX_WAIT_PRIVATE, phase, &step, nullptr, 0);
+      if (std::chrono::steady_clock::now() - start > std::chrono::seconds(60)) {
+        std::fprintf(stderr, "cuda_on_cpu: a barrier waited 60 s (divergent warp sync?)\n");
+        std::abort();
+      }
     }
   }
 
  private:
-  std::mutex mu_;
-  std::condition_variable cv_;
-  unsigned n_, count_ = 0, phase_ = 0;
+  const unsigned n_;
+  std::atomic<unsigned> count_{0}, phase_{0};
 };
 
 struct EmuWarp {

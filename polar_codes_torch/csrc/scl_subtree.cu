@@ -50,77 +50,97 @@
 // list size is a constant of the build (the capacity's kernel is ~4%
 // slower at L = 8). Nothing is generated per code.
 //
-// Mapping: one warp decodes one codeword, warp-synchronous (__syncwarp,
-// shuffles and ballots between ops, no __syncthreads), one codeword (warp)
-// per block below 4 x 132 codewords, so a small batch spreads over every
-// SM, four above (measured: ~10% faster at B = 2048 than one; chip_smoke.py
-// phase 24 times 1, 2 and 4). Each warp's list state lives in shared memory: the LLRs of
-// tree levels d >= 1 ([L][span >> d] each, L x (span - 1) values of the
-// state type), the packed bit words [span], the open nodes' perms
-// P[level][L], the path metrics, the candidate values, the leaf scratch
-// and the SPC table; device memory is read once (the input level 0, by the first
-// F and G, or staged into the level region when the subtree is one leaf)
-// and written once (bits, perm, metrics). Per codeword that is
-// sizeof(Shared<L>) + 4 W span + L span sizeof(state) bytes, L the
-// capacity: 20 KB at L = 8, span 512 in f32, 12 KB in int16 or bf16; 48 KB
-// at L = 64 and 96 KB at L = 128, span 128 (the JAX package's span there). A one-leaf schedule
-// whose staged input would not fit (the large-N tree schedule's pure
-// leaves: L = 32 at span 2048 in f32 needs 256 KB) is not staged: its leaf
-// reads the input from device memory where it lies, element (l, i) at
-// llr[(l span + i) B + b], and needs sizeof(Shared<L>) + 4 span bytes. A
-// branched schedule whose state exceeds the card's opt-in shared memory
-// per block (only a caller-chosen kernel_span can) is refused (-2); the
-// wrapper sends such schedules to scl_wide.cu.
-// Inside an op:
-//   F, G      lanes over (path, element) pairs; G reads the parent through
-//             the left child's perm (levels live in separate regions, so
-//             no read aliases a write);
-//   COMBINE   lanes over positions, each forking its left bit word
-//             through the right child's perm (held in registers; above 32
-//             paths each fork bit read from its word in shared memory, all
-//             W words before any is written); the perm composition on
-//             lanes < w (32 paths a lane pass);
-//   LEAF      the `weakest` magnitudes (rate-1, SPC) by groups of 32 / w
-//             lanes per path (above 32 paths, 32 paths at a time, a lane
-//             each): 2 or 4 rounds of an arg-min over packed
-//             (|x|, index) keys, each lane scanning a stride of the span,
-//             then shuffles; the SPC parity rides along as an XOR; each candidate's value on its
-//             own lane (path l, candidate c at code l*C + c), every metric
-//             sum sequential over the span on one lane; the prune by rank,
-//             each lane holding its candidates in registers for one pass
-//             over all the values (above 32 paths, 32 candidates a lane a
-//             pass, as many passes as the candidates need);
-//             the decision bits with lanes over (position, slot), one
-//             ballot per 32 / L positions (above 32 paths, one ballot per
-//             position and word, lane = slot 32 k + lane). The leaf is a
-//             template on where its input lies (shared memory, or device
-//             memory strided by B); its arithmetic and order are the same
-//             either way.
+// Mapping: one team decodes one codeword. Capacities 2 to 32: a warp,
+// warp-synchronous (__syncwarp, shuffles and ballots between ops), one
+// codeword (warp) per block below 4 x 132 codewords, so a small batch
+// spreads over every SM, four above (measured: ~10% faster at B = 2048
+// than one; chip_smoke.py phase 24 times 1, 2 and 4). Capacities 64 and
+// 128: a block of 2 x capacity threads (128 or 256: a thread per candidate
+// of a two-way fork), one codeword a block, each step closed by a block
+// barrier (PTX barrier.sync without .aligned: the warp that holds path
+// w - 1 reaches it split whenever 32 does not divide w). Each team's list
+// state lives in shared memory: the LLRs of tree levels d >= 1
+// ([L][span >> d] each, L x (span - 1) values of the state type), the
+// packed bit words [W][span], the open nodes' perms P[level][L], the path
+// metrics, the candidate values, the leaf scratch and the SPC table (the
+// block's perms and the merge's lists a byte a path); device memory is
+// read once (the input level 0, by the first F and G, or staged into the
+// level region when the subtree is one leaf) and written once (bits,
+// perm, metrics). Per codeword that is sizeof(Shared<L>) + 4 W span + L
+// span sizeof(state) bytes, L the capacity: 20 KB at L = 8, span 512 in
+// f32, 12 KB in int16 or bf16; 47 KB at L = 64 and 94 KB at L = 128, span
+// 128 (the JAX package's span there). A one-leaf schedule whose staged
+// input would not fit (the large-N tree schedule's pure leaves: L = 32 at
+// span 2048 in f32 needs 256 KB) is not staged: its leaf reads the input
+// from device memory where it lies, element (l, i) at llr[(l span + i) B
+// + b], and needs sizeof(Shared<L>) + 4 W span bytes. A branched schedule
+// whose state exceeds the card's opt-in shared memory per block (only a
+// caller-chosen kernel_span can) is refused (-2); the wrapper sends such
+// schedules to scl_wide.cu.
+// Inside an op (a warp's lanes, or a block's threads):
+//   F, G      threads over (path, element) pairs; G reads the parent
+//             through the left child's perm (levels live in separate
+//             regions, so no read aliases a write);
+//   COMBINE   a warp: lanes over positions, each forking its left bit word
+//             through the right child's perm, held in registers; a block:
+//             a warp a position, lane j forking slot 32 k + j's bit, one
+//             ballot a word, every word of the position read before any is
+//             written; the perm composition a thread a path;
+//   LEAF      the `weakest` magnitudes (rate-1, SPC): a warp's groups of
+//             32 / w lanes per path run 2 or 4 rounds of an arg-min over
+//             packed (|x|, index) keys, each lane scanning a stride of the
+//             span, then shuffles; a block's two threads a path each keep
+//             the K smallest keys of every other position in one pass, then
+//             merge the pair's lists by a shuffle; the SPC parity rides
+//             along as an XOR. Each candidate's value on its own thread
+//             (path l, candidate c at code l*C + c), every metric sum
+//             sequential over the span on one thread. The prune: a warp
+//             ranks each candidate against all T values, a lane holding
+//             its candidates in registers; a block merges the C lists (list
+//             c: candidates (l, c) in path order): each list's order is
+//             checked (a warp OR of "v_l < v_{l+1}", one shared atomic a
+//             warp), a list in rank order taken as it is, a list out of
+//             order ranked in runs of 32 paths and its runs merged by
+//             binary search, and a candidate's rank is its place in its own
+//             list plus a binary search of each other list, the searches
+//             stopping once the rank reaches L. The decision bits: a warp's
+//             lanes over (position, slot), one ballot per 32 / L positions;
+//             a block's warp per (word, 32 positions), each lane (slot 32 k
+//             + lane) loading its source path's 32 inputs before the 32
+//             ballots. The leaf is a template on where its input lies
+//             (shared memory, or device memory strided by B); its
+//             arithmetic and order are the same either way.
 //
 // What bounds it on an H100: the length of one codeword's dependent chain
-// of warp steps (each op closes with a __syncwarp), overlapped across the
-// 8 (f32) or 16 (int16, bf16) warps an SM holds by shared memory at four
-// codewords a block; bytes (each input read once, each output written
-// once) and arithmetic are ~50-100x below that. Measured (chip_smoke.py,
-// chip_profile.py; NVIDIA H100 80GB HBM3 at 700 W, N = 1024, L = 8, span
-// 512): ~0.15-0.19 ms a call at B = 181, one codeword's chain of ~250-310k
-// cycles, of which the leaves' prunes ~20%, their other phases ~30%, F and
-// G ~15% (the level-0 ones read device memory strided by B), combines 5%;
-// 0.32-0.43 ms at B = 2048. A one-leaf schedule read from device memory
-// (the rate-0 leaf of 2048 at L = 32, B = 128) takes 0.36 ms, against
-// 0.11 for the same leaf staged at L = 8 (chip_profile.py tree): each
-// path's lane walks its span in loads strided by B. At L = 64, span 128,
-// B = 1024 the 8 calls of an N = 1024 decode take 6.7-6.9 ms in every
-// family, and at L = 128, B = 256, 9.0 ms (chip_smoke.py phase 37).
-// Capacities of 32 and more use 167 registers a thread, 16 and less 48-93.
+// of team steps (each op closes with a warp or block barrier), overlapped
+// across the teams an SM holds by shared memory; bytes (each input read
+// once, each output written once) and arithmetic are ~50-100x below that.
+// Measured (chip_smoke.py, chip_profile.py; NVIDIA H100 80GB HBM3 at 700
+// W): N = 1024, L = 8, span 512, ~0.15-0.19 ms a call at B = 181, one
+// codeword's chain of ~250-310k cycles, of which the leaves' prunes ~20%,
+// their other phases ~30%, F and G ~15% (the level-0 ones read device
+// memory strided by B), combines 5%; 0.32-0.43 ms at B = 2048. A one-leaf
+// schedule read from device memory (the rate-0 leaf of 2048 at L = 32, B
+// = 128) takes 0.36 ms, against 0.11 for the same leaf staged at L = 8
+// (chip_profile.py tree): each path's lane walks its span in loads
+// strided by B. The block teams (chip_profile.py k1_lists_ab, the warp
+// kernels they replaced in the same process): the 8 calls of an N = 1024
+// decode at L = 64, B = 1024, 3.71-4.02 ms in every family (6.37-7.35),
+// at L = 128, B = 256, 2.17-2.35 (8.51-9.85), L = 33 2.29-2.46 (3.73-3.96),
+// L = 100 1.81-1.98 (6.81-7.20); the codeword's chain at L = 64 3.4M
+// cycles (6.7M), 68% of it the prunes of the SPC and ENUM leaves (8 and
+// 16 candidates a path: 15 searches a candidate before the early stop).
+// Capacities of 32 use 167 registers a thread, 16 and less 48-93, the
+// block teams 80 (64, a 72-byte spill) and 109-111 (128).
 //
 // Numerics: every sum is sequential over the span in f32, in the order of
 // the plain torch version (ops/scl_kernel_bl.py), and the build disables
 // FMA contraction, so kernel and plain version agree bit for bit in each
 // family. The prune ranks the candidates by (value descending, flat code
-// l*C + c ascending); a candidate's slot is its rank, the first L survive,
-// and while w*C <= L every candidate survives in l-major slots. On finite
-// values that is the plain version's iterative extraction order exactly.
+// l*C + c ascending; float compares, so -0.0 ties +0.0); a candidate's slot
+// is its rank, the first L survive, each taken once, and while w*C <= L
+// every candidate survives in l-major slots. On finite values that is the
+// plain version's iterative extraction order exactly.
 // `weakest` takes the (|x|, index)-smallest entries, which is the plain
 // version's first-index-on-ties rule.
 //
@@ -131,8 +151,10 @@
 //                   int w_in, int w_out, int span, int batch, int family,
 //                   int per_block, cudaStream_t stream)
 //     bits holds W = ceil(list_size / 32) words per position ([W, span,
-//     B]). per_block: codewords (warps) per block, 1, 2 or 4; 0 picks from
-//     the batch. Returns cudaGetLastError() after the launch (or of the
+//     B]). per_block: codewords (warps) per block of the warp kernels
+//     (capacities 2 to 32), 1, 2 or 4; 0 picks from the batch; the block
+//     kernels (capacities 64, 128) take one codeword a block whatever it
+//     says. Returns cudaGetLastError() after the launch (or of the
 //     shared-memory attribute call), -1 for an unsupported list size
 //     (outside 1..128), family or span, -2 when one codeword's state
 //     exceeds the card's opt-in shared memory per block.
@@ -146,18 +168,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #ifdef K1_PROFILE
-// Cycles per op kind and leaf phase, summed by lane 0 of every warp, and
-// their counts at slot + 32 (chip_profile.py builds with -DK1_PROFILE and
-// reads them with scl_subtree_profile): 0-2 F, G, COMBINE; 3-7 leaves by
-// kind; 8-11 a leaf's weakest, candidates, prune, decision bits; 12 the
-// whole schedule; 13-14 F and G at level 0.
+// Cycles per op kind and leaf phase, summed by thread 0 of every codeword's
+// team, and their counts at slot + 32 (chip_profile.py builds with
+// -DK1_PROFILE and reads them with scl_subtree_profile): 0-2 F, G, COMBINE;
+// 3-7 leaves by kind; 8-11 a leaf's weakest, candidates, prune, decision
+// bits; 12 the whole schedule; 13-14 F and G at level 0.
 __device__ unsigned long long k1_prof[64];
 #define K1_CLOCK(t) long long t = clock64()
 #define K1_TICK(slot, t)                                                      \
   do {                                                                        \
     const long long now_ = clock64();                                         \
-    if (lane == 0) {                                                          \
+    if (tid == 0) {                                                           \
       atomicAdd(&k1_prof[slot], static_cast<unsigned long long>(now_ - (t))); \
       atomicAdd(&k1_prof[(slot) + 32], 1ull);                                 \
     }                                                                         \
@@ -180,7 +204,7 @@ constexpr int kMaxLevels = 16;
 constexpr int kMaxCand = 32;
 constexpr int kOpWords = 8;
 constexpr int kMaxPerBlock = 4;
-constexpr int kLoads = 8;  // device-memory loads a lane keeps in flight
+constexpr int kLoads = 8;  // device-memory loads a thread keeps in flight
 constexpr int kMaxDevices = 16;
 constexpr unsigned kAll = 0xffffffffu;
 enum { OP_F = 0, OP_G = 1, OP_COMBINE = 2, OP_LEAF = 3 };
@@ -203,6 +227,19 @@ __device__ __forceinline__ float sgn(float x) {
 }
 
 __device__ __forceinline__ int log2i(int x) { return 31 - __clz(x); }
+
+// A block barrier that a warp may reach split (PTX barrier.sync without
+// .aligned): a per-path step leaves the warp that holds path w - 1 split
+// whenever 32 does not divide w, and __syncthreads (bar.sync, the aligned
+// form) reached so lost a barrier phase on the card in large_scl_lists.cu.
+// The CPU runner's __syncthreads counts threads the same way.
+__device__ __forceinline__ void block_barrier() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.sync 0;" ::: "memory");
+#else
+  __syncthreads();
+#endif
+}
 
 // Each family: the state type, its conversions to and from f32 (load,
 // store), and f, g and the hard decision on f32 values.
@@ -240,9 +277,10 @@ struct Bf16Family {
   __device__ static int hard(float x) { return sign_bit(x); }
 };
 
-// One codeword's state besides the LLR levels and the bit words.
+// One codeword's state besides the LLR levels and the bit words, for a
+// warp (capacities 2 to 32)
 template <int L>
-struct Shared {
+struct WarpShared {
   float M[L];                // metric of each path
   int P[kMaxLevels][L];      // perm of the node open at each level
   float V[L * kMaxCand];     // candidate values by flat code l*C + c
@@ -254,6 +292,27 @@ struct Shared {
   int spc[32];               // SPC_TABLE
 };
 
+// and for a block (capacities 64 and 128): a path index fits a byte, so the
+// perms and the merge's lists in rank order (paths, from SL[c w] for list c)
+// take a byte a path
+template <int L>
+struct BlockShared {
+  float M[L];
+  float V[L * kMaxCand];
+  int pc[L];
+  float pv[L];
+  float ms[4][L];
+  int is[4][L];
+  int par[L];
+  int spc[32];
+  unsigned bad;              // the prune's lists out of rank order, a bit a list
+  uint8_t P[kMaxLevels][L];
+  uint8_t SL[L * kMaxCand];
+};
+
+template <int L>
+using Shared = std::conditional_t<(L > 32), BlockShared<L>, WarpShared<L>>;
+
 // int32 words a packed position holds for a list of capacity L
 template <int L>
 constexpr int kWords = L > 32 ? L / 32 : 1;
@@ -261,7 +320,7 @@ constexpr int kWords = L > 32 ? L / 32 : 1;
 // Shared memory per codeword; `direct`: a one-leaf schedule whose leaf
 // reads its input from device memory (no level state).
 template <int L, class Fam>
-size_t warp_bytes(int span, bool direct) {
+size_t codeword_bytes(int span, bool direct) {
   const size_t n = sizeof(Shared<L>) + (size_t)kWords<L> * span * sizeof(int) +
                    (direct ? 0 : (size_t)L * span * sizeof(typename Fam::State));
   return (n + 15) & ~static_cast<size_t>(15);
@@ -273,7 +332,7 @@ int smem_limit();
 // one leaf, and its staged input would not fit.
 template <int L, class Fam>
 bool reads_direct(int n_ops, int span) {
-  return n_ops == 1 && warp_bytes<L, Fam>(span, false) > static_cast<size_t>(smem_limit());
+  return n_ops == 1 && codeword_bytes<L, Fam>(span, false) > static_cast<size_t>(smem_limit());
 }
 
 // A candidate slot's survivor in a leaf: the path it descends from, its
@@ -283,15 +342,20 @@ struct Slot {
   int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
 };
 
-// One warp's view of its codeword. L is the list's capacity (a power of
-// two), nl the list size (nl <= L): slots at or above nl never become live.
-// kExact: the list fills its capacity (nl == L), a constant of the build.
+// One codeword's team: a warp up to capacity 32, a block of 2 x capacity
+// threads at 64 and 128. L is the list's capacity (a power of two), nl the
+// list size (nl <= L): slots at or above nl never become live. kExact: the
+// list fills its capacity (nl == L), a constant of the build.
 template <int L, class Fam, bool kExact>
-struct Warp {
+struct Team {
   using S = typename Fam::State;
+  static constexpr bool kBlock = L > 32;
+  static constexpr int NT = kBlock ? 2 * L : 32;  // threads a codeword
+  static constexpr int NWARPS = NT / 32;
   static constexpr int NW = kWords<L>;  // packed words a position
+  static constexpr int kPer = L * kMaxCand / NT;  // candidates a thread ranks at most
   static constexpr int kLgL = L == 2 ? 1 : L == 4 ? 2 : L == 8 ? 3 : L == 16 ? 4 : 5;
-  static constexpr int kPer = L >= 32 ? 1 : 32 / L;  // positions per ballot
+  static constexpr int kPerBallot = L >= 32 ? 1 : 32 / L;  // positions per ballot (a warp)
   static constexpr unsigned kMask = L >= 32 ? kAll : (1u << L) - 1u;
 
   Shared<L>& s;
@@ -299,20 +363,24 @@ struct Warp {
   S* X;            // levels d >= 1, or the staged input of a one-leaf subtree
   const S* in;     // the input level 0: element (l, i) at in[(l * span + i) * batch]
   const int* masks;
-  int span, batch, lane, nl_arg;
+  int span, batch, tid, lane, warp, nl_arg;
 
   // the list size
   __device__ int nl() const { return kExact ? L : nl_arg; }
 
-  // f(l) for each path l < w this lane holds: one below 32 paths, else
-  // every 32nd
+  // the team's barrier
+  __device__ static void sync() {
+    if constexpr (kBlock) {
+      block_barrier();
+    } else {
+      __syncwarp();
+    }
+  }
+
+  // f(l) for the path l < w this thread holds (thread l: path l)
   template <class F>
   __device__ void each_path(int w, F f) const {
-    if constexpr (NW == 1) {
-      if (lane < w) f(lane);
-    } else {
-      for (int l = lane; l < w; l += 32) f(l);
-    }
+    if (tid < w) f(tid);
   }
 
   // path l's decision bit at position i
@@ -340,36 +408,37 @@ struct Warp {
     return Fam::load(D ? x[(size_t)i * batch] : x[i]);
   }
 
-  // f from level d (span len) into level d + 1, for paths l < w
+  // f from level d (span len) into level d + 1, for paths l < w: threads
+  // over (path, element) pairs
   __device__ void F(int d, int len, int w) {
     const int h = len >> 1, lh = log2i(h), n = w << lh;
     S* Y = lvl(d + 1);
-    if (d == 0) {  // device memory: kLoads pairs in flight per lane
-      for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+    if (d == 0) {  // device memory: kLoads pairs in flight per thread
+      for (int t0 = tid; t0 < n; t0 += NT * kLoads) {
         float a[kLoads], c[kLoads];
 #pragma unroll
         for (int q = 0; q < kLoads; ++q) {
-          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          const int t = t0 + NT * q, l = t >> lh, i = t & (h - 1);
           a[q] = c[q] = 0.f;
           if (t < n) {
-            const size_t at = (size_t)(l * len + i) * batch;
-            a[q] = Fam::load(in[at]);
-            c[q] = Fam::load(in[at + (size_t)h * batch]);
+            const size_t o = (size_t)(l * len + i) * batch;
+            a[q] = Fam::load(in[o]);
+            c[q] = Fam::load(in[o + (size_t)h * batch]);
           }
         }
 #pragma unroll
         for (int q = 0; q < kLoads; ++q)
-          if (t0 + 32 * q < n) Y[t0 + 32 * q] = Fam::store(Fam::f(a[q], c[q]));
+          if (t0 + NT * q < n) Y[t0 + NT * q] = Fam::store(Fam::f(a[q], c[q]));
       }
     } else {
       const S* Xd = lvl(d);
 #pragma unroll 4
-      for (int t = lane; t < n; t += 32) {
+      for (int t = tid; t < n; t += NT) {
         const int l = t >> lh, i = t & (h - 1);
         Y[t] = Fam::store(Fam::f(Fam::load(Xd[l * len + i]), Fam::load(Xd[l * len + i + h])));
       }
     }
-    __syncwarp();
+    sync();
   }
 
   // g from level d into level d + 1 (node at offset off, whose left half's
@@ -378,45 +447,45 @@ struct Warp {
   __device__ void G(int d, int len, int off, int w) {
     const int h = len >> 1, lh = log2i(h), n = w << lh;
     S* Y = lvl(d + 1);
-    const int* p = s.P[d + 1];  // slots -> parent slots
-    if (d == 0) {  // device memory: kLoads pairs in flight per lane
-      for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+    const auto* p = s.P[d + 1];  // slots -> parent slots
+    if (d == 0) {  // device memory: kLoads pairs in flight per thread
+      for (int t0 = tid; t0 < n; t0 += NT * kLoads) {
         float a[kLoads], c[kLoads];
 #pragma unroll
         for (int q = 0; q < kLoads; ++q) {
-          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          const int t = t0 + NT * q, l = t >> lh, i = t & (h - 1);
           a[q] = c[q] = 0.f;
           if (t < n) {
-            const size_t at = (size_t)(p[l] * len + i) * batch;
-            a[q] = Fam::load(in[at]);
-            c[q] = Fam::load(in[at + (size_t)h * batch]);
+            const size_t o = (size_t)(p[l] * len + i) * batch;
+            a[q] = Fam::load(in[o]);
+            c[q] = Fam::load(in[o + (size_t)h * batch]);
           }
         }
 #pragma unroll
         for (int q = 0; q < kLoads; ++q) {
-          const int t = t0 + 32 * q, l = t >> lh, i = t & (h - 1);
+          const int t = t0 + NT * q, l = t >> lh, i = t & (h - 1);
           if (t < n) Y[t] = Fam::store(Fam::g(a[q], c[q], bit_of(off + i, l)));
         }
       }
     } else {
       const S* Xd = lvl(d);
 #pragma unroll 4
-      for (int t = lane; t < n; t += 32) {
+      for (int t = tid; t < n; t += NT) {
         const int l = t >> lh, i = t & (h - 1);
         const S* x = Xd + p[l] * len + i;
         Y[t] = Fam::store(Fam::g(Fam::load(x[0]), Fam::load(x[h]), bit_of(off + i, l)));
       }
     }
     each_path(w, [&](int l) { s.P[d][l] = p[l]; });
-    __syncwarp();
+    sync();
   }
 
   // the node at level d, offset off: left bits forked through the right
   // child's perm, XOR the right bits; perms composed
   __device__ void combine(int d, int len, int off, int w) {
     const int h = len >> 1;
-    const int* p = s.P[d + 1];  // right child's perm
-    if constexpr (NW == 1) {
+    const auto* p = s.P[d + 1];  // right child's perm
+    if constexpr (NW == 1) {  // lanes over positions, the perm in registers
       int pj[L];
 #pragma unroll
       for (int j = 0; j < L; ++j) pj[j] = j < w ? p[j] : 0;
@@ -427,49 +496,92 @@ struct Warp {
         for (int j = 0; j < L; ++j) fork |= (j < w ? (lw >> pj[j]) & 1 : 0) << j;
         W[off + i] = fork ^ W[off + h + i];
       }
-    } else {  // each word of the fork gathers 32 slots' bits from any word
-      for (int i = lane; i < h; i += 32) {
-        int fork[NW];
+    } else {  // a warp a position: one ballot a word, lane = slot 32 k + lane
+      int src[NW];
 #pragma unroll
-        for (int k = 0; k < NW; ++k) {
-          fork[k] = 0;
-          for (int j = 0; j < 32 && 32 * k + j < w; ++j)
-            fork[k] |= bit_of(off + i, p[32 * k + j]) << j;
-        }
+      for (int k = 0; k < NW; ++k) src[k] = 32 * k + lane < w ? p[32 * k + lane] : -1;
+      for (int i = warp; i < h; i += NWARPS) {
+        unsigned b[NW];
 #pragma unroll
-        for (int k = 0; k < NW; ++k) W[k * span + off + i] = fork[k] ^ W[k * span + off + h + i];
+        for (int k = 0; k < NW; ++k)
+          b[k] = __ballot_sync(kAll, src[k] >= 0 && bit_of(off + i, src[k]));
+        // every word of the position is read (the ballots) before any is written
+#pragma unroll
+        for (int k = 0; k < NW; ++k)
+          if (lane == k) W[k * span + off + i] = static_cast<int>(b[k]) ^ W[k * span + off + h + i];
       }
     }
-    int c[NW];
-    each_path(w, [&](int l) { c[l >> 5] = s.P[d][p[l]]; });
-    __syncwarp();
-    each_path(w, [&](int l) { s.P[d][l] = c[l >> 5]; });
-    __syncwarp();
+    int c = 0;
+    each_path(w, [&](int l) { c = s.P[d][p[l]]; });
+    sync();
+    each_path(w, [&](int l) { s.P[d][l] = c; });
+    sync();
   }
 
   // The K (|x|, index)-smallest entries of each path l < w of the span-len
   // leaf at Xd into s.ms / s.is, and each path's parity of hard decisions
-  // into s.par: a group of 32 / w lanes per path, K rounds of an arg-min
-  // over the entries after the last one taken, each entry keyed by
-  // (|x| bits, index) in one unsigned 64-bit word, which orders as the
-  // pair (|x| >= 0); each lane scans a stride of the span, then the group
-  // takes the minimum by shuffles.
-  // Above 32 paths, 32 at a time, a lane each.
+  // into s.par, each entry keyed by (|x| bits, index) in one unsigned
+  // 64-bit word, which orders as the pair (|x| >= 0). A warp: a group of
+  // 32 / w lanes per path, K rounds of an arg-min over the entries after
+  // the last one taken, each lane scanning a stride of the span, then the
+  // group takes the minimum by shuffles. A block: two threads a path, each
+  // keeping the K smallest keys of every other position in one pass, then
+  // one merge of the pair's lists by a shuffle.
   template <int K, bool D>
   __device__ void weakest(const S* Xd, int len, int w) {
-    if constexpr (NW == 1) {
-      weakest_of<K, D>(Xd, len, w, 0);
+    if constexpr (!kBlock) {
+      weakest_of<K, D>(Xd, len, w);
     } else {
-      for (int base = 0; base < w; base += 32) weakest_of<K, D>(Xd, len, w, base);
+      const int l = tid >> 1, half = tid & 1;
+      unsigned long long best[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) best[k] = ~0ull;
+      int neg = 0;
+      if (l < w) {
+        const S* x = path<D>(Xd, len, l);
+#pragma unroll 4
+        for (int i = half; i < len; i += 2) {
+          const float y = at<D>(x, i);
+          neg ^= Fam::hard(y);
+          keep<K>(best, (static_cast<unsigned long long>(__float_as_uint(fabsf(y))) << 32) |
+                            static_cast<unsigned>(i));
+        }
+      }
+      unsigned long long other[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) other[k] = __shfl_xor_sync(kAll, best[k], 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) keep<K>(best, other[k]);
+      neg ^= __shfl_xor_sync(kAll, neg, 1);
+      if (half == 0 && l < w) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          s.ms[k][l] = __uint_as_float(static_cast<unsigned>(best[k] >> 32));
+          s.is[k][l] = static_cast<int>(best[k] & 0xffffffffu);
+        }
+        s.par[l] = neg;
+      }
     }
-    __syncwarp();
+    sync();
+  }
+
+  // key into the ascending list best[0..K), the largest falling off
+  template <int K>
+  __device__ static void keep(unsigned long long (&best)[K], unsigned long long key) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (key < best[k]) {
+        const unsigned long long t = best[k];
+        best[k] = key;
+        key = t;
+      }
+    }
   }
 
   template <int K, bool D>
-  __device__ void weakest_of(const S* Xd, int len, int w, int base) {
-    const int wc = NW == 1 ? w : (w - base < 32 ? w - base : 32);
-    const int lgg = 5 - (wc > 1 ? 32 - __clz(wc - 1) : 0);
-    const int g = 1 << lgg, l = base + (lane >> lgg), gl = lane & (g - 1);
+  __device__ void weakest_of(const S* Xd, int len, int w) {
+    const int lgg = 5 - (w > 1 ? 32 - __clz(w - 1) : 0);
+    const int g = 1 << lgg, l = lane >> lgg, gl = lane & (g - 1);
     const S* x = path<D>(Xd, len, l);
     unsigned long long prev = 0;
     int neg = 0;
@@ -543,17 +655,21 @@ struct Warp {
     return 0.5f * (sc - s.ms[0][l]);
   }
 
-  // Top-min(nl, T) of the T candidate values in s.V into s.pc / s.pv (slot
-  // -> code, value): a candidate's slot is its rank under (value desc,
-  // code asc); while T <= nl every candidate keeps its code as its slot.
-  // Returns the new width.
-  __device__ int prune(int T) {
+  // Top-min(nl, T) of the T = w x nc candidate values in s.V into s.pc /
+  // s.pv (slot -> code, value): a candidate's slot is its rank under
+  // (value desc, code asc), each candidate taken once; while T <= nl every
+  // candidate keeps its code as its slot. A warp ranks each candidate
+  // against all T values, a lane holding its candidates in registers; a
+  // block merges lists (merge). Returns the new width.
+  __device__ int prune(int T, int w, int nc) {
     const int nl = this->nl();
     if (T <= nl) {
-      for (int t = lane; t < T; t += 32) {
+      for (int t = tid; t < T; t += NT) {
         s.pc[t] = t;
         s.pv[t] = s.V[t];
       }
+    } else if constexpr (kBlock) {
+      merge(w, log2i(nc));
     } else {
       const int per = (T + 31) >> 5;
       if (per == 1)
@@ -564,25 +680,23 @@ struct Warp {
         rank<4>(T);
       else if (per <= 8)
         rank<(L < 8 ? L : 8)>(T);
-      else if constexpr (L <= 32)
+      else
         rank<L>(T);
-      else  // passes of 32 candidates a lane over all T values
-        for (int base = 0; base < T; base += 32 * 32) rank<32>(T, base);
     }
-    __syncwarp();
+    sync();
     return T < nl ? T : nl;
   }
 
-  // The ranks of candidates base + lane + 32 r (r < R), each counting the
+  // The ranks of candidates lane + 32 r (r < R), each counting the
   // candidates that beat it, in one pass over all T values; slot = rank.
   template <int R>
-  __device__ void rank(int T, int base = 0) {
+  __device__ void rank(int T) {
     const int nl = this->nl();
     float v[R];
     int n[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      v[r] = base + lane + 32 * r < T ? s.V[base + lane + 32 * r] : 0.f;
+      v[r] = lane + 32 * r < T ? s.V[lane + 32 * r] : 0.f;
       n[r] = 0;
     }
 #pragma unroll 4
@@ -590,14 +704,115 @@ struct Warp {
       const float o = s.V[u];
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        n[r] += (o > v[r]) | ((o == v[r]) & (u < base + lane + 32 * r));
+        n[r] += (o > v[r]) | ((o == v[r]) & (u < lane + 32 * r));
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int t = base + lane + 32 * r;
+      const int t = lane + 32 * r;
       if (t < T && n[r] < nl) {
         s.pc[n[r]] = t;
         s.pv[n[r]] = v[r];
+      }
+    }
+  }
+
+  // how many of the n entries of list c (C = 1 << lgc lists of w paths)
+  // from place a on, in rank order, beat candidate t of value v: a binary
+  // search, an entry's value read through its path
+  __device__ int beaten_by(int c, int lgc, int w, int a, int n, float v, int t) const {
+    const uint8_t* list = s.SL + c * w + a;
+    int lo = 0;
+    while (n > 0) {
+      const int half = n >> 1;
+      const int u = (static_cast<int>(list[lo + half]) << lgc) | c;
+      const float o = s.V[u];
+      if (o > v || (o == v && u < t)) {
+        lo += half + 1;
+        n -= half + 1;
+      } else {
+        n = half;
+      }
+    }
+    return lo;
+  }
+
+  // A block's prune of T = w << lgc > nl candidates: top-nl into s.pc /
+  // s.pv by merging the C = 1 << lgc lists (list c: candidates (l, c), l <
+  // w, in path order). Each list's order is checked (a warp OR of
+  // "v_l < v_{l+1}", one shared atomic a warp); a list in rank order is
+  // taken as it is, a list out of order is ranked in runs of 32 paths (each
+  // candidate counts the others of its run) and its runs merged by binary
+  // search. A candidate's rank is then its place in its own list plus, for
+  // each other list, a binary search for how many of it beat the candidate,
+  // the searches stopping once the sum reaches nl (no slot). Each thread
+  // holds its candidates' places (codes tid + NT q) from step to step;
+  // slots r < nl take rank r.
+  __device__ void merge(int w, int lgc) {
+    const int C = 1 << lgc, T = w << lgc, nl = this->nl();
+    unsigned bad = 0;
+    for (int t = tid; t < T; t += NT)
+      if (t + C < T && s.V[t] < s.V[t + C]) bad |= 1u << (t & (C - 1));
+    bad = __reduce_or_sync(kAll, bad);
+    if (lane == 0 && bad) atomicOr(&s.bad, bad);
+    sync();
+    const unsigned unsorted = s.bad;
+    int place[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int t = tid + q * NT;
+      if (t >= T) break;
+      const int l = t >> lgc, c = t & (C - 1);
+      int r = l;
+      if ((unsorted >> c) & 1) {  // its place in its run of 32 paths
+        const float v = s.V[t];
+        const int g = l & ~31, e = min(g + 32, w);
+        r = g;
+        for (int u = g; u < e; ++u) {
+          const float o = s.V[(u << lgc) | c];
+          r += (o > v) | ((o == v) & (u < l));
+        }
+      }
+      place[q] = r;
+      s.SL[c * w + r] = static_cast<uint8_t>(l);
+    }
+    sync();
+    if (tid == 0) s.bad = 0;  // for the next prune, past one more barrier
+    if (unsorted && w > 32) {  // a list out of order: its runs merged
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int t = tid + q * NT;
+        if (t >= T) break;
+        const int l = t >> lgc, c = t & (C - 1);
+        if (!((unsorted >> c) & 1)) continue;
+        const float v = s.V[t];
+        const int g = l & ~31;
+        int r = place[q] - g;
+        for (int a = 0; a < w; a += 32)
+          if (a != g) r += beaten_by(c, lgc, w, a, min(32, w - a), v, t);
+        place[q] = r;
+      }
+      sync();
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int t = tid + q * NT;
+        if (t >= T) break;
+        const int c = t & (C - 1);
+        if ((unsorted >> c) & 1) s.SL[c * w + place[q]] = static_cast<uint8_t>(t >> lgc);
+      }
+      sync();
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int t = tid + q * NT;
+      if (t >= T) break;
+      const int c = t & (C - 1);
+      const float v = s.V[t];
+      int r = place[q];
+      for (int c2 = 0; c2 < C && r < nl; ++c2)  // a rank past nl takes no slot
+        if (c2 != c) r += beaten_by(c2, lgc, w, 0, w, v, t);
+      if (r < nl) {
+        s.pc[r] = t;
+        s.pv[r] = v;
       }
     }
   }
@@ -629,14 +844,19 @@ struct Warp {
     return t;
   }
 
+  // slot t's decision at position i, its source path's hard decision there
+  // being `hard` (not read by REP and ENUM)
+  __device__ static int decide(const Slot& t, int kind, int hard, int i) {
+    if (kind == K_REP) return t.c != 0;
+    if (kind == K_ENUM) return (t.emask >> i) & 1;
+    return hard ^ (((t.fm & 1) && i == t.i0) | ((t.fm & 2) && i == t.i1) |
+                   ((t.fm & 4) && i == t.i2) | ((t.fm & 8) && i == t.i3));
+  }
+
   // slot t's decision at position i of its path's input xs
   template <bool D>
   __device__ int slot_bit(const Slot& t, int kind, const S* xs, int i) const {
-    if (kind == K_REP) return t.c != 0;
-    if (kind == K_ENUM) return (t.emask >> i) & 1;
-    return Fam::hard(at<D>(xs, i)) ^
-           (((t.fm & 1) && i == t.i0) | ((t.fm & 2) && i == t.i1) | ((t.fm & 4) && i == t.i2) |
-            ((t.fm & 8) && i == t.i3));
+    return decide(t, kind, kind == K_REP || kind == K_ENUM ? 0 : Fam::hard(at<D>(xs, i)), i);
   }
 
   // LEAF: candidates, prune, decision bits, the survivors' metrics and perm;
@@ -653,10 +873,9 @@ struct Warp {
         s.M[l] = s.M[l] + acc;
         s.P[d][l] = l;
       });
-#pragma unroll
-      for (int k = 0; k < NW; ++k)
-        for (int i = lane; i < len; i += 32) W[k * span + off + i] = 0;
-      __syncwarp();
+      const int lg = log2i(len);
+      for (int t = tid; t < (NW << lg); t += NT) W[(t >> lg) * span + off + (t & (len - 1))] = 0;
+      sync();
       return;
     }
     K1_CLOCK(tp);
@@ -672,17 +891,17 @@ struct Warp {
         for (int i = 0; i < len; ++i) sa = sa + fabsf(at<D>(x, i));
         s.ms[0][l] = sa;
       });
-      __syncwarp();
+      sync();
     }
     K1_TICK(8, tp);
     const int T = w * nc;
-    for (int t = lane; t < T; t += 32) {
+    for (int t = tid; t < T; t += NT) {
       const int l = t / nc, c = t - l * nc;
       s.V[t] = s.M[l] + delta<D>(kind, path<D>(Xd, len, l), len, l, c, aux);
     }
-    __syncwarp();
+    sync();
     K1_TICK(9, tp);
-    const int w2 = prune(T);
+    const int w2 = prune(T, w, nc);
     K1_TICK(10, tp);
 
     if constexpr (NW == 1) {
@@ -691,23 +910,33 @@ struct Warp {
       const int j = lane & (L - 1);
       const Slot t = slot(j, w2, kind, len, aux, nc);
       const S* xs = path<D>(Xd, len, t.src);
-      for (int base = 0; base < len; base += kPer) {
+      for (int base = 0; base < len; base += kPerBallot) {
         const int i = base + (lane >> kLgL);
         const int bit = j < w2 && i < len ? slot_bit<D>(t, kind, xs, i) : 0;
         const unsigned b = __ballot_sync(kAll, bit);
-        if (lane < kPer && base + lane < len)
+        if (lane < kPerBallot && base + lane < len)
           W[off + base + lane] = static_cast<int>((b >> (lane * L)) & kMask);
       }
     } else {
-      // word k: lane = slot 32 k + lane, one ballot a position
-#pragma unroll 1
-      for (int k = 0; k < NW; ++k) {
-        const int j = 32 * k + lane;
+      // a warp per (word k, 32 positions), lane = slot 32 k + lane: each
+      // lane first reads its source path's 32 inputs, then one ballot a
+      // position
+      const int chunks = (len + 31) >> 5;
+      for (int pair = warp; pair < NW * chunks; pair += NWARPS) {
+        const int k = pair / chunks, i0 = (pair - k * chunks) << 5, j = 32 * k + lane;
+        const int n = len - i0 < 32 ? len - i0 : 32;
         const Slot t = slot(j, w2, kind, len, aux, nc);
-        const S* xs = path<D>(Xd, len, t.src);
-        for (int i = 0; i < len; ++i) {
-          const unsigned b = __ballot_sync(kAll, j < w2 ? slot_bit<D>(t, kind, xs, i) : 0);
-          if ((i & 31) == lane) W[k * span + off + i] = static_cast<int>(b);
+        unsigned hard = 0;  // bit q: the source path's hard decision at i0 + q
+        if (j < w2 && kind != K_REP && kind != K_ENUM) {
+          const S* xs = path<D>(Xd, len, t.src);
+#pragma unroll 8
+          for (int q = 0; q < n; ++q)
+            hard |= static_cast<unsigned>(Fam::hard(at<D>(xs, i0 + q))) << q;
+        }
+        for (int q = 0; q < n; ++q) {
+          const int bit = j < w2 && decide(t, kind, (hard >> q) & 1, i0 + q);
+          const unsigned b = __ballot_sync(kAll, bit);
+          if (lane == q) W[k * span + off + i0 + q] = static_cast<int>(b);
         }
       }
     }
@@ -716,45 +945,50 @@ struct Warp {
       s.M[l] = s.pv[l];
       s.P[d][l] = s.pc[l] / nc;
     });
-    __syncwarp();
+    sync();
     w = w2;
   }
 };
 
 template <int L, class Fam, bool kExact>
-__global__ void __launch_bounds__(32 * kMaxPerBlock)
+__global__ void __launch_bounds__(L > 32 ? 2 * L : 32 * kMaxPerBlock)
 scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict__ enum_masks,
                    const int* __restrict__ spc_tab, const typename Fam::State* __restrict__ llr,
                    const float* __restrict__ met_in, int* __restrict__ bits,
                    int* __restrict__ perm_out, float* __restrict__ met_out, int list_size,
-                   int w_in, int w_out, int span, int batch, int per_warp, int direct) {
+                   int w_in, int w_out, int span, int batch, int per_team, int direct) {
+  using Tm = Team<L, Fam, kExact>;
   using S = typename Fam::State;
+  constexpr int NT = Tm::NT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= batch) return;  // the whole warp: no collective is left behind
-  unsigned char* mine = smem + (size_t)warp * per_warp;
+  const int team = threadIdx.x / NT, tid = threadIdx.x % NT;
+  const int b = blockIdx.x * (blockDim.x / NT) + team;
+  if (b >= batch) return;  // the whole team: no collective is left behind
+  unsigned char* mine = smem + (size_t)team * per_team;
   Shared<L>& s = *reinterpret_cast<Shared<L>*>(mine);
   int* W = reinterpret_cast<int*>(mine + sizeof(Shared<L>));
   S* X = reinterpret_cast<S*>(W + kWords<L> * span);
   K1_CLOCK(tk);
-  Warp<L, Fam, kExact> wp{s, W, X, llr + b, enum_masks, span, batch, lane, list_size};
+  Tm tm{s, W, X, llr + b, enum_masks, span, batch, tid, tid & 31, tid >> 5, list_size};
 
-  wp.each_path(w_in, [&](int l) { s.M[l] = met_in[(size_t)b * w_in + l]; });
-  s.spc[lane] = spc_tab[lane];
+  tm.each_path(w_in, [&](int l) { s.M[l] = met_in[(size_t)b * w_in + l]; });
+  if (tid < 32) s.spc[tid] = spc_tab[tid];
+  if constexpr (Tm::kBlock) {
+    if (tid == 0) s.bad = 0;
+  }
   if (ops[0] == OP_LEAF && !direct) {  // a one-leaf subtree reads its input from shared memory
     const int n = w_in * span;
-    for (int t0 = lane; t0 < n; t0 += 32 * kLoads) {
+    for (int t0 = tid; t0 < n; t0 += NT * kLoads) {
       S v[kLoads];
 #pragma unroll
       for (int q = 0; q < kLoads; ++q)
-        if (t0 + 32 * q < n) v[q] = llr[(size_t)(t0 + 32 * q) * batch + b];
+        if (t0 + NT * q < n) v[q] = llr[(size_t)(t0 + NT * q) * batch + b];
 #pragma unroll
       for (int q = 0; q < kLoads; ++q)
-        if (t0 + 32 * q < n) X[t0 + 32 * q] = v[q];
+        if (t0 + NT * q < n) X[t0 + NT * q] = v[q];
     }
   }
-  __syncwarp();
+  tm.sync();
 
   int w = w_in;
   int op[7];
@@ -768,15 +1002,15 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
     const int code = op[0], d = op[1], len = op[2], off = op[3];
     K1_CLOCK(t0);
     if (code == OP_F)
-      wp.F(d, len, w);
+      tm.F(d, len, w);
     else if (code == OP_G)
-      wp.G(d, len, off, w);
+      tm.G(d, len, off, w);
     else if (code == OP_COMBINE)
-      wp.combine(d, len, off, w);
+      tm.combine(d, len, off, w);
     else if (direct)
-      wp.template leaf<true>(d, len, off, op[4], op[5], op[6], w);
+      tm.template leaf<true>(d, len, off, op[4], op[5], op[6], w);
     else
-      wp.template leaf<false>(d, len, off, op[4], op[5], op[6], w);
+      tm.template leaf<false>(d, len, off, op[4], op[5], op[6], w);
     K1_TICK(code == OP_LEAF ? 3 + op[4] : code < 2 && d == 0 ? 13 + code : code, t0);
 #pragma unroll
     for (int q = 0; q < 7; ++q) op[q] = next[q];
@@ -784,9 +1018,9 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
 
   K1_TICK(12, tk);
   // ceil(list_size / 32) words leave (3 for 65-96 paths in capacity 128)
-  const int out_words = kWords<L> == 1 ? 1 : (wp.nl() + 31) >> 5;
-  for (int i = lane; i < out_words * span; i += 32) bits[(size_t)i * batch + b] = W[i];
-  wp.each_path(w_out, [&](int l) {
+  const int out_words = kWords<L> == 1 ? 1 : (tm.nl() + 31) >> 5;
+  for (int i = tid; i < out_words * span; i += NT) bits[(size_t)i * batch + b] = W[i];
+  tm.each_path(w_out, [&](int l) {
     perm_out[(size_t)b * w_out + l] = s.P[0][l];
     met_out[(size_t)b * w_out + l] = s.M[l];
   });
@@ -807,15 +1041,17 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
            int list_size, int w_in, int w_out, int span, int batch, int per_block,
            cudaStream_t stream) {
   using S = typename Fam::State;
+  constexpr int NT = Team<L, Fam, kExact>::NT;
   const bool direct = reads_direct<L, Fam>(n_ops, span);
-  const size_t per_warp = warp_bytes<L, Fam>(span, direct);
+  const size_t per_team = codeword_bytes<L, Fam>(span, direct);
   const size_t limit = static_cast<size_t>(smem_limit());
-  if (per_warp > limit) return -2;
-  // codewords per block: one while the batch leaves SMs idle, then four
-  int cw = per_block > 0 ? per_block : (batch >= 4 * 132 ? 4 : 1);
+  if (per_team > limit) return -2;
+  // codewords per block: a block's team takes one; warps one while the
+  // batch leaves SMs idle, then four
+  int cw = NT > 32 ? 1 : per_block > 0 ? per_block : (batch >= 4 * 132 ? 4 : 1);
   cw = cw > kMaxPerBlock ? kMaxPerBlock : cw;
-  while (cw > 1 && cw * per_warp > limit) cw >>= 1;
-  const size_t smem = cw * per_warp;
+  while (cw > 1 && cw * per_team > limit) cw >>= 1;
+  const size_t smem = cw * per_team;
   auto kernel = scl_subtree_kernel<L, Fam, kExact>;
   static int raised[kMaxDevices] = {};  // the kernel's shared-memory limit set per card
   int dev = 0;
@@ -826,9 +1062,9 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) raised[dev] = static_cast<int>(smem);
   }
-  kernel<<<(batch + cw - 1) / cw, 32 * cw, smem, stream>>>(
+  kernel<<<(batch + cw - 1) / cw, NT * cw, smem, stream>>>(
       ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met, bits, perm, met_out,
-      list_size, w_in, w_out, span, batch, static_cast<int>(per_warp), static_cast<int>(direct));
+      list_size, w_in, w_out, span, batch, static_cast<int>(per_team), static_cast<int>(direct));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -874,7 +1110,7 @@ int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x
 
 template <int L, class Fam>
 int bytes_at(int span, int n_ops) {
-  return static_cast<int>(warp_bytes<L, Fam>(span, reads_direct<L, Fam>(n_ops, span)));
+  return static_cast<int>(codeword_bytes<L, Fam>(span, reads_direct<L, Fam>(n_ops, span)));
 }
 
 template <class Fam>

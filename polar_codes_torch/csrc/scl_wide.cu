@@ -35,9 +35,11 @@
 // its per-bit walk, or goes on into them.
 //
 // Mapping: one block per codeword, ops separated by a block barrier (PTX
-// barrier.sync without .aligned, which a split warp may reach): 256
-// threads for K1, 1024 for K7 (a thread per candidate of a bit up to L =
-// 512). Level 0 is read where the input lies; the LLR levels d >= 1 (L x
+// barrier.sync without .aligned, which a split warp may reach): 1024
+// threads for K1 and for K7 (K7: a thread per candidate of a bit up to L =
+// 512). Level 0 is read where the input lies, at the strides the caller
+// gives (K1: the large-N glue hands over its batch-first leaves as views,
+// so a codeword's paths lie side by side); the LLR levels d >= 1 (L x
 // (span - 1) values of the state type) lie in a device-memory scratch of
 // the wrapper's ([B] x `scratch` bytes from PyTorch's caching allocator
 // on the call's stream, codeword b's at b x scratch). The bookkeeping
@@ -58,53 +60,67 @@
 //             replaced at once (a word reads every other word, so none
 //             is written before all are read);
 //   LEAF      a thread per path for the weakest magnitudes (one pass
-//             keeping the K smallest (|x|, index) keys) and the sums; a
-//             thread per candidate for its value; the prune; the decision
-//             bits a warp per (word, 32 positions), one ballot a
-//             position, lane = slot 32 k + lane.
+//             keeping the K smallest (|x|, index) keys) and the sums, K1's
+//             loads 16 positions of the path at a time; a thread per
+//             candidate for its value; the prune; the decision bits a warp
+//             per (word, 32 positions), one ballot a position, lane = slot
+//             32 k + lane, K1's lanes loading their 32 inputs first.
 // The prune ranks the T = w x C candidates by (value descending, flat
 // code l*C + c ascending) and keeps the rule of the kernel it stands in
-// for. K1: a bitonic sort of the T keys in shared memory, log2(T)
-// (log2(T) + 1) / 2 stages of T / 2 compare-exchanges; each candidate
-// taken once (slots r < min(T, L) take rank r; while T <= L every
-// candidate keeps its code as its slot). K7: a merge of the C lists (list
-// c = candidates (l, c) in path order), with the TPU kernel's _NEG
-// re-take rule (with k values above _NEG, slots r < max(k, 1) take rank r
-// and every later slot the smallest code among those taken and those
-// exactly at _NEG, with value _NEG; ops/large_kernel.py prune_by_rank).
-// Every prune leaves its slots in rank order, so at an information bit
-// the keep list (value m_l) is in rank order already; the block checks
-// each list (a warp OR of "v_l < v_{l+1}", one shared atomic a warp). A
-// list out of order (a chunk's entry, frozen bits, sub-blocks) is ranked
-// in runs of 32 paths (each candidate counts the others of its run) and
-// its runs merged by binary search. A candidate's rank is its place in its
-// own list plus, for each other list, a binary search for how many of it
-// beat the candidate: at an information bit at L = 256, 32 compares and
-// 8 searches a candidate, where the bitonic sort of the 512 keys took 45
-// barrier stages. An ordered list holds paths only (the work array's 8
-// bytes a candidate: the lists and each candidate's place); a search step
-// reads an entry's value through its path.
+// for: K1 takes each candidate once (slots r < min(T, L) take rank r;
+// while T <= L every candidate keeps its code as its slot); K7 keeps the
+// TPU kernel's _NEG re-take rule (with k values above _NEG, slots r <
+// max(k, 1) take rank r and every later slot the smallest code among those
+// taken and those exactly at _NEG, with value _NEG; ops/large_kernel.py
+// prune_by_rank). Both merge the C lists (list c = candidates (l, c) in
+// path order). Every prune leaves its slots in rank order, so the keep
+// list (value m_l) is often in rank order already; the block checks each
+// list (a warp OR of "v_l < v_{l+1}", one shared atomic a warp). A list out
+// of order (a chunk's entry, frozen bits, sub-blocks, most lists of an
+// SPC or ENUM leaf) is ranked in runs of 32 paths (each candidate counts
+// the others of its run). K7 merges a list's runs by binary search, and a
+// candidate's rank is its place in its own list plus, for each other list,
+// a binary search for how many of it beat the candidate: at an
+// information bit at L = 256, 32 compares and 8 searches a candidate. K1,
+// whose leaves have up to 32 candidates a path, merges pairwise instead:
+// first a list's runs, then the lists, log2(C) rounds, each list cut at L
+// entries (an entry past place L can never take a slot), one binary
+// search an entry a round; at an ENUM leaf of 16 candidates at L = 256
+// that is 3 + 4 searches where ranking against every list took 7 + 15,
+// and the bitonic sort this kernel's K1 had before took 78 barrier
+// stages. The lists hold codes (the work array's 8 bytes a candidate: two
+// halves that K1's rounds read and write in turn, K7's lists and places);
+// a search step reads an entry's value through its code.
 //
 // What bounds it on an H100: the dependent chain of one codeword's block
 // steps, each closed by a barrier, at one block per codeword (B
-// blocks over 132 SMs): per leaf the prune's barriers and compare chain
-// (K1: the sort's O(log^2 T) barriers), per F, G and COMBINE one or two
-// barriers and the level's reads and writes, which stay in the 50 MB L2
-// at the batches of the paths. Bytes (each input read once, each output
-// written once) and arithmetic are far below that (chip_smoke.py prints
-// both beside the time). Measured (chip_profile.py k7_lists_ab, NVIDIA
-// H100 80GB HBM3 at 700 W, a decode's K7 calls back to back, the parent's
-// 256-thread kernel with the bitonic sort in the same run): 1.105-1.107
-// ms a call at L = 256, B = 32 (parent 1.271-1.273; 512 threads
-// 1.198-1.200, 256 threads 1.877-1.879); char at L = 256 2.692-2.695
-// (3.066-3.069); L = 128 on chunks of 512 1.242-1.248 (1.467-1.474). K1
-// at L = 256: 3.9-4.5 ms a (1024, 512) decode at B = 256.
+// blocks over 132 SMs, one block an SM at 1024 threads: a launch of more
+// than 132 codewords runs in waves): per leaf the prune's barriers and
+// search chains, per F, G and COMBINE one or two barriers and the level's
+// reads and writes, which stay in the 50 MB L2 at the batches of the
+// paths; on the large-N tree's long leaves the reads of the leaf's input.
+// Bytes (each input read once, each output written once) and arithmetic
+// are far below that (chip_smoke.py prints both beside the time).
+// Measured (chip_profile.py k1_lists_ab and k7_lists_ab, NVIDIA H100 80GB
+// HBM3 at 700 W, a decode's calls back to back, the parent's kernel in
+// the same process): K1, the 30 pure leaves of a (32768, 16384) CA-SCL-256
+// tree decode at B = 32, 4.42-4.61 ms (the 256-thread kernel with the
+// bitonic sort, on the contiguous copies the glue made for it, 8.99-9.33;
+// 512 threads 4.49-4.66, 256 threads 5.08-5.23); the 8 calls of a (1024, 512)
+// CA-SCL-512 decode at B = 64 3.55-3.74 (4.34-4.63); of a CA-SCL-256 one
+// at B = 256 3.94-4.26 in every family (3.26-4.02: two waves of 132
+// codewords against the old kernel's 256 at once; 512 threads 4.05-4.33);
+// a codeword's chain there 3.8M cycles (6.8M), 42% of it the prunes, 27%
+// F, G and COMBINE (k1_wide_ops probes). K7: 1.139-1.140 ms a call at L =
+// 256, B = 32 (1.126-1.129 in the same process; K7 at 256 threads
+// 1.877-1.879); char at L = 256 2.692-2.695; L = 128 on chunks of 512
+// 1.242-1.248.
 //
 // Numerics: every sum is sequential over the span in f32 on one thread,
 // in the plain versions' order, and the build disables FMA contraction;
-// the sort keys and the merge's float compares order -0.0 and +0.0 as
-// equal (ties by code), as the plain versions' rank comparisons do; so
-// kernel and plain versions agree bit for bit in every family.
+// the merge's float compares order -0.0 and +0.0 as equal (ties by code),
+// as the plain versions' rank comparisons do; so kernel and plain
+// versions agree bit for bit in every family.
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int scl_wide_plan(int list_size, int span, int levels, int ncand,
@@ -114,7 +130,8 @@
 //     3 K7's char (f32 state). Returns 0, or -1 for a bad argument.
 //   int scl_subtree_wide(const int *ops, int n_ops, const int *enum_masks,
 //                        const int *spc_tab, const void *llr,
-//                        const float *met, int *bits, int *perm,
+//                        long long llr_sl, long long llr_si,
+//                        long long llr_sb, const float *met, int *bits, int *perm,
 //                        float *met_out, void *scratch, int list_size,
 //                        int w_in, int w_out, int span, int levels,
 //                        int ncand, int batch, int family,
@@ -135,11 +152,42 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifdef K1W_PROFILE
+// Cycles of K1's entry per op kind and leaf phase, summed by thread 0 of
+// every block at the block's barriers (K7's launches add nothing), and
+// their counts at slot + 32 (chip_profile.py k1_wide_ops builds with
+// -DK1W_PROFILE and reads them with scl_wide_profile): 0-2 F, G, COMBINE;
+// 3-7 leaves by kind; 8 a leaf's weakest, 9 its candidates, 10 its prune,
+// 11 its decision bits with the survivors' metrics and perms, 12 the whole
+// schedule, 13 a leaf's sums (rate-0's, ENUM's sum of |x|).
+__device__ unsigned long long k1w_prof[64];
+#define K1W_CLOCK(t) long long t = clock64()
+#define K1W_TICK(slot, t)                                                      \
+  do {                                                                         \
+    const long long now_ = clock64();                                          \
+    if (!K7 && tid == 0) {                                                     \
+      atomicAdd(&k1w_prof[slot], static_cast<unsigned long long>(now_ - (t))); \
+      atomicAdd(&k1w_prof[(slot) + 32], 1ull);                                 \
+    }                                                                          \
+    t = now_;                                                                  \
+  } while (0)
+extern "C" int scl_wide_profile(unsigned long long* out) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, k1w_prof, sizeof(k1w_prof));
+  const unsigned long long zero[64] = {};
+  return static_cast<int>(err != cudaSuccess ? err
+                                             : cudaMemcpyToSymbol(k1w_prof, zero, sizeof(zero)));
+}
+#else
+#define K1W_CLOCK(t)
+#define K1W_TICK(slot, t)
+#endif
+
 namespace {
 
-constexpr int kThreadsK1 = 256;  // one block a codeword: K1's
+constexpr int kThreadsK1 = 1024;  // one block a codeword: K1's
 constexpr int kThreadsK7 = 1024;  // K7's (a thread per candidate of a bit up to L = 512)
-constexpr int kMaxWarps = kThreadsK7 / 32;
+constexpr int kMaxWarps = (kThreadsK1 > kThreadsK7 ? kThreadsK1 : kThreadsK7) / 32;
+constexpr int kTile = 16;  // positions of a path a thread loads at once
 constexpr int kOpWords = 8;
 constexpr int kMaxLevels = 16;
 constexpr int kStatic = 1024;  // shared bytes kept for the static arrays
@@ -217,9 +265,8 @@ struct ChunkCharFamily {
 // One codeword's arrays besides the LLR levels, in the order they claim
 // shared memory: metrics, perms [levels][L], prune slots (code, value),
 // weakest magnitudes and indices [4][L], SPC parities, bit words
-// [W][span], candidate values [L x C], and a work array (K1: the prune's
-// sort keys; K7: the merge's ordered lists and places; or a combine's
-// staged words).
+// [W][span], candidate values [L x C], and a work array (the prune's
+// ordered lists and places, or a combine's staged words).
 enum { A_M, A_P, A_PC, A_PV, A_MS, A_IS, A_PAR, A_W, A_V, A_WORK, kArrays };
 
 struct Plan {
@@ -231,12 +278,6 @@ struct Plan {
 
 long long round16(long long n) { return (n + 15) & ~15LL; }
 
-long long pow2_at_least(long long x) {
-  long long p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
 // The levels d >= 1 open the scratch; each array then takes shared memory
 // while `budget` has room for it, else the scratch.
 Plan make_plan(int nl, int span, int levels, int ncand, int state_bytes, long long budget) {
@@ -247,10 +288,9 @@ Plan make_plan(int nl, int span, int levels, int ncand, int state_bytes, long lo
   p.levels = levels;
   p.ncand = ncand;
   const long long T = (long long)nl * ncand;
-  // K1's sort keys, K7's merge (ordered lists and places: 8 T bytes), or a
-  // combine's staged words
-  long long work = 8 * pow2_at_least(T);
-  work = work > 2LL * p.words * span ? work : 2LL * p.words * span;
+  // the merge (ordered lists and places: 8 T bytes), or a combine's staged
+  // words
+  const long long work = 8 * T > 2LL * p.words * span ? 8 * T : 2LL * p.words * span;
   const long long bytes[kArrays] = {4LL * nl, 4LL * levels * nl, 4LL * nl, 4LL * nl,
                                     16LL * nl, 16LL * nl, 4LL * nl, 4LL * p.words * span,
                                     4 * T, work};
@@ -300,8 +340,8 @@ struct Slot {
   int src = 0, c = 0, fm = 0, i0 = -1, i1 = -1, i2 = -1, i3 = -1, emask = 0;
 };
 
-// One block's view of its codeword: K1's (NT = 256, the bitonic prune
-// with K1's take-once rule) or K7's (NT = 1024, the prune by merge with the
+// One block's view of its codeword: K1's (kThreadsK1 threads, the prune by
+// merge with K1's take-once rule) or K7's (kThreadsK7, the merge with the
 // _NEG re-take rule).
 template <class Fam, bool K7>
 struct Block {
@@ -317,10 +357,9 @@ struct Block {
   int* par;
   int* W;  // word k of position i at W[k span + i]
   float* V;
-  unsigned long long* keys;  // the work array, as K1's sort keys
   int* tmp;                  // the work array, as staged words
-  int* SL;                   // the work array, as K7's ordered lists (the
-  int* R;                    // paths, list c from SL[c w]) and places
+  int* SL;                   // the work array, as the prune's ordered lists
+  int* R;                    // (codes, list c from SL[c w]) and places
   S* X;                      // levels d >= 1
   const S* in;               // level 0: element (l, i) at in[l sl + i si]
   long long sl, si;
@@ -352,6 +391,26 @@ struct Block {
   // element i of path l of the span-len node at level d, as f32
   __device__ float at(int d, int len, int l, int i) const {
     return Fam::load(d == 0 ? in[l * sl + i * si] : lvl(d)[(size_t)l * len + i]);
+  }
+
+  // fn(i, x) for the positions i of path l of the span-len node at level d,
+  // in span order, kTile at a time: each tile's loads issued together (a
+  // 64-byte run where the path's positions lie side by side: a level of
+  // the scratch, a batch-first input), then fn on them
+  template <class Fn>
+  __device__ void each_tile(int d, int len, int l, Fn fn) const {
+    if constexpr (K7) {  // short leaves (sub-blocks, bits): one at a time
+      for (int i = 0; i < len; ++i) fn(i, at(d, len, l, i));
+      return;
+    }
+    for (int i0 = 0; i0 < len; i0 += kTile) {
+      float x[kTile];
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) x[q] = i0 + q < len ? at(d, len, l, i0 + q) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kTile; ++q)
+        if (i0 + q < len) fn(i0 + q, x[q]);
+    }
   }
 
   __device__ int block_sum(int v) {
@@ -431,8 +490,7 @@ struct Block {
 #pragma unroll
       for (int k = 0; k < K; ++k) best[k] = ~0ull;
       int neg = 0;
-      for (int i = 0; i < len; ++i) {
-        const float y = at(d, len, l, i);
+      each_tile(d, len, l, [&](int i, float y) {
         neg ^= Fam::hard(y);
         unsigned long long key =
             (static_cast<unsigned long long>(__float_as_uint(fabsf(y))) << 32) |
@@ -445,7 +503,7 @@ struct Block {
             key = t;
           }
         }
-      }
+      });
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         ms[k * nl + l] = __uint_as_float(static_cast<unsigned>(best[k] >> 32));
@@ -462,10 +520,10 @@ struct Block {
     if (kind == K_REP) {
       float acc = 0.f;
       if (c == 0) {
-        for (int i = 0; i < len; ++i) acc = acc + fminf(at(d, len, l, i), 0.f);
+        each_tile(d, len, l, [&](int, float x) { acc = acc + fminf(x, 0.f); });
         return acc;
       }
-      for (int i = 0; i < len; ++i) acc = acc + fmaxf(at(d, len, l, i), 0.f);
+      each_tile(d, len, l, [&](int, float x) { acc = acc + fmaxf(x, 0.f); });
       return -acc;
     }
     if (kind == K_BIT) {
@@ -491,70 +549,16 @@ struct Block {
     // the path's sum of |x| (in ms row 0)
     const int mk = masks[aux + c];
     float sc = 0.f;
-    for (int i = 0; i < len; ++i) {
-      const float y = at(d, len, l, i);
-      sc = sc + (((mk >> i) & 1) ? -y : y);
-    }
+    each_tile(d, len, l, [&](int i, float y) { sc = sc + (((mk >> i) & 1) ? -y : y); });
     return 0.5f * (sc - ms[l]);
   }
 
-  // sort key of candidate t with value v: ascending keys are (value
-  // descending, code ascending), -0.0 ranked with +0.0
-  __device__ static unsigned long long key_of(float v, int t) {
-    unsigned u = __float_as_uint(v);
-    if (u == 0x80000000u) u = 0u;
-    const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return (static_cast<unsigned long long>(~ord) << 32) | static_cast<unsigned>(t);
-  }
-
-  // K1's prune of the T candidate values in V into pc / pv (slot -> code,
-  // value): a bitonic sort of the keys, each candidate taken once; returns
-  // the new width.
-  __device__ int prune(int T) {
-    if (T <= nl) {  // every candidate survives, its code its slot
-      for (int t = tid; t < T; t += NT) {
-        pc[t] = t;
-        pv[t] = V[t];
-      }
-      bar();
-      return T;
-    }
-    int n2 = 1;
-    while (n2 < T) n2 <<= 1;
-    for (int t = tid; t < n2; t += NT)
-      keys[t] = t < T ? key_of(V[t], t) : (0xffffffffull << 32) | static_cast<unsigned>(t);
-    bar();
-    for (int size = 2; size <= n2; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int t = tid; t < (n2 >> 1); t += NT) {
-          const int i = 2 * t - (t & (stride - 1)), j = i + stride;
-          const unsigned long long x = keys[i], y = keys[j];
-          if ((x > y) == ((i & size) == 0)) {
-            keys[i] = y;
-            keys[j] = x;
-          }
-        }
-        bar();
-      }
-    }
-    for (int r = tid; r < nl; r += NT) {
-      const int code = static_cast<int>(keys[r] & 0xffffffffu);
-      pc[r] = code;
-      pv[r] = V[code];
-    }
-    bar();
-    return nl;
-  }
-
-  // how many of the n entries of list c (C = 1 << lgc lists of w) from
-  // place a on, in rank order, beat candidate t of value v: a binary search
-  // (an entry's value read through its path)
-  __device__ int beaten_by(int c, int lgc, int w, int a, int n, float v, int t) const {
-    const int base = c * w + a;
+  // how many of the n codes of `list`, in rank order, beat candidate t of
+  // value v: a binary search (an entry's value read through its code)
+  __device__ int beats(const int* list, int n, float v, int t) const {
     int lo = 0;
     while (n > 0) {
-      const int half = n >> 1, at = base + lo + half;
-      const int u = (SL[at] << lgc) | c;
+      const int half = n >> 1, u = list[lo + half];
       const float o = V[u];
       if (o > v || (o == v && u < t)) {
         lo += half + 1;
@@ -566,15 +570,31 @@ struct Block {
     return lo;
   }
 
-  // K7's prune: top-nl of the T = w << lgc candidates of V into pc / pv by
-  // merging the C = 1 << lgc lists (list c: candidates (l, c), l < w),
-  // ranked by (value desc, code asc), with the _NEG re-take rule. A list
-  // in rank order (a bit's keep list after a prune) is taken as it is; a
-  // list out of order is ranked in runs of 32 paths and its runs merged by
-  // binary search; a candidate's rank is its place in its list plus, for
-  // each other list, a binary search for those that beat it.
-  __device__ void prune_merge(int w, int lgc) {
+  // The prune: top-nl of the T = w << lgc candidates of V into pc / pv
+  // (slot -> code, value) by merging the C = 1 << lgc lists (list c:
+  // candidates (l, c), l < w, in path order), ranked by (value desc, code
+  // asc), with the rule of the kernel it stands in for. K1 takes each
+  // candidate once: slots r < min(T, nl) take rank r, and while T <= nl
+  // every candidate keeps its code as its slot. K7 re-takes: with k values
+  // above _NEG, slots r < max(k, 1) take rank r and every later slot the
+  // smallest code among those taken and those exactly at _NEG, with value
+  // _NEG. A list in rank order (the keep list after a prune) is taken as
+  // it is; a list out of order is ranked in runs of 32 paths and its runs
+  // merged by binary search; each list then holds its codes in rank order.
+  // K1 merges the lists pairwise (merge_lists). K7 ranks each candidate: its
+  // place in its list plus, for each other list, a binary search for those
+  // that beat it (stopping once the sum reaches nl: no slot, and no re-take
+  // either). Returns the new width.
+  __device__ int prune(int w, int lgc) {
     const int C = 1 << lgc, T = w << lgc;
+    if (T <= nl) {  // every candidate survives, its code its slot
+      for (int t = tid; t < T; t += NT) {
+        pc[t] = t;
+        pv[t] = V[t];
+      }
+      bar();
+      return T;
+    }
     unsigned bad = 0;
     int live = 0;
     for (int t = tid; t < T; t += NT) {
@@ -583,14 +603,13 @@ struct Block {
       if (t + C < T && v < V[t + C]) bad |= 1u << (t & (C - 1));
     }
     bad = __reduce_or_sync(kAll, bad);
-    live = __reduce_add_sync(kAll, live);
-    if (lane == 0) {
-      if (bad) atomicOr(reinterpret_cast<unsigned*>(&flags[0]), bad);
-      atomicAdd(&flags[1], live);
+    if (lane == 0 && bad) atomicOr(reinterpret_cast<unsigned*>(&flags[0]), bad);
+    if constexpr (K7) {
+      live = __reduce_add_sync(kAll, live);
+      if (lane == 0) atomicAdd(&flags[1], live);
     }
     bar();
     const unsigned unsorted = static_cast<unsigned>(flags[0]);
-    const int kk = max(flags[1], 1);
     // each candidate's place in its list where the list is in rank order,
     // else in its run of 32 paths; the lists (or runs) in rank order
     for (int t = tid; t < T; t += NT) {
@@ -606,9 +625,15 @@ struct Block {
         }
       }
       R[t] = r;
-      SL[c * w + r] = l;
+      SL[c * w + r] = t;
     }
     bar();
+    if constexpr (!K7) {  // the runs and lists merged pairwise, cut at nl entries
+      if (tid == 0) flags[0] = 0;  // read by all before the last barrier
+      merge_lists(w, lgc, unsorted);
+      return nl;
+    }
+    const int kk = max(flags[1], 1);
     if (unsorted && w > 32) {  // a list out of order: its runs merged
       for (int t = tid; t < T; t += NT) {
         const int l = t >> lgc, c = t & (C - 1);
@@ -617,13 +642,13 @@ struct Block {
         const int g = l & ~31;
         int r = R[t] - g;
         for (int a = 0; a < w; a += 32)
-          if (a != g) r += beaten_by(c, lgc, w, a, min(32, w - a), v, t);
+          if (a != g) r += beats(SL + c * w + a, min(32, w - a), v, t);
         R[t] = r;
       }
       bar();
       for (int t = tid; t < T; t += NT) {
-        const int l = t >> lgc, c = t & (C - 1);
-        if ((unsorted >> c) & 1) SL[c * w + R[t]] = l;
+        const int c = t & (C - 1);
+        if ((unsorted >> c) & 1) SL[c * w + R[t]] = t;
       }
       bar();
     }
@@ -632,8 +657,8 @@ struct Block {
       const int c = t & (C - 1);
       const float v = V[t];
       int r = R[t];
-      for (int c2 = 0; c2 < C; ++c2)
-        if (c2 != c) r += beaten_by(c2, lgc, w, 0, w, v, t);
+      for (int c2 = 0; c2 < C && r < nl; ++c2)  // a rank past nl takes no slot
+        if (c2 != c) r += beats(SL + c2 * w, w, v, t);
       if (r < kk && r < nl) {
         pc[r] = t;
         pv[r] = v;
@@ -657,6 +682,58 @@ struct Block {
       flags[1] = 0;
       flags[2] = kNoCode;
     }
+    return nl;
+  }
+
+  // K1's merge, from the C = 1 << lgc lists of w codes at SL[c w], each a
+  // list in rank order or (bit c of `unsorted`) runs of 32 in rank order.
+  // Pairs are merged, round by round, into one list in rank order: an
+  // entry's place in the merged pair is its place in its own unit plus a
+  // binary search of the partner unit (two runs of a list in rank order
+  // just follow one another). First a list's runs, up to the whole list,
+  // then the lists, each cut at nl entries (an entry past place nl, whose
+  // rank can only grow, takes no slot and moves no entry that takes one).
+  // Each round reads one half of the work array and writes the other (SL,
+  // R: the places are no longer needed). Slot r < nl takes entry r.
+  __device__ void merge_lists(int w, int lgc, unsigned unsorted) {
+    const int T = w << lgc;
+    int* from = SL;
+    int* to = R;
+    for (int run = 32; unsorted && run < w; run *= 2) {  // unit j of list c at c w + j run
+      for (int e = tid; e < T; e += NT) {
+        const int c = e / w, o = e - c * w, j = o / run, p = o - j * run;
+        const int u = from[e];
+        int q = p + ((j & 1) ? run : 0);  // two runs of a list in rank order follow on
+        if ((unsorted >> c) & 1) {
+          const int po = (j ^ 1) * run;  // the partner unit's offset and size
+          q = p + beats(from + c * w + po, po < w ? min(run, w - po) : 0, V[u], u);
+        }
+        to[c * w + (j & ~1) * run + q] = u;
+      }
+      bar();
+      int* t = from;
+      from = to;
+      to = t;
+    }
+    int m = w;  // entries a list holds this round
+    for (int k = 0; k < lgc; ++k) {
+      const int stride = w << k;  // list j of this round at from[j stride]
+      for (int e = tid; e < ((1 << lgc) >> k) * m; e += NT) {
+        const int j = e / m, p = e - j * m, u = from[j * stride + p];
+        const int q = p + beats(from + (j ^ 1) * stride, m, V[u], u);
+        if (q < nl) to[(j >> 1) * 2 * stride + q] = u;
+      }
+      bar();
+      int* t = from;
+      from = to;
+      to = t;
+      m = min(2 * m, nl);
+    }
+    for (int r = tid; r < nl; r += NT) {
+      pc[r] = from[r];
+      pv[r] = V[from[r]];
+    }
+    bar();
   }
 
   // Slot j's survivor after a prune of w2 slots (j < w2), for its bits
@@ -688,41 +765,46 @@ struct Block {
     return t;
   }
 
-  // slot t's decision at position i of its path's input at level d
-  __device__ int slot_bit(const Slot& t, int kind, int d, int len, int i) const {
+  // slot t's decision at position i, its source path's hard decision there
+  // being `hard` (not read by REP and ENUM)
+  __device__ static int decide(const Slot& t, int kind, int hard, int i) {
     if (kind == K_REP) return t.c != 0;
     if (kind == K_ENUM) return (t.emask >> i) & 1;
-    if (kind == K_BIT) return !t.fm && (Fam::hard(at(d, len, t.src, i)) ^ (t.c & 1));
-    return Fam::hard(at(d, len, t.src, i)) ^
-           (((t.fm & 1) && i == t.i0) | ((t.fm & 2) && i == t.i1) | ((t.fm & 4) && i == t.i2) |
-            ((t.fm & 8) && i == t.i3));
+    if (kind == K_BIT) return !t.fm && (hard ^ (t.c & 1));
+    return hard ^ (((t.fm & 1) && i == t.i0) | ((t.fm & 2) && i == t.i1) |
+                   ((t.fm & 4) && i == t.i2) | ((t.fm & 8) && i == t.i3));
   }
 
   // LEAF: candidates, prune, decision bits, the survivors' metrics and perm
   __device__ void leaf(int d, int len, int off, int kind, int aux, int nc, int& w) {
     int* pd = P + d * nl;
+    K1W_CLOCK(tp);
     if (kind == K_RATE0) {
       for (int l = tid; l < w; l += NT) {
         float acc = 0.f;
-        for (int i = 0; i < len; ++i) acc = acc + fminf(at(d, len, l, i), 0.f);
+        each_tile(d, len, l, [&](int, float x) { acc = acc + fminf(x, 0.f); });
         M[l] = M[l] + acc;
         pd[l] = l;
       }
       for (int t = tid; t < NW * len; t += NT) W[(t / len) * span + off + t % len] = 0;
       bar();
+      K1W_TICK(13, tp);
       return;
     }
     if (kind == K_RATE1 && len > 1) {
       weakest<2>(d, len, w);
+      K1W_TICK(8, tp);
     } else if (kind == K_SPC) {
       weakest<4>(d, len, w);
+      K1W_TICK(8, tp);
     } else if (kind == K_ENUM) {
       for (int l = tid; l < w; l += NT) {
         float sa = 0.f;
-        for (int i = 0; i < len; ++i) sa = sa + fabsf(at(d, len, l, i));
+        each_tile(d, len, l, [&](int, float x) { sa = sa + fabsf(x); });
         ms[l] = sa;
       }
       bar();
+      K1W_TICK(13, tp);
     }
     const int fz = kind == K_BIT && mask[off] != 0;
     const int T = w * nc;
@@ -731,21 +813,37 @@ struct Block {
       V[t] = M[l] + delta(kind, d, len, l, c, aux, fz);
     }
     bar();
-    int w2;
-    if constexpr (K7) {  // K7's candidates: 2, 4 or 8 a path, w = L
-      prune_merge(w, log2i(nc));
-      w2 = nl;
-    } else {
-      w2 = prune(T);
-    }
-    // decision bits: a warp per (word k, 32 positions), lane = slot 32 k + lane
+    K1W_TICK(9, tp);
+    const int w2 = prune(w, log2i(nc));  // nc: a power of two
+    K1W_TICK(10, tp);
+    // decision bits: a warp per (word k, 32 positions), lane = slot 32 k +
+    // lane; in K1 each lane first loads its source path's 32 inputs, then
+    // one ballot a position (K7's leaves, a bit or a sub-block, read one
+    // input a ballot)
     const int chunks = (len + 31) >> 5;
+    const bool reads = kind != K_REP && kind != K_ENUM;
     for (int pair = warp; pair < NW * chunks; pair += NWARPS) {
       const int k = pair / chunks, i0 = (pair - k * chunks) << 5, j = 32 * k + lane;
+      const int n = min(32, len - i0);
       const Slot t = slot(j, w2, kind, len, aux, nc, fz);
-      for (int i = i0; i < i0 + 32 && i < len; ++i) {
-        const unsigned b = __ballot_sync(kAll, j < w2 && slot_bit(t, kind, d, len, i));
-        if ((i & 31) == lane) W[k * span + off + i] = static_cast<int>(b);
+      if constexpr (K7) {
+        for (int i = i0; i < i0 + n; ++i) {
+          const int h = reads && j < w2 && !(kind == K_BIT && t.fm)
+                            ? Fam::hard(at(d, len, t.src, i)) : 0;
+          const unsigned b = __ballot_sync(kAll, j < w2 && decide(t, kind, h, i));
+          if ((i & 31) == lane) W[k * span + off + i] = static_cast<int>(b);
+        }
+        continue;
+      }
+      unsigned hard = 0;  // bit q: the source path's hard decision at i0 + q
+      if (reads && j < w2) {
+#pragma unroll 8
+        for (int q = 0; q < n; ++q)
+          hard |= static_cast<unsigned>(Fam::hard(at(d, len, t.src, i0 + q))) << q;
+      }
+      for (int q = 0; q < n; ++q) {
+        const unsigned b = __ballot_sync(kAll, j < w2 && decide(t, kind, (hard >> q) & 1, i0 + q));
+        if (lane == q) W[k * span + off + i0 + q] = static_cast<int>(b);
       }
     }
     for (int l = tid; l < w2; l += NT) {
@@ -753,6 +851,7 @@ struct Block {
       pd[l] = pc[l] / nc;
     }
     bar();
+    K1W_TICK(11, tp);
     w = w2;
   }
 };
@@ -780,7 +879,6 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
   k.par = reinterpret_cast<int*>(base[A_PAR]);
   k.W = reinterpret_cast<int*>(base[A_W]);
   k.V = reinterpret_cast<float*>(base[A_V]);
-  k.keys = reinterpret_cast<unsigned long long*>(base[A_WORK]);
   k.tmp = reinterpret_cast<int*>(base[A_WORK]);
   const int t_max = p.nl * p.ncand;
   k.SL = reinterpret_cast<int*>(base[A_WORK]);
@@ -812,9 +910,11 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
   Team::bar();
 
   int w = a.w_in;
+  K1W_CLOCK(tk);
   for (int q = 0; q < a.n_ops; ++q) {
     const int* op = a.ops + q * kOpWords;
     const int code = op[0], d = op[1], len = op[2], off = op[3];
+    K1W_CLOCK(t0);
     if (code == OP_F) {
       k.F(d, len, w);
     } else if (code == OP_G) {
@@ -833,7 +933,9 @@ wide_kernel(Args<typename Fam::State> a, Plan p) {
         q += op[7];
       }
     }
+    K1W_TICK(code == OP_LEAF ? 3 + op[4] : code, t0);
   }
+  K1W_TICK(12, tk);
 
   for (int t = tid; t < p.words * p.span; t += NT) {
     const int kw = t / p.span, i = t - kw * p.span;
@@ -901,17 +1003,19 @@ Args<typename Fam::State> args_of(const void* ops, int n_ops, const void* spc_ta
   return a;
 }
 
-// K1: input [w_in, span, B], bits [W, span, B]
+// K1: input [w_in, span, B] at any strides (element (l, i) of codeword b at
+// llr[l sl + i si + b sb]), bits [W, span, B]
 template <class Fam>
 int k1(const void* ops, int n_ops, const void* enum_masks, const void* spc_tab, const void* llr,
-       const void* met, void* bits, void* perm, void* met_out, void* scratch, int list_size,
-       int w_in, int w_out, int span, int levels, int ncand, int batch, cudaStream_t st) {
+       long long sl, long long si, long long sb, const void* met, void* bits, void* perm,
+       void* met_out, void* scratch, int list_size, int w_in, int w_out, int span, int levels,
+       int ncand, int batch, cudaStream_t st) {
   auto a = args_of<Fam>(ops, n_ops, spc_tab, llr, met, bits, perm, met_out, scratch, w_in,
                         w_out);
   a.enum_masks = static_cast<const int*>(enum_masks);
-  a.sb = 1;
-  a.sl = (long long)span * batch;
-  a.si = batch;
+  a.sb = sb;
+  a.sl = sl;
+  a.si = si;
   a.ob = 1;
   a.ok = (long long)span * batch;
   a.oi = batch;
@@ -950,17 +1054,19 @@ extern "C" int scl_wide_plan(int list_size, int span, int levels, int ncand, int
 }
 
 extern "C" int scl_subtree_wide(const void* ops, int n_ops, const void* enum_masks,
-                                const void* spc_tab, const void* llr, const void* met,
+                                const void* spc_tab, const void* llr, long long llr_sl,
+                                long long llr_si, long long llr_sb, const void* met,
                                 void* bits, void* perm, void* met_out, void* scratch,
                                 int list_size, int w_in, int w_out, int span, int levels,
                                 int ncand, int batch, int family, void* stream) {
   if (bad_shape(list_size, span, levels, ncand)) return -1;
   if (batch <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
+  const long long sl = llr_sl, si = llr_si, sb = llr_sb;
   switch (family) {
-    case 0: return k1<FloatFamily>(ops, n_ops, enum_masks, spc_tab, llr, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
-    case 1: return k1<CharFamily>(ops, n_ops, enum_masks, spc_tab, llr, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
-    case 2: return k1<Bf16Family>(ops, n_ops, enum_masks, spc_tab, llr, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
+    case 0: return k1<FloatFamily>(ops, n_ops, enum_masks, spc_tab, llr, sl, si, sb, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
+    case 1: return k1<CharFamily>(ops, n_ops, enum_masks, spc_tab, llr, sl, si, sb, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
+    case 2: return k1<Bf16Family>(ops, n_ops, enum_masks, spc_tab, llr, sl, si, sb, met, bits, perm, met_out, scratch, list_size, w_in, w_out, span, levels, ncand, batch, st);
     default: return -1;
   }
 }

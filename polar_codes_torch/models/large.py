@@ -395,8 +395,10 @@ class LargeSCLDecoder(_Chunked, SCLDecoder):
 
     def _leaf(self, sched, llr: torch.Tensor, metrics: torch.Tensor):
         """A one-leaf schedule through K1: llr [B, L, S] -> the batch-first
-        word ([B, S], or [B, W, S] from K1's [W, S, B]), perm, metrics."""
-        word, perm, metrics = self.subtree_fn(sched, llr.permute(1, 2, 0).contiguous(), metrics)
+        word ([B, S], or [B, W, S] from K1's [W, S, B]), perm, metrics. K1
+        gets llr as an [L, S, B] view (K1's device-memory kernel reads it
+        in place, each codeword's paths side by side)."""
+        word, perm, metrics = self.subtree_fn(sched, llr.permute(1, 2, 0), metrics)
         return word.movedim(-1, 0), perm.to(torch.int64), metrics
 
     # ---- outer loop ------------------------------------------------------

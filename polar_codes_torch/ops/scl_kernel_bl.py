@@ -541,8 +541,11 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     from device memory. Every other schedule (L > MAX_LIST, or a branched
     span whose L * span values of state exceed shared memory) runs in
     csrc/scl_wide.cu: a block a codeword, the levels in a device-memory
-    scratch, the bookkeeping in shared memory (launch_wide). A scratch
-    larger than the card's memory raises MemoryError."""
+    scratch, the bookkeeping in shared memory (launch_wide), reading llr at
+    its own strides (the large-N glue's leaves are views of batch-first
+    [B, L, S] tensors, each codeword's paths side by side); the
+    shared-memory kernel takes a contiguous copy. A scratch larger than the
+    card's memory raises MemoryError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -558,8 +561,8 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
         raise ValueError(
             f"scl_subtree expects llr [{sched.w_in}, {sched.span}, B] and metrics "
             f"[B, {sched.w_in}], got {tuple(llr.shape)} and {tuple(metrics.shape)}")
-    if not (llr.is_contiguous() and metrics.is_contiguous()):
-        raise ValueError("scl_subtree takes contiguous tensors")
+    if not metrics.is_contiguous():
+        raise ValueError("scl_subtree takes contiguous metrics")
     if sched.list_size < 1 or sched.levels > MAX_LEVELS:
         raise NotImplementedError(
             f"the kernels cover L >= 1 and at most {MAX_LEVELS} tree levels, got "
@@ -576,8 +579,10 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
 
 
 def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
-    """Launch K1 from the loaded library `lib` on checked CUDA tensors."""
+    """Launch K1 from the loaded library `lib` on checked CUDA tensors (llr
+    made contiguous first)."""
     fn = _bind(lib)
+    llr = llr.contiguous()
     fam = FAMILIES[llr.dtype]
     dev = llr.device
     ops, masks, spc = sched.device_consts(dev)
@@ -604,7 +609,8 @@ WIDE_FAMILY_CODES = {"float32": 0, "char": 1, "bfloat16": 2, "chunk_char": 3}
 def _bind_wide(lib):
     fn = lib.scl_subtree_wide
     if fn.argtypes is None:  # first use of this library
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         chunk = lib.masked_scl_chunk_wide
@@ -651,7 +657,8 @@ def _stream_of(dev: torch.device):
 
 def launch_wide(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
     """Launch K1's device-memory kernel from the loaded library `lib` (the
-    build of csrc/scl_wide.cu, or its CPU build) on checked tensors."""
+    build of csrc/scl_wide.cu, or its CPU build) on checked tensors; llr
+    [w_in, span, B] at any strides."""
     fn = _bind_wide(lib)
     fam = FAMILIES[llr.dtype]
     dev = llr.device
@@ -666,9 +673,10 @@ def launch_wide(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.T
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
     err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
-             llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
-             met.data_ptr(), scratch.data_ptr(), sched.list_size, sched.w_in, sched.w_out,
-             sched.span, sched.levels, ncand, n_batch, fam.code, _stream_of(dev))
+             llr.data_ptr(), *llr.stride(), metrics.data_ptr(), bits.data_ptr(),
+             perm.data_ptr(), met.data_ptr(), scratch.data_ptr(), sched.list_size,
+             sched.w_in, sched.w_out, sched.span, sched.levels, ncand, n_batch, fam.code,
+             _stream_of(dev))
     if err:
         raise RuntimeError(f"scl_subtree (device-memory kernel) launch failed: CUDA error {err}")
     return bits, perm, met

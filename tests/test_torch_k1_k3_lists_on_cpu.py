@@ -3,17 +3,23 @@ packed word, and K3's bf16 family: their CUDA sources (csrc/scl_subtree.cu,
 csrc/fastssc_subtree.cu) built for the CPU by ops/_emu.py (g++, one thread
 per CUDA thread), against their plain versions.
 
-K1: L = 3 (the capacity-4 instantiation with three live slots) and L = 64
-(two packed words, a lane per path above 32 paths, the prune in passes),
-in all three families; on the one-leaf schedules of the large-N decoders,
-L = 1 (capacity 2) and L = 80 (three of capacity 128's four words leave) (float32, char in int16, bf16). Subtrees: one leaf
+K1: L = 3 (the capacity-4 instantiation with three live slots, a warp a
+codeword) and L = 64 (two packed words, a block of 128 threads a
+codeword, the prune a merge of lists), in all three families; L = 33, 100
+and 128 (the block kernels, a warp split at tid = L below capacity) on
+every leaf kind, a 16-candidate ENUM leaf and a subtree whose rate-0 leaf
+precedes its rate-1 leaf; on the one-leaf schedules of the large-N
+decoders, L = 1 (capacity 2) and L = 80 (three of capacity 128's four
+words leave) (float32, char in int16, bf16); the merge on values that tie
+across lists, in this kernel and in csrc/scl_wide.cu. Subtrees: one leaf
 of each kind (rate-0, rate-1 at length 1 and longer, repetition, SPC,
 ENUM) and the branched subtrees of an N = 64 code with every leaf kind and
 of an N = 128 code at the SCL decoder's tree settings, each entered at
 w_in = 1 (widening) and at w_in = L with every other row holding one live
 path beside the inactive slots' -1e30. Inputs from a seed with numpy:
-integer LLRs in [-2, 2] (ties, signed zeros through f) with integer
-metrics, and Gaussian ones. Batches of 3 at 2 codewords a block.
+integer LLRs in [-2, 2] (ties, signed zeros through f and, for the block
+kernels, in the input) with integer metrics, and Gaussian ones. Batches of
+3, at 2 codewords a block in the warp kernels.
 
 K3 bf16: codes whose trees hold every op and leaf kind in registers and in
 shared memory (spans 2 to 2048), both output forms, Gaussian LLRs,
@@ -157,6 +163,82 @@ def test_k1_source_on_cpu_one_leaf_any_list(k1, n_list, family):
             assert torch.equal(got[1], want[1]), where + ": perm"
             assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
                 where + ": metrics")
+
+
+def _block_nodes():
+    """One leaf of each kind, a 16-candidate ENUM leaf among them, and a
+    span-32 subtree whose rate-0 half comes before its rate-1 half (the
+    rate-1 prune then meets lists out of rank order)."""
+    return _nodes()[:6] + [_leaf(NodeKind.ENUM, 16, [0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 13]),
+                           build_tree(32, range(16))]
+
+
+def _signed_zeros(rng, llr):
+    """Zeros of either sign in a float LLR tensor."""
+    x = llr.to(torch.float32).numpy().copy()
+    zero = x == 0
+    x[zero] = rng.choice(np.float32([-0.0, 0.0]), int(zero.sum()))
+    return torch.as_tensor(x).to(llr.dtype)
+
+
+@pytest.mark.parametrize("n_list,family", [(33, "float32"), (100, "char"), (128, "bfloat16")])
+def test_k1_block_source_on_cpu(k1, n_list, family):
+    """Capacities 64 and 128 run a block of 2 x capacity threads a codeword
+    and prune by merging lists: at L = 33 and 100 the warp that holds path
+    L - 1 reaches each barrier split at tid = L (the CPU runner cannot show
+    a lost barrier phase; chip_smoke.py phase 36 does), at 128 every thread
+    holds a candidate of a two-way fork. Every leaf kind, entered at one
+    path and at L with every other row holding one live path; integer LLRs
+    in [-2, 2] with zeros of either sign, and Gaussian ones."""
+    rng = np.random.default_rng(7 * n_list + len(family))
+    dtype = DTYPES[family]
+    for node in _block_nodes():
+        for w_in in (1, n_list):
+            sched = kbl.build_schedule(node, w_in, n_list)
+            for kind in ("ints", "gauss"):
+                llr, met = _inputs(rng, sched, 3, dtype, kind)
+                if kind == "ints" and dtype != torch.int16:
+                    llr = _signed_zeros(rng, llr)
+                got = _run_k1(k1, sched, llr, met, 0)
+                want = kbl.scl_subtree_plain(sched, llr, met)
+                where = f"L {n_list} {node.kind.value} span {node.length}, w_in {w_in}, {kind}"
+                assert got[0].shape == want[0].shape, where
+                assert torch.equal(got[0], want[0]), where + ": bits"
+                assert torch.equal(got[1], want[1]), where + ": perm"
+                assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
+                    where + ": metrics")
+
+
+@pytest.mark.parametrize("source,n_list", [("scl_subtree", 64), ("scl_wide", 129)])
+def test_k1_merge_ranks_ties_across_lists(k1, source, n_list):
+    """The prune by merge on values that tie across lists: metrics in rank
+    order with runs of equal integers (the keep list taken as it is), LLRs
+    in {-1, -0.0, +0.0, 1}, so that a flip (l, c > 0) costing |x| = 1 or 0
+    ties a keep of another path (l', 0) or its own; the flip lists out of
+    rank order, ranked in runs of 32 and merged. Rate-1 leaves of span 1
+    and 16, a REP and an SPC leaf, entered at L; the second row holds a
+    -1e30 tail. The shared-memory kernel at L = 64 and the device-memory
+    kernel (csrc/scl_wide.cu) at L = 129, against the plain version."""
+    rng = np.random.default_rng(n_list)
+    lib = k1[0] if source == "scl_subtree" else _emu.load_on_cpu("scl_wide")
+    for node in (_leaf(NodeKind.RATE1, 1, []), _leaf(NodeKind.RATE1, 16, []),
+                 _leaf(NodeKind.REP, 8, range(7)), _leaf(NodeKind.SPC, 16, [0])):
+        sched = kbl.build_schedule(node, n_list, n_list)
+        met = -np.floor(np.arange(n_list) / 4.0).astype(np.float32)[None].repeat(2, 0)
+        met[1, n_list // 2:] = NEG
+        llr = rng.choice(np.float32([-1.0, -0.0, 0.0, 1.0]), (n_list, node.length, 2))
+        llr, met = torch.as_tensor(llr), torch.as_tensor(met)
+        if source == "scl_subtree":
+            got = _run_k1(k1, sched, llr, met, 0)
+        else:
+            assert kbl.shared_bytes(k1[0], sched, kbl.family(llr.dtype)) < 0
+            got = kbl.launch_wide(lib, sched, llr, met)
+        want = kbl.scl_subtree_plain(sched, llr, met)
+        where = f"{source} L {n_list} {node.kind.value} span {node.length}"
+        assert torch.equal(got[0], want[0]), where + ": bits"
+        assert torch.equal(got[1], want[1]), where + ": perm"
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
+            where + ": metrics")
 
 
 def test_k1_list_capacity_and_smem(k1):

@@ -7,9 +7,11 @@ on the tree schedule against the JAX tree schedule's static-mask arm and
 on the scan schedule against the JAX XLA arm (slow: JAX compiles its scan
 at L = 160 for ~100 s). Then the device-memory kernel's CUDA source
 (csrc/scl_wide.cu), built for the CPU by ops/_emu.py, against the plain
-versions: K1 at L = 129 and 160 on every leaf kind and on a branched
-subtree (span <= 32, B <= 3), entered at one path and at L, a family each
-case; K7 at L = 129, 160 and 256 on chunks of 32 and 64, with and
+versions: K1 at L = 129, 160 and 256 on every leaf kind (ENUM with 8 and
+16 candidates) and on two branched subtrees (span 32, one with a rate-0
+leaf before a rate-1 leaf; B <= 3), entered at one path and at L (a
+one-leaf schedule on every other node as the large-N glue's strided view),
+a family each case; K7 at L = 129, 160 and 256 on chunks of 32 and 64, with and
 without sub-blocks of every class, all live and one live path (the _NEG
 re-take rule), a family each, and its prune by merge on rows entering in
 rank order with a _NEG tail and out of rank order with _NEG at random
@@ -169,13 +171,17 @@ def _leaf(kind, span, frozen):
 
 
 def _k1_nodes():
-    """One leaf of each kind, and a branched span-32 subtree with every
-    leaf kind (ENUM span 4, k 2)."""
+    """One leaf of each kind (ENUM with 8 and 16 candidates), a branched
+    span-32 subtree with every leaf kind (ENUM span 4, k 2), and one whose
+    rate-0 half comes before its rate-1 half (the rate-1 prune meets lists
+    out of rank order)."""
     frozen = [0, 1, 2, 3, 4, 5, 6, 8, 9, 12, 16, 17, 18, 20]
     return [_leaf(NodeKind.RATE0, 8, range(8)), _leaf(NodeKind.RATE1, 1, []),
             _leaf(NodeKind.RATE1, 16, []), _leaf(NodeKind.REP, 8, range(7)),
             _leaf(NodeKind.SPC, 16, [0]), _leaf(NodeKind.ENUM, 8, [0, 1, 2, 4, 5]),
-            build_tree(32, frozen, allowed=ALL_LEAF_KINDS, enum_span=4, max_enum_k=2)]
+            _leaf(NodeKind.ENUM, 16, [0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 13]),
+            build_tree(32, frozen, allowed=ALL_LEAF_KINDS, enum_span=4, max_enum_k=2),
+            build_tree(32, range(16))]
 
 
 def _equal(where, got, want):
@@ -185,8 +191,13 @@ def _equal(where, got, want):
 
 
 @pytest.mark.parametrize("n_list,family", [(129, "float32"), (160, "char"),
-                                           (160, "bfloat16")])
+                                           (160, "bfloat16"), (256, "float32")])
 def test_k1_wide_source_on_cpu(wide, n_list, family):
+    """Every node of _k1_nodes entered at one path and at L (every other row
+    one live path), integer LLRs in [-2, 2] or Gaussian ones; a one-leaf
+    schedule at L on every other node takes the large-N glue's input, an
+    [L, S, B] view of a batch-first tensor, which the kernel reads at its
+    strides."""
     rng = np.random.default_rng(n_list + len(family))
     dtype = DTYPES[family]
     for i, node in enumerate(_k1_nodes()):
@@ -205,6 +216,10 @@ def test_k1_wide_source_on_cpu(wide, n_list, family):
             if w_in > 1:
                 met[::2, 1:] = NEG  # every other row: one live path
             llr, met = torch.as_tensor(llr).to(dtype), torch.as_tensor(met)
+            # every other one-leaf schedule at L: a view of a batch-first tensor
+            if w_in > 1 and n_batch > 1 and sched.ops.shape[0] == 1 and i % 2:
+                llr = llr.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+                assert not llr.is_contiguous()
             got = kbl.launch_wide(wide, sched, llr, met)
             want = kbl.scl_subtree_plain(sched, llr, met)
             assert got[0].shape == want[0].shape
@@ -263,9 +278,9 @@ def test_k7_wide_prune_by_merge_on_cpu(wide, n_list, family, mask):
 def test_wide_one_plan_for_k1_and_k7(wide):
     """K1 and K7 share one plan: every LLR level d >= 1 in the device
     scratch, the bookkeeping in shared memory, and a work array that holds
-    K1's sort keys (8 bytes a candidate, to a power of two) and K7's merge
-    (12 bytes a candidate). K7's char family (f32 state) plans as float32;
-    there is no other plan code."""
+    the prune's merge (ordered lists and places, 8 bytes a candidate). K7's
+    char family (f32 state) plans as float32; there is no other plan
+    code."""
     f32, char = kbl.WIDE_FAMILY_CODES["float32"], kbl.WIDE_FAMILY_CODES["chunk_char"]
     for n_list, m_len in ((129, 64), (256, 256), (128, 512), (64, 1024)):
         levels, n_cand = m_len.bit_length(), 8
@@ -293,7 +308,7 @@ def test_wide_routing_and_plan(wide):
     assert scratch == 256 * 127 * 4 and smem < 64 * 1024  # levels only in device memory
     smem, scratch = kbl.wide_plan(wide, 512, 128, 8, 16, k1_code)
     assert scratch == 512 * 127 * 4 and smem < 160 * 1024
-    smem, scratch = kbl.wide_plan(wide, 4096, 128, 8, 16, k1_code)  # sort keys spill
+    smem, scratch = kbl.wide_plan(wide, 4096, 128, 8, 16, k1_code)  # the merge spills
     assert smem <= 232448 - 1024 and scratch > 4096 * 127 * 4
     with pytest.raises(ValueError, match="no device-memory plan"):
         kbl.wide_plan(wide, 0, 128, 8, 8, k1_code)
