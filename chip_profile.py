@@ -237,6 +237,10 @@ def main():
         k1_lists_ab(card, torch, dev, gen, sources)
     if "k1_wide_ops" in parts:
         k1_wide_ops(card, torch, dev, gen, sources)
+    if "k7_ops" in parts:
+        k7_ops(card, torch, dev, gen, sources)
+    if "small_lists_ab" in parts:
+        small_lists_ab(card, torch, dev, gen, sources)
 
 
 def kernel_launches():
@@ -1295,6 +1299,403 @@ def k1_wide_ops(card, torch, dev, gen, sources):
                 "ops_per_codeword": {v: counts[k + 32] / n_batch for k, v in K1W_SLOTS.items()
                                      if counts[k + 32]},
                 "card": card}), flush=True)
+
+
+K7_SLOTS = {0: "staging", 1: "F", 2: "G", 3: "combine", 4: "bit leaf",
+            5: "bit leaf: candidates", 6: "bit leaf: prune", 7: "bit leaf: slot read-back",
+            8: "bit leaf: ballot", 9: "sub-block rate0", 10: "sub-block rate1",
+            11: "sub-block rep", 12: "sub-block spc", 13: "register-level node", 14: "walk"}
+# the small-list sets: (name, N, K, L, int8, schedule), B = SMALL_B, chunk
+# 256, sub-blocks of 16 (float32; int8 has none), CRC16, 2 dB
+SMALL_SETS = (("L1", 32768, 16384, 1, False, "scan"), ("L3", 32768, 16384, 3, False, "scan"),
+              ("char_L3", 8192, 4096, 3, True, "scan"), ("L4", 32768, 16384, 4, False, "scan"),
+              ("L12", 32768, 16384, 12, False, "scan"), ("L24", 32768, 16384, 24, False, "scan"))
+SMALL_B = 64
+# small_lists_ab's decodes: (name, N, K, L, B, int8, schedule)
+SMALL_DECODES = (("cascl1_scan_b64", 32768, 16384, 1, 64, False, "scan"),
+                 ("cascl1_scan_b128", 32768, 16384, 1, 128, False, "scan"),
+                 ("cascl3_scan_b64", 32768, 16384, 3, 64, False, "scan"),
+                 ("cascl3_scan_b128", 32768, 16384, 3, 128, False, "scan"),
+                 ("cascl3_tree_b64", 32768, 16384, 3, 64, False, "tree"),
+                 ("cascl3_int8_b64", 8192, 4096, 3, 64, True, "scan"))
+
+
+def small_list_calls(torch, dev, gen, sets=SMALL_SETS, n_batch=SMALL_B):
+    """{name: (K7 calls [(args, kw)], K1 calls [(sched, x, m)], llr)}: the
+    calls of one LargeSCLDecoder decode of each set (chip_smoke.py phase
+    41's paths: chunk 256, sub-blocks of 16), recorded through the
+    wrappers, and the decode's input."""
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    det, out, codes = CRC16(), {}, {}
+    for name, n_len, k_len, n_list, int8, schedule in sets:
+        if n_len not in codes:
+            fz = frozen_bits(n_len, k_len, 0.0, "BB")
+            codes[n_len] = (fz, PolarEncoder(n_len, fz, detector=det, device=dev))
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+        info = torch.randint(0, 2, (n_batch, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        x = Bpsk().demodulate(chan.transmit(Bpsk().modulate(codes[n_len][1].encode(info)), gen))
+        if int8:
+            x = torch.clamp(torch.round(x * AMPL), -127, 127).to(torch.int8)
+        k7, k1 = [], []
+        LargeSCLDecoder(n_len, codes[n_len][0], list_size=n_list, detector=det, chunk=256,
+                        subblock=16, schedule=schedule,
+                        dtype=torch.int8 if int8 else torch.float32, device=dev,
+                        chunk_fn=lambda *a, _c=k7, **kw: _c.append((a, kw)) or
+                        lk.masked_scl_chunk(*a, **kw),
+                        subtree_fn=lambda *a, _c=k1: _c.append(a) or kbl.scl_subtree(*a)
+                        ).decode_packed(x)
+        out[name] = (k7, k1, x)
+    return out
+
+
+def k1_host_split(torch, calls, reps=200):
+    """Host microseconds a call of each step of K1's wrapper on `calls`
+    (sched, x, m), launched back to back without a synchronise (the host
+    clock): the whole wrapper, its launch alone, and the pieces."""
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    lib = _build.load("scl_subtree")
+    fam = kbl.family(calls[0][1].dtype)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for c in calls:
+                fn(c)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e6 / reps / len(calls)
+
+    sched, x, m = calls[0]
+    dev = x.device
+    fn = kbl._bind(lib)
+    ops, masks, spc = sched.device_consts(dev)
+    outs = [torch.empty((sched.span, x.shape[-1]), dtype=torch.int32, device=dev),
+            torch.empty((x.shape[-1], sched.w_out), dtype=torch.int32, device=dev),
+            torch.empty((x.shape[-1], sched.w_out), dtype=torch.float32, device=dev)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(), x.data_ptr(),
+            *x.stride(), m.data_ptr(), *(o.data_ptr() for o in outs), sched.list_size,
+            sched.w_in, sched.w_out, sched.span, x.shape[-1], fam.code, kbl.PER_BLOCK, stream)
+    return {
+        "stream": per_call(lambda c=None: torch.cuda.current_stream(dev).cuda_stream),
+        "ctypes_call": per_call(lambda c=None: fn(*args)),
+        "wrapper": per_call(lambda c=None: kbl.scl_subtree(*c) if c else kbl.scl_subtree(*calls[0])),
+        "launch": per_call(lambda c=None: kbl.launch(lib, *(c or calls[0]))),
+        "shared_bytes": per_call(lambda c=None: kbl.shared_bytes(lib, (c or calls[0])[0], fam)),
+        "build_load": per_call(lambda c=None: _build.load("scl_subtree")),
+        "device_consts": per_call(lambda c=None: (c or calls[0])[0].device_consts(dev)),
+        "contiguous": per_call(lambda c=None: (c or calls[0])[1].contiguous()),
+        "three_empty": per_call(lambda c=None: (
+            torch.empty((sched.span, x.shape[-1]), dtype=torch.int32, device=dev),
+            torch.empty((x.shape[-1], 1), dtype=torch.int32, device=dev),
+            torch.empty((x.shape[-1], 1), dtype=torch.float32, device=dev))),
+    }
+
+
+def device_by_name(fn, torch, calls=CALLS):
+    """{kernel name: device ms a call of fn} and the wall ms a call (the
+    host clock around the profiled window, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        by = {}
+        for n, s, e in device_events(prof, torch):
+            by[n[:60]] = by.get(n[:60], 0.0) + (e - s) / 1e3 / calls
+        if by:
+            return by, wall
+    raise SystemExit("device_by_name: the profiler recorded no device time")
+
+
+def k7_ops(card, torch, dev, gen, sources):
+    """Where K7's run-time-size kernels (csrc/large_scl_lists.cu) spend a
+    call, and how much of K1's call at one path is the kernel: each
+    large_scl_lists source in `sources` that has the probes (this tree's
+    when none is named) built with -DK7_PROFILE (clock64 probes, thread 0 of each codeword) on
+    the K7 calls of small_list_calls (cycles and ops a codeword, summed
+    over a decode's calls, and the probe build's ms a call); then the 58
+    K1 calls at L = 1 of the CA-SCL-1 decode: their wall ms (CUDA events,
+    each call alone, as chip_smoke.py times them), the device ms by kernel
+    name under the profiler, and the host microseconds of each step of
+    the wrapper (k1_host_split). Every probe build's outputs equal this
+    tree's."""
+    import ctypes
+    from pathlib import Path
+
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    sources = [s for s in sources if s.endswith("large_scl_lists.cu")
+               and "K7_PROFILE" in Path(s).read_text()] or [
+        str(_build.CSRC / "large_scl_lists.cu")]
+    sets = small_list_calls(torch, dev, gen, [s for s in SMALL_SETS if s[0] != "L4"])
+    buf = (ctypes.c_ulonglong * 64)()
+    for src in sources:
+        lib = profile_build("large_scl_lists", "K7_PROFILE", src)
+        lib.masked_scl_chunk_profile.argtypes = [ctypes.c_void_p]
+        for name, (calls, _, _) in sets.items():
+            want = [lk.masked_scl_chunk(*a, **kw) for a, kw in calls]
+            for _ in range(2):  # the second pass counted
+                lib.masked_scl_chunk_profile(buf)
+                got = [lk.launch_scl(lib, *a, **kw) for a, kw in calls]
+                torch.cuda.synchronize()
+            lib.masked_scl_chunk_profile(buf)
+            counts = list(buf)
+            for g, w in zip(got, want):
+                if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                    raise SystemExit(f"k7_ops: {src} differs from this tree on {name}")
+            ms = time_cuda(lambda: [lk.launch_scl(lib, *a, **kw) for a, kw in calls],
+                           warmup=1, reps=3)
+            n_batch = calls[0][0][0].shape[0]
+            print(json.dumps({
+                "k7_ops": name, "source": src, "batch": n_batch, "calls": len(calls),
+                "ms_per_call_probe_build": ms / len(calls),
+                "cycles_per_codeword": {v: counts[k] / n_batch for k, v in K7_SLOTS.items()
+                                        if counts[k + 32]},
+                "ops_per_codeword": {v: counts[k + 32] / n_batch for k, v in K7_SLOTS.items()
+                                     if counts[k + 32]},
+                "card": card}), flush=True)
+    k1 = sets["L1"][1]
+    wall = sum(time_cuda(lambda c=c: kbl.scl_subtree(*c), reps=10) for c in k1)
+    by, burst = device_by_name(lambda: [kbl.scl_subtree(*c) for c in k1], torch)
+    print(json.dumps({"k1_one_path": "58 pure chunks, CA-SCL-1", "calls": len(k1),
+                      "batch": k1[0][1].shape[-1], "ms_all_calls_each_alone": wall,
+                      "device_ms_all_calls_by_kernel": by, "wall_ms_all_calls_burst": burst,
+                      "host_us_per_call": k1_host_split(torch, k1), "card": card}), flush=True)
+
+
+def _parent_wrappers(torch, lists_lib, subtree_lib):
+    """(chunk_fn, subtree_fn): K7's and K1's wrappers as the tree before
+    the one-path kernels had them, on the given builds of that tree's
+    large_scl_lists.cu and scl_subtree.cu: ctypes bound at every call,
+    three output allocations, K1's shared-memory rule asked at every call
+    and its input copied contiguous (no strides in that C interface). The
+    other libraries (large_scl_chunk, scl_wide) are this tree's."""
+    import ctypes
+
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    k1 = subtree_lib.scl_subtree
+    k1.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    k1.restype = ctypes.c_int
+    subtree_lib.scl_subtree_smem.argtypes = [ctypes.c_int] * 4
+    subtree_lib.scl_subtree_smem.restype = ctypes.c_int
+    subtree_lib.scl_subtree_smem_limit.restype = ctypes.c_int
+
+    def chunk_fn(llr, mask, metrics, sub_cls=None, family="float32"):
+        n_batch, n_list, m_len = llr.shape
+        sub = 0 if sub_cls is None else m_len // sub_cls.numel()
+        name = lk.scl_library(n_list, m_len, sub)
+        if name == "scl_wide":
+            return lk.masked_scl_chunk(llr, mask, metrics, sub_cls, family)
+        lib = lists_lib if name == "large_scl_lists" else _build.load(name)
+        fn = lib.masked_scl_chunk
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        dev, words = llr.device, kbl.n_words(n_list)
+        spc, none = lk._scl_consts(dev)
+        shape = (n_batch, m_len) if words == 1 else (n_batch, words, m_len)
+        bits = torch.empty(shape, dtype=torch.int32, device=dev)
+        perm = torch.empty((n_batch, n_list), dtype=torch.int32, device=dev)
+        met = torch.empty((n_batch, n_list), dtype=torch.float32, device=dev)
+        err = fn(None, 0, spc.data_ptr(), llr.data_ptr(), mask.data_ptr(), metrics.data_ptr(),
+                 (none if sub_cls is None else sub_cls).data_ptr(), sub, bits.data_ptr(),
+                 perm.data_ptr(), met.data_ptr(), n_list, m_len, n_batch,
+                 lk._FAMILIES[family].code, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"older masked_scl_chunk failed: CUDA error {err}")
+        lk.LAUNCHES["scl" if family == "float32" else "scl_char"] += 1
+        return bits, perm, met
+
+    def launch(sched, llr, metrics):
+        llr = llr.contiguous()
+        fam, dev, n_batch = kbl.FAMILIES[llr.dtype], llr.device, llr.shape[-1]
+        ops, masks, spc = sched.device_consts(dev)
+        words = kbl.n_words(sched.list_size)
+        shape = (sched.span, n_batch) if words == 1 else (words, sched.span, n_batch)
+        bits = torch.empty(shape, dtype=torch.int32, device=dev)
+        perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
+        met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
+        err = k1(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
+                 llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
+                 met.data_ptr(), sched.list_size, sched.w_in, sched.w_out, sched.span,
+                 n_batch, fam.code, kbl.PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"older scl_subtree failed: CUDA error {err}")
+        return bits, perm, met
+
+    def subtree_fn(sched, llr, metrics):
+        fam = kbl.FAMILIES[llr.dtype]
+        need = subtree_lib.scl_subtree_smem(sched.list_size, sched.span, fam.code,
+                                            sched.ops.shape[0])
+        if not 0 <= need <= subtree_lib.scl_subtree_smem_limit():
+            return kbl.scl_subtree(sched, llr, metrics)  # this tree's scl_wide
+        out = launch(sched, llr, metrics)
+        kbl.LAUNCHES[fam.name] += 1
+        return out
+
+    return chunk_fn, subtree_fn, launch
+
+
+def small_lists_ab(card, torch, dev, gen, sources, rounds=4):
+    """K7 below 32 paths with the list size at run time and K1 at one path:
+    this tree's large_scl_lists and scl_subtree libraries against the older
+    sources of the same names in `sources` (their wrappers as that tree had
+    them: _parent_wrappers), in one process, on the same calls, in rounds
+    of alternating order: the K7 calls of small_list_calls (a decode's
+    calls back to back, ms a call), at L = 4 beside large_scl_chunk.cu's
+    kernel of that fixed size on the same calls; K1's 58 calls of the
+    CA-SCL-1 decode (B = 64) and of a CA-SCL-64 scan decode (B = 128):
+    ms a set (CUDA events), device ms by kernel name under the profiler,
+    and this tree's host microseconds a call (k1_host_split). Every build's
+    outputs equal this tree's. Then whole decodes with each tree's
+    libraries and wrappers: (32768, 16384) CA-SCL-1 and -3 on the scan
+    schedule at B = 64 and 128, CA-SCL-3 on the tree schedule (B = 64) and
+    int8 (8192, 4096) CA-SCL-3 (B = 64)."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+
+    from polar_codes_torch.construction import frozen_bits
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.large import LargeSCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import large_kernel as lk
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.utils.timing import time_cuda
+
+    if sorted(Path(s).stem for s in sources) != ["large_scl_lists", "scl_subtree"]:
+        raise SystemExit("small_lists_ab takes an older large_scl_lists.cu and scl_subtree.cu")
+    nvcc = _build.nvcc_path()
+    libs, procs = {}, []
+    for src in sources:
+        stem, text = Path(src).stem, Path(src).resolve().read_text()
+        key = hashlib.sha256((text + repr((_build.NVCC_FLAGS, nvcc))).encode()).hexdigest()[:16]
+        out = _build.BUILD / f"lib{stem}_ab-{key}.so"
+        code = _build.BUILD / f"{stem}_ab-{key}.cu"
+        code.write_text(text)
+        procs.append((stem, out, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(out), str(code)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for stem, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on the older {stem}:\n{log}")
+        libs[stem] = ctypes.CDLL(str(out))
+    new = {name: _build.load(name) for name in ("large_scl_lists", "scl_subtree",
+                                               "large_scl_chunk")}
+    old_chunk, old_subtree, old_launch = _parent_wrappers(torch, libs["large_scl_lists"],
+                                                          libs["scl_subtree"])
+    sets = small_list_calls(torch, dev, gen, SMALL_SETS)
+    k7 = {}
+    for name, (calls, _, _) in sets.items():
+        arms = {"new": lambda a, kw: lk.launch_scl(new["large_scl_lists"], *a, **kw),
+                "old": lambda a, kw: lk.launch_scl(libs["large_scl_lists"], *a, **kw)}
+        if name == "L4":
+            arms["fixed_L4"] = lambda a, kw: lk.launch_scl(new["large_scl_chunk"], *a, **kw)
+        for a, kw in calls:
+            want = arms["new"](a, kw)
+            for label, fn in arms.items():
+                if not all(torch.equal(g, w) for g, w in zip(fn(a, kw), want)):
+                    raise SystemExit(f"small_lists_ab: {label} differs from this tree on {name}")
+        k7[name] = (arms, calls)
+    pure = small_list_calls(torch, dev, gen, (("L64", 32768, 16384, 64, False, "scan"),),
+                            n_batch=128)["L64"][1]
+    k1 = {"L1": sets["L1"][1], "L64": pure}
+    for name, calls in k1.items():
+        for c in calls:
+            want = kbl.launch(new["scl_subtree"], *c)
+            if not all(torch.equal(g, w) for g, w in zip(old_launch(*c), want)):
+                raise SystemExit(f"small_lists_ab: the older K1 differs from this tree on {name}")
+    times = {name: {label: [] for label in arms} for name, (arms, _) in k7.items()}
+    k1_times = {name: {"new": [], "old": []} for name in k1}
+    for rnd in range(rounds):
+        for name, (arms, calls) in k7.items():
+            for label in list(arms) if rnd % 2 == 0 else list(arms)[::-1]:
+                fn = arms[label]
+                ms = time_cuda(lambda: [fn(a, kw) for a, kw in calls], warmup=1, reps=3)
+                times[name][label].append(ms / len(calls))
+        for name, calls in k1.items():
+            for label in ("new", "old") if rnd % 2 == 0 else ("old", "new"):
+                fn = kbl.scl_subtree if label == "new" else old_subtree
+                k1_times[name][label].append(
+                    time_cuda(lambda: [fn(*c) for c in calls], warmup=1, reps=3))
+    for name, (arms, calls) in k7.items():
+        device = {label: device_by_name(lambda f=fn: [f(a, kw) for a, kw in calls], torch,
+                                        calls=3)[0] for label, fn in arms.items()}
+        print(json.dumps({"small_lists_ab": name, "calls": len(calls),
+                          "batch": calls[0][0][0].shape[0],
+                          "ms_per_call_in_decode_burst": times[name],
+                          "device_ms_per_decode_by_kernel": device, "card": card}), flush=True)
+    for name, calls in k1.items():
+        dev_new = device_by_name(lambda: [kbl.scl_subtree(*c) for c in calls], torch)
+        dev_old = device_by_name(lambda: [old_subtree(*c) for c in calls], torch)
+        alone = {label: sum(time_cuda(lambda c=c: fn(*c), reps=10) for c in calls)
+                 for label, fn in (("new", kbl.scl_subtree), ("old", old_subtree))}
+        print(json.dumps({"small_lists_ab_k1": name, "calls": len(calls),
+                          "batch": calls[0][1].shape[-1], "ms_per_set_burst": k1_times[name],
+                          "ms_all_calls_each_alone": alone,
+                          "device_ms_per_set_by_kernel": {"new": dev_new[0], "old": dev_old[0]},
+                          "profiled_wall_ms_per_set": {"new": dev_new[1], "old": dev_old[1]},
+                          "host_us_per_call_new": k1_host_split(torch, calls),
+                          "card": card}), flush=True)
+
+    det, codes = CRC16(), {}
+    for name, n_len, k_len, n_list, n_batch, int8, schedule in SMALL_DECODES:
+        if n_len not in codes:
+            fz = frozen_bits(n_len, k_len, 0.0, "BB")
+            codes[n_len] = (fz, PolarEncoder(n_len, fz, detector=det, device=dev))
+        chan = Awgn()
+        chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * k_len / n_len)
+        info = torch.randint(0, 2, (n_batch, k_len), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        x = Bpsk().demodulate(chan.transmit(Bpsk().modulate(codes[n_len][1].encode(info)), gen))
+        if int8:
+            x = torch.clamp(torch.round(x * AMPL), -127, 127).to(torch.int8)
+        decs = {label: LargeSCLDecoder(
+            n_len, codes[n_len][0], list_size=n_list, detector=det, chunk=256, subblock=16,
+            schedule=schedule, dtype=torch.int8 if int8 else torch.float32, device=dev,
+            chunk_fn=None if label == "new" else old_chunk,
+            subtree_fn=None if label == "new" else old_subtree) for label in ("new", "old")}
+        outs = {label: dec.decode(x) for label, dec in decs.items()}
+        if not all(torch.equal(a, b) for a, b in zip(outs["new"], outs["old"])):
+            raise SystemExit(f"small_lists_ab: the decodes differ on {name}")
+        row = {"new": [], "old": []}
+        for rnd in range(rounds):
+            for label in ("new", "old") if rnd % 2 == 0 else ("old", "new"):
+                row[label].append(time_cuda(lambda: decs[label].decode(x), warmup=1, reps=3))
+        print(json.dumps({"small_lists_ab_decode": name, "batch": n_batch, "decode_ms": row,
+                          "card": card}), flush=True)
 
 
 SCAN_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "long op", 7: "subtree op", 4: "stage-in",

@@ -560,7 +560,8 @@ def main():
 
     # 40 ------------------------------------------------------------------
     phase(f"40 K7 at L in {K7_NEW_LISTS}, both families, chunks 64 and 256, B in "
-          f"{K7_BATCHES}; K1 at L = 1 and from device memory at W = 2, 4")
+          f"{K7_BATCHES}, and capacity 4 at L = 2, 4 called directly; K1 at L = 1 (contiguous "
+          "and the glue's views) and from device memory at W = 2, 4")
     k7_lists = run_k7_lists(card)
 
     # 41-42 ---------------------------------------------------------------
@@ -587,7 +588,7 @@ def main():
 
     # 51 ------------------------------------------------------------------
     phase("51 K1 one-leaf schedules on the large-N glue's batch-first views: L = 64, span 256, "
-          "B = 128; L = 256, span 2048, B = 32")
+          "B = 128; L = 256, span 2048, B = 32; L = 1, spans 256 and 2048, B = 64")
     k1_leaves = run_k1_leaves(card)
 
     # the kernels line ------------------------------------------------------
@@ -3145,10 +3146,24 @@ SEED12 = 20261026
 K7_NEW_LISTS = (1, 3, 5, 12, 24, 33, 48, 64, 65, 100, 127, 128)
 K7_BATCHES = (1, 181, 128)
 K7_NEW_DESIGN = ("the kernel of the list's capacity (32, 64 or 128) with the list size at "
-                 "run time; above 32 paths a block of 2 x capacity threads a codeword, W "
-                 "packed words, every level in shared memory, the prune a merge of lists "
-                 "in rank order; level 0 read from device memory where the pyramid does "
-                 "not fit")
+                 "run time; capacity 32 a warp a codeword, a bit's candidates in one "
+                 "register a lane up to 16 paths; above 32 paths a block of 2 x capacity "
+                 "threads a codeword, W packed words, every level in shared memory, the "
+                 "prune a merge of lists in rank order; level 0 read from device memory "
+                 "where the pyramid does not fit")
+K7_SMALL_DESIGN = ("capacity 4 built for each of its list sizes (2, 3, 4): a warp a "
+                   "codeword, the lowest three levels in registers, a bit's 2 L candidates "
+                   "ranked by shuffles unrolled over the capacity's 8, the ranks landing "
+                   "in shared-memory slots")
+K7_ONE_PATH_DESIGN = ("one path (L = 1): SC with a path metric, a warp a codeword walking "
+                      "the chunk as K6 does (upper levels in shared memory, lanes over "
+                      "positions; span-32 nodes and sub-blocks on one lane in registers); "
+                      "each leaf keeps its first maximal candidate: no prune, no perm, no "
+                      "fork")
+K1_ONE_PATH_DESIGN = ("one path (L = 1): no prune and the identity perm; lane c forms "
+                      "candidate c (its sums sequential on its lane), a butterfly of (value, "
+                      "code) pairs picks the first maximal one, a lane a position writes the "
+                      "bits; the input read at its strides (the glue's views in place)")
 K1_ONE_PATH_SPANS = (256, 512, 1024, 2048)  # a pure chunk's span and the tree's leaves
 K1_WIDE_LEAVES = ((64, 1024), (64, 2048), (128, 512), (128, 2048))  # (L, span), device memory
 K1_WIDE_BATCHES = (1, 128)
@@ -3262,6 +3277,25 @@ def run_k7_lists(card):
                 checked += 1
     if not direct and lk.scl_chunk_smem(max(K7_NEW_LISTS), CHUNK_SCL) > lk.MAX_SCL_SMEM:
         raise AssertionError("no K7 call read level 0 from device memory")
+    # capacity 4 at the list sizes the wrapper sends to large_scl_chunk.cu where
+    # the pyramid fits: the run-time-size library called directly
+    lists = _build.load("large_scl_lists")
+    for n_list in (2, 4):
+        for family in ("float32", "char"):
+            for m_len, n_batch, with_sub, how, kind in cases[:4]:
+                mask = (torch.ones(m_len, dtype=torch.uint8, device=dev) if kind == "frozen"
+                        else torch.as_tensor(masks[kind, m_len], device=dev))
+                sub_cls = (torch.as_tensor(_classify_chunks(list(
+                    mask.cpu().numpy().astype(bool).reshape(-1, SUB))), device=dev)
+                    if with_sub else None)
+                x, met = ints((n_batch, n_list, m_len)), metrics(n_batch, n_list, how)
+                where = f"K7 capacity 4 {family} L={n_list} chunk {m_len} B={n_batch} {how}"
+                got = lk.launch_scl(lists, x, mask, met, sub_cls, family)
+                want = lk.masked_scl_chunk_plain(x, mask, met, sub_cls, family)
+                _equal(where + ": bits", got[0], want[0])
+                _equal(where + ": perm", got[1], want[1])
+                err[family] = max(err[family], _equal(where + ": metrics", got[2], want[2]))
+                checked += 1
     print(f"K7: {checked} calls at L in {K7_NEW_LISTS}, both families, bit-equal to the "
           f"plain version ({direct} with level 0 in device memory)")
 
@@ -3277,15 +3311,18 @@ def run_k7_lists(card):
             raise AssertionError(f"K1 L={n_list} span {span}: the leaf fits staged")
         for kind in kinds:
             sched = kbl.build_schedule(lk._sub_leaf(kind, span), n_list, n_list)
-            x = ints((n_list, span, n_batch))
             m = metrics(n_batch, n_list, "mixed" if n_list > 1 else "live")
-            where = f"K1 L={n_list} one leaf {kind.value} span {span} B={n_batch}"
-            got = kbl.scl_subtree(sched, x, m)
-            want = kbl.scl_subtree_plain(sched, x, m)
-            _equal(where + ": bits", got[0], want[0])
-            _equal(where + ": perm", got[1], want[1])
-            k1_err = max(k1_err, _equal(where + ": metrics", got[2], want[2]))
-            k1_calls += 1
+            # L = 1 also as the glue hands it over: a view of a batch-first tensor
+            for view in (False, True) if n_list == 1 else (False,):
+                x = (ints((n_batch, n_list, span)).permute(1, 2, 0) if view
+                     else ints((n_list, span, n_batch)))
+                where = f"K1 L={n_list} one leaf {kind.value} span {span} B={n_batch} view {view}"
+                got = kbl.scl_subtree(sched, x, m)
+                want = kbl.scl_subtree_plain(sched, x, m)
+                _equal(where + ": bits", got[0], want[0])
+                _equal(where + ": perm", got[1], want[1])
+                k1_err = max(k1_err, _equal(where + ": metrics", got[2], want[2]))
+                k1_calls += 1
     torch.cuda.synchronize()
     emit({"k7_lists_checked_calls": checked, "k7_level0_in_device_memory": direct,
           "lists": K7_NEW_LISTS, "max_abs_err": err, "k1_checked_calls": k1_calls,
@@ -3472,30 +3509,38 @@ def run_slice12(card, k7_l8, held):
                        [] if sub_cls is None else sub_cls.tolist(), n_list, args[0].shape[0])
         launches = sum(r["launches"]["masked_scl_chunk"].get(f"{family},L={n_list}", 0)
                        for r in runs.values())
+        device_ms = busy_share(lambda: lk.masked_scl_chunk(*args, **kw), calls=REPS)[1]
         entry = {"name": f"masked_scl_chunk[{family},L={n_list}]", "route": "cuda",
                  "source": "polar_codes_torch/csrc/large_scl_lists.cu",
-                 "redesigned": K7_NEW_DESIGN,
+                 "redesigned": (K7_ONE_PATH_DESIGN if n_list == 1 else
+                                K7_SMALL_DESIGN if n_list <= 4 else K7_NEW_DESIGN),
                  "replaces": "polar_codes_tpu/ops/large_kernel.py:149",
                  "launches": launches,
                  "launches_by_path": {p: r["launches"]["masked_scl_chunk"][f"{family},L={n_list}"]
                                       for p, r in runs.items()
                                       if f"{family},L={n_list}" in r["launches"]["masked_scl_chunk"]},
                  "launches_per_decode": len(k7_calls), "list_size": n_list,
-                 "max_abs_err": held["err"][family], "ms": ms[i], "ms_per_call": ms, "plain_ms": plain_ms,
+                 "max_abs_err": held["err"][family], "ms": ms[i], "ms_per_call": ms,
+                 "device_ms": device_ms, "plain_ms": plain_ms,
                  **bound(*work), "library_ms": None}
         if wide_ms is not None:
             entry["scl_wide_ms_per_call"] = wide_ms
         entries.append(entry)
         emit({"kernel": entry["name"], "batch": B12, "chunk": CHUNK_SCL, "ms_per_call": ms,
-              "scl_wide_ms_per_call": wide_ms, "plain_ms": plain_ms,
+              "device_ms": device_ms, "scl_wide_ms_per_call": wide_ms, "plain_ms": plain_ms,
               "bound_ms": entry["bound_ms"], "card": card})
         if n_list == 1:  # K1 at one path on the pure chunks
             k1 = _time_k1(k1_calls, B12)
+            k1_device = busy_share(lambda: [kbl.scl_subtree(*c[:3]) for c in k1_calls],
+                                   calls=3)[1]
             k1_launches = sum(r["launches"]["scl_subtree"].get("float32,L=1", 0)
                               for r in runs.values())
+            emit({"kernel": "scl_subtree[float32,L=1]", "batch": B12, "calls": len(k1_calls),
+                  "ms_all_calls": k1[0], "device_ms_all_calls": k1_device, "card": card})
             entries.append({
                 "name": "scl_subtree[float32,L=1]", "route": "cuda",
-                "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_NEW_DESIGN,
+                "source": "polar_codes_torch/csrc/scl_subtree.cu",
+                "redesigned": K1_ONE_PATH_DESIGN, "device_ms": k1_device,
                 "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
                 "launches": k1_launches, "launches_by_path": {name: k1_launches},
                 "launches_per_decode": len(k1_calls), "list_size": 1,
@@ -4044,15 +4089,16 @@ def run_slice13(card, k1_held, k7_held):
 # shared-memory block kernel) and the CA-SCL-256 tree's longest leaves
 # (the device-memory kernel)
 K1_LEAF_CASES = ((64, 256, 128, ("float32", "char", "bfloat16")),
-                 (256, 2048, 32, ("float32",)))
+                 (256, 2048, 32, ("float32",)),
+                 (1, 256, 64, ("float32", "char", "bfloat16")), (1, 2048, 64, ("float32",)))
 
 
 def run_k1_leaves(card):
     """Phase 51. K1's one-leaf schedules as the large-N decoders build them
     (w_in = L, a pure chunk's leaf of each kind) on the glue's batch-first
     [B, L, S] tensor handed over as an [L, S, B] view: K1_LEAF_CASES, the
-    shared-memory kernel taking a contiguous copy, the device-memory kernel
-    reading the view in place; integer LLRs in [-2, 2] and Gaussian ones,
+    shared-memory kernel (the one-path instantiation at L = 1) and the
+    device-memory kernel both reading the view in place; integer LLRs in [-2, 2] and Gaussian ones,
     every other row with one live path; bits, perms and metrics equal to
     the plain version. Returns {"err": the largest metric difference per
     family (0), "calls": the number held}."""

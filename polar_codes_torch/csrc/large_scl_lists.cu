@@ -29,9 +29,11 @@
 //        l % 32 of word l / 32),
 //        perm [B, L] i32 (output slot -> input slot), metrics [B, L] f32
 //
-// Capacities: 4 (L <= 4), 32 (L <= 32; one word a position, a lane a path;
-// capacity 4 packs 8 positions in a combine's ballot, 32 one), 64 (two
-// words) and 128 (four words). The list size is read by the prune (the
+// Capacities: one path (L = 1, a kernel of its own, below), 4 (L = 2-4,
+// built for each of the three sizes: its run-time size cost 37% of a call
+// against large_scl_chunk.cu's fixed L = 4 kernel), 32 (L <= 32; one word a
+// position, a lane a path; capacity 4 packs 8 positions in a combine's
+// ballot, 32 one), 64 (two words) and 128 (four words). The list size is read by the prune (the
 // rank cut, the re-take rule, the new width) and by the `tid < L` guards;
 // slots at or above it never become live and their bits stay 0. The list
 // is always full width here (metrics [B, L], inactive slots at _NEG), so
@@ -66,11 +68,16 @@
 //
 // Up to 32 paths the lowest kRegLevels = 3 levels of a per-bit walk run in
 // registers, as in large_scl_chunk.cu: lane l < L holds path l's 8 LLRs
-// of a span-8 node, g's path-fork gather is a shuffle, a bit's 2 x
-// capacity candidates are ranked in registers (shuffles), its packed word
-// is one __ballot_sync; a sub-block's candidates are ranked from shared
-// memory, R of them a lane, each against all. Above 32 paths every level
-// down to span 1 is in shared memory.
+// of a span-8 node, g's path-fork gather is a shuffle, a bit's packed word
+// is one __ballot_sync. Capacity 4 ranks a bit's 2 L <= 8 candidates by
+// shuffles unrolled over the capacity's 8 (those past 2 L masked), as the
+// kernels of a fixed list size do, the ranks landing in shared-memory
+// slots. Capacity 32 sorts a bit's
+// candidates over the warp (a bitonic sort of one register a lane up to 16
+// paths, two above), so slot j reads the candidate of rank j from lane j's
+// own register. A sub-block's candidates are ranked from shared memory, R
+// of them a lane, each against all. Above 32 paths every level down to
+// span 1 is in shared memory.
 //
 // The prune above 32 paths is a merge. The T = C x L candidates of a leaf
 // (code l*C + c: path l, candidate c) form C lists, list c = {(l, c): l <
@@ -109,7 +116,13 @@
 // 16384) decode, chunks of 256, sub-blocks of 16, B = 64): 0.45 ms a call
 // at L = 64 and 0.64 ms at L = 128, where the one-warp kernel it replaced
 // took 1.00 and 3.25 ms; char L = 64 ((8192, 4096), no sub-blocks) 0.97
-// ms (2.24); bounds 1.3-2.6 us.
+// ms (2.24); bounds 1.3-2.6 us. Below 32 paths (chip_profile.py
+// small_lists_ab, the same card, device time under the profiler of a
+// decode's 70 calls at B = 64, the kernels they replaced in brackets): L = 1
+// 2.23 ms (4.43), L = 3 4.16 (5.60), char L = 3 (32 calls) 3.33 (4.98), L =
+// 12 10.11 (12.46), L = 24 18.62 (20.11); a codeword's chain at L = 1 61k
+// cycles a call (151k). Back to back in a decode, a call below 12 paths
+// takes ~0.04-0.07 ms, about what the host takes to launch it.
 //
 // Two families, instantiations of one template (the TPU kernel's int8
 // flag): float32, and char, integer-valued LLRs in f32 with g clipped to
@@ -145,6 +158,36 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef K7_PROFILE
+// Cycles per op kind and leaf phase, summed by thread 0 of every codeword's
+// team, and their counts at slot + 32 (chip_profile.py k7_ops builds with
+// -DK7_PROFILE and reads them with masked_scl_chunk_profile): 0 staging;
+// 1-3 F, G, COMBINE; 4 a bit leaf, of it 5 candidates, 6 prune, 7 the
+// slot read-back, 8 the ballot; 9-12 sub-block leaves rate-0, rate-1,
+// rep, SPC; 13 a register-level node (its bit leaves inside); 14 the
+// whole walk.
+__device__ unsigned long long k7_prof[64];
+#define K7_CLOCK(t) long long t = clock64()
+#define K7_TICK(slot, t)                                                      \
+  do {                                                                        \
+    const long long now_ = clock64();                                         \
+    if (tid == 0) {                                                           \
+      atomicAdd(&k7_prof[slot], static_cast<unsigned long long>(now_ - (t))); \
+      atomicAdd(&k7_prof[(slot) + 32], 1ull);                                 \
+    }                                                                         \
+    t = now_;                                                                 \
+  } while (0)
+extern "C" int masked_scl_chunk_profile(unsigned long long* out) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, k7_prof, sizeof(k7_prof));
+  const unsigned long long zero[64] = {};
+  return static_cast<int>(err != cudaSuccess ? err
+                                             : cudaMemcpyToSymbol(k7_prof, zero, sizeof(zero)));
+}
+#else
+#define K7_CLOCK(t)
+#define K7_TICK(slot, t)
+#endif
 
 namespace {
 
@@ -239,8 +282,9 @@ size_t dynamic_bytes(int nl, int m, int sub, bool direct) {
 
 // One codeword's team (a warp up to capacity 32, a block above): the
 // shared state and the chunk. L is the list's capacity (a power of two),
-// nl the list size (nl <= L; slots at or above it never become live).
-template <int L, class Fam>
+// nl the list size (nl <= L; slots at or above it never become live): NL
+// when NL > 0 (capacity 4's instantiations), else the launch argument.
+template <int L, class Fam, int NL = 0>
 struct Walker {
   static constexpr int NW = kWords<L>;  // packed words a position
   static constexpr int NT = kThreads<L>;
@@ -256,7 +300,7 @@ struct Walker {
   int m, D, tid, lane, warp, nl_arg;
   float mreg;               // path tid's metric (tid < nl)
 
-  __device__ int nl() const { return nl_arg; }
+  __device__ int nl() const { return NL > 0 ? NL : nl_arg; }
   __device__ int frozen(int pos) const { return (Fm[pos >> 5] >> (pos & 31)) & 1; }
 
   // the team's barrier: a block's is PTX's barrier.sync without .aligned,
@@ -296,6 +340,7 @@ struct Walker {
 
   // f from level q into level q + 1
   __device__ void F(int q) {
+    K7_CLOCK(tp);
     const int len = m >> q, lh = D - q - 1, h = 1 << lh;
     const float* Xq = in_lvl(q);
     float* Y = out_lvl(q + 1);
@@ -304,11 +349,13 @@ struct Walker {
       Y[t] = f_bits(Xq[l * len + i], Xq[l * len + i + h]);
     }
     sync();
+    K7_TICK(1, tp);
   }
 
   // g from level q into level q + 1 (node at offset off, whose left half's
   // bits are done), then the left child's perm becomes level q's
   __device__ void G(int q, int off) {
+    K7_CLOCK(tp);
     const int len = m >> q, lh = D - q - 1, h = 1 << lh;
     const float* Xq = in_lvl(q);
     float* Y = out_lvl(q + 1);
@@ -319,11 +366,13 @@ struct Walker {
     }
     for_paths([&](int l) { s.P[q][l] = s.P[q + 1][l]; });
     sync();
+    K7_TICK(2, tp);
   }
 
   // the node at level q, offset off: left bits forked through the right
   // child's perm, XOR the right bits; perms composed
   __device__ void combine(int q, int off) {
+    K7_CLOCK(tp);
     const int h = (m >> q) >> 1;
     const int* p = s.P[q + 1];
     if constexpr (NW == 1) {
@@ -357,66 +406,14 @@ struct Walker {
     sync();
     for_paths([&](int l) { s.P[q][l] = c; });
     sync();
+    K7_TICK(3, tp);
   }
 
-  // Top-nl of T <= TC candidates into s.pc / s.pv (slot -> code, value).
-  // Lane `lane` holds the values of codes lane + 32 r in v[r]; a
-  // candidate's rank counts those that beat it in (value desc, code asc)
-  // order. With k values above kNeg, slots r < max(k, 1) take rank r, the
-  // later ones the re-take rule's candidate with value kNeg.
-  template <int TC>
-  __device__ void prune(const float (&v)[(TC + 31) / 32], int T) {
-    constexpr int kPer = (TC + 31) / 32;
-    const int nl = this->nl();
-    int k = 0;
-#pragma unroll
-    for (int r = 0; r < kPer; ++r)
-      k += __popc(__ballot_sync(kAll, lane + 32 * r < T && v[r] > kNeg));
-    const int kk = max(k, 1);
-    int rank[kPer];
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) rank[r] = 0;
-#pragma unroll
-    for (int ru = 0; ru < kPer; ++ru) {
-      // a loop over the run-time count (warp-uniform), not unrolled in
-      // full: a guarded body per candidate made ptxas take ~4x as long on
-      // the capacity-32 kernels as on large_scl_chunk.cu's L = 32
-      const int n = min(32, T - 32 * ru);
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const float w = __shfl_sync(kAll, v[ru], j);
-        const int u = 32 * ru + j;
-#pragma unroll
-        for (int r = 0; r < kPer; ++r)
-          rank[r] += (w > v[r]) | ((w == v[r]) & (u < lane + 32 * r));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int t = lane + 32 * r;
-      if (t < T && rank[r] < kk && rank[r] < nl) {
-        s.pc[rank[r]] = t;
-        s.pv[rank[r]] = v[r];
-      }
-    }
-    if (kk < nl) {  // warp-uniform: the re-take rule fills the rest
-      int best = kNoCode;
-#pragma unroll
-      for (int r = 0; r < kPer; ++r) {
-        const int t = lane + 32 * r;
-        if (t < T && (rank[r] < kk || v[r] == kNeg)) best = min(best, t);
-      }
-      best = __reduce_min_sync(kAll, best);
-      for (int r = kk + lane; r < nl; r += 32) {
-        s.pc[r] = best;
-        s.pv[r] = kNeg;
-      }
-    }
-    __syncwarp();
-  }
-
-  // A sub-block's candidates up to 32 paths: the same prune on the T
-  // candidates of s.V. Lanes hold R candidates each (R from T: 1, 2, 4,
+  // A sub-block's candidates up to 32 paths: top-nl of the T candidates of
+  // s.V into s.pc / s.pv (slot -> code, value), a candidate's rank counting
+  // those that beat it in (value desc, code asc) order; with k values
+  // above kNeg, slots r < max(k, 1) take rank r, the later ones the re-take
+  // rule's candidate with value kNeg. Lanes hold R candidates each (R from T: 1, 2, 4,
   // or 8 in passes of 256), and each pass reads every value once from
   // shared memory.
   __device__ void prune_smem(int T) {
@@ -596,24 +593,152 @@ struct Walker {
   // returns the packed word; perm (slot -> path) and the metrics follow
   // the prune.
   __device__ __forceinline__ unsigned leaf(float x, int pos, int& perm) {
-    constexpr int T = 2 * L, kPer = (T + 31) / 32;  // T: the capacity's
-    const int nl = this->nl();
-    const int fz = frozen(pos);
-    float v[kPer];
+    if constexpr (L == 4) {
+      return leaf4(x, pos, perm);
+    } else if (2 * nl() <= 32) {  // every candidate in one register a lane
+      return leaf32<1>(x, pos, perm);
+    } else {
+      return leaf32<2>(x, pos, perm);
+    }
+  }
+
+  // (value, code) a beats (value, code) b in the prune's order: value
+  // descending, code ascending
+  __device__ static bool beats(float av, int ac, float bv, int bc) {
+    return av > bv || (av == bv && ac < bc);
+  }
+
+  // A bitonic sort over the warp of the 32 R entries (v[r], c[r]) at place
+  // lane + 32 r into the prune's order (best at place 0): a stage whose
+  // partner is in another lane is one shfl_xor of each, the stage between
+  // a lane's two registers a swap
+  template <int R>
+  __device__ void bitonic(float (&v)[R], int (&c)[R]) const {
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {  // candidate t = 2 l + c
+    for (int k = 2; k <= 32 * R; k <<= 1) {
+#pragma unroll
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        if (j >= 32) {  // R == 2, k == 64: place lane against lane + 32
+          if (beats(v[1], c[1], v[0], c[0])) {
+            const float tv = v[0];
+            const int tc = c[0];
+            v[0] = v[1];
+            c[0] = c[1];
+            v[1] = tv;
+            c[1] = tc;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float ov = __shfl_xor_sync(kAll, v[r], j);
+            const int oc = __shfl_xor_sync(kAll, c[r], j);
+            const bool up = ((lane + 32 * r) & k) == 0, lower = (lane & j) == 0;
+            if ((lower == up) == beats(ov, oc, v[r], c[r])) {
+              v[r] = ov;
+              c[r] = oc;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // The bit leaf of capacity 32: lane t holds candidates t + 32 r (r < R),
+  // a bitonic sort over the warp puts the candidate of rank j at place j,
+  // so slot j = lane j reads its code and value from its own register: no
+  // shared memory, no __syncwarp. Places past T hold (-inf, t) and sort
+  // last; the re-take rule (kk < nl, warp-uniform) is one warp minimum.
+  template <int R>
+  __device__ __forceinline__ unsigned leaf32(float x, int pos, int& perm) {
+    const int nl = this->nl(), T = 2 * nl;
+    K7_CLOCK(tp);
+    K7_CLOCK(tl);
+    const int fz = frozen(pos);
+    float v[R];
+    int c[R];
+    int k = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // candidate t = 2 l + c
       const int t = lane + 32 * r, l = (t >> 1) & 31;
       const float xl = __shfl_sync(kAll, x, l), ml = __shfl_sync(kAll, mreg, l);
-      v[r] = ml + ((t & 1) ? (fz ? kNeg : -fabsf(xl)) : (fz ? fminf(xl, 0.f) : 0.f));
+      const float val = ml + ((t & 1) ? (fz ? kNeg : -fabsf(xl)) : (fz ? fminf(xl, 0.f) : 0.f));
+      v[r] = t < T ? val : __uint_as_float(0xff800000u);  // -inf
+      c[r] = t;
+      k += __popc(__ballot_sync(kAll, t < T && val > kNeg));
     }
-    prune<T>(v, 2 * nl);
-    const int code = lane < nl ? s.pc[lane] : 2 * lane;
-    const float value = lane < nl ? s.pv[lane] : 0.f;
-    __syncwarp();  // slots read before the next prune writes them
+    const int kk = max(k, 1);
+    K7_TICK(5, tp);
+    bitonic<R>(v, c);
+    K7_TICK(6, tp);
+    int code = lane < nl ? c[0] : 2 * lane;  // lanes >= nl: their own path
+    float value = v[0];
+    if (kk < nl) {  // warp-uniform: slots kk.. re-take the smallest code of the pool
+      int best = kNoCode;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (c[r] < T && (lane + 32 * r < kk || v[r] == kNeg)) best = min(best, c[r]);
+      best = __reduce_min_sync(kAll, best);
+      if (lane >= kk && lane < nl) {
+        code = best;
+        value = kNeg;
+      }
+    }
+    K7_TICK(7, tp);
     perm = code >> 1;
     const float xs = __shfl_sync(kAll, x, perm);
     if (lane < nl) mreg = value;
-    return __ballot_sync(kAll, lane < nl && !fz && (Fam::hard(xs) ^ (code & 1)));
+    const unsigned word = __ballot_sync(kAll, lane < nl && !fz && (Fam::hard(xs) ^ (code & 1)));
+    K7_TICK(8, tp);
+    K7_TICK(4, tl);
+    return word;
+  }
+
+  // The bit leaf of capacity 4 (2 <= nl <= 4): lane t < T = 2 nl forms
+  // candidate t from its path's shuffled LLR and metric and counts the
+  // candidates that beat it over the capacity's 8, unrolled (those past T
+  // masked), as large_scl_chunk.cu's kernel of a fixed size does; the ranks
+  // land in shared memory slots, read back by the slot lanes.
+  __device__ __forceinline__ unsigned leaf4(float x, int pos, int& perm) {
+    const int nl = this->nl(), T = 2 * nl;
+    K7_CLOCK(tp);
+    K7_CLOCK(tl);
+    const int fz = frozen(pos);
+    const int l = (lane >> 1) & 31;  // lane t: candidate t = 2 l + c
+    const float xl = __shfl_sync(kAll, x, l), ml = __shfl_sync(kAll, mreg, l);
+    const float v = ml + ((lane & 1) ? (fz ? kNeg : -fabsf(xl)) : (fz ? fminf(xl, 0.f) : 0.f));
+    const int kk = max(__popc(__ballot_sync(kAll, lane < T && v > kNeg)), 1);
+    K7_TICK(5, tp);
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float w = __shfl_sync(kAll, v, j);
+      rank += j < T && ((w > v) | ((w == v) & (j < lane)));
+    }
+    if (lane < T && rank < kk && rank < nl) {
+      s.pc[rank] = lane;
+      s.pv[rank] = v;
+    }
+    if (kk < nl) {  // warp-uniform: the re-take rule fills the rest
+      const int best = __reduce_min_sync(
+          kAll, lane < T && (rank < kk || v == kNeg) ? lane : kNoCode);
+      if (lane >= kk && lane < nl) {
+        s.pc[lane] = best;
+        s.pv[lane] = kNeg;
+      }
+    }
+    __syncwarp();
+    K7_TICK(6, tp);
+    const int code = lane < nl ? s.pc[lane] : 2 * lane;
+    const float value = lane < nl ? s.pv[lane] : 0.f;
+    __syncwarp();  // slots read before the next prune writes them
+    K7_TICK(7, tp);
+    perm = code >> 1;
+    const float xs = __shfl_sync(kAll, x, perm);
+    if (lane < nl) mreg = value;
+    const unsigned word = __ballot_sync(kAll, lane < nl && !fz && (Fam::hard(xs) ^ (code & 1)));
+    K7_TICK(8, tp);
+    K7_TICK(4, tl);
+    return word;
   }
 
   // Bitwise SCL of a span-S node held in registers (lane l < nl: path l's
@@ -649,6 +774,7 @@ struct Walker {
   // the span-S node at level d, offset off, decoded in registers
   template <int S>
   __device__ void reg_node(int d, int off) {
+    K7_CLOCK(tp);
     const float* Xd = in_lvl(d);
     float y[S];
 #pragma unroll
@@ -661,12 +787,15 @@ struct Walker {
       if (lane == (i & 31)) W[off + i] = static_cast<int>(w[i]);
     if (lane < nl()) s.P[d][lane] = perm;
     __syncwarp();
+    K7_TICK(13, tp);
   }
 
   // Above 32 paths: a span-1 leaf at level d (path l's LLR at level d's
   // element l), position pos: its candidates and the prune by merge in
   // shared memory, word k of its bits warp k's ballot
   __device__ void bit_leaf(int d, int pos) {
+    K7_CLOCK(tp);
+    K7_CLOCK(tl);
     const float* Xd = in_lvl(d);
     const int fz = frozen(pos);
     for_paths([&](int l) {
@@ -675,7 +804,9 @@ struct Walker {
       s.V[2 * l + 1] = mreg + (fz ? kNeg : -fabsf(x));
     });
     sync();
+    K7_TICK(5, tp);
     prune_merge(1);
+    K7_TICK(6, tp);
     if (warp < NW) {  // word k = warp: lane = slot 32 k + lane
       const int j = 32 * warp + lane;
       int bit = 0;
@@ -686,11 +817,14 @@ struct Walker {
       const unsigned b = __ballot_sync(kAll, bit);
       if (lane == 0) W[warp * m + pos] = static_cast<int>(b);
     }
+    K7_TICK(8, tp);
     for_paths([&](int l) {
       mreg = s.pv[l];
       s.P[d][l] = s.pc[l] >> 1;
     });
     sync();
+    K7_TICK(7, tp);
+    K7_TICK(4, tl);
   }
 
   // the per-bit walk of the node at level d0 (span 2^lg), offset off0: up
@@ -766,6 +900,7 @@ struct Walker {
 
   // the SSCL leaf rule of a pure sub-block of class cls at level d, offset off
   __device__ void sub_leaf(int d, int off, int cls) {
+    K7_CLOCK(tp);
     const int lg = D - d, len = 1 << lg;
     const float* Xd = in_lvl(d);
     if (cls == C_RATE0) {
@@ -777,6 +912,7 @@ struct Walker {
       });
       for (int t = tid; t < NW * len; t += NT) W[(t >> lg) * m + off + (t & (len - 1))] = 0;
       sync();
+      K7_TICK(9, tp);
       return;
     }
     int lgc;
@@ -846,6 +982,7 @@ struct Walker {
       s.P[d][l] = s.pc[l] >> lgc;
     });
     sync();
+    K7_TICK(cls == C_RATE1 ? 10 : cls == C_REP ? 11 : 12, tp);
   }
 
   // The post-order walk of the node at level d0, offset off0, over its
@@ -870,7 +1007,7 @@ struct Walker {
   }
 };
 
-template <int L, class Fam>
+template <int L, class Fam, int NL>
 __global__ void __launch_bounds__(kThreads<L>)
 masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict__ llr,
                         const uint8_t* __restrict__ mask,
@@ -878,7 +1015,7 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
                         const int* __restrict__ sub_cls, int sub,
                         int* __restrict__ bits_out, int* __restrict__ perm_out,
                         float* __restrict__ met_out, int m, int list_size, int direct) {
-  using Team = Walker<L, Fam>;
+  using Team = Walker<L, Fam, NL>;
   constexpr int NW = kWords<L>, NT = Team::NT, NWARPS = Team::NWARPS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nl = list_size;
@@ -891,6 +1028,7 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
   __shared__ Shared<L> s;
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
+  K7_CLOCK(tk);
   const float* in = llr + (size_t)b * nl * m;
   if (!dir)
     for (int t = tid; t < nl * m; t += NT) X[t] = in[t];
@@ -913,6 +1051,8 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
   Team wk{s, dir ? in : X, dir ? X : X + nl * m, W, Fm, Cls, m, log2i(m), tid, lane, warp, nl,
           0.f};
   wk.sync();
+  K7_TICK(0, tk);
+  K7_CLOCK(tw);
   wk.for_paths([&](int l) { wk.mreg = met_in[(size_t)b * nl + l]; });
   if (sub == 0) {
     wk.walk_bits(0, wk.D, 0);
@@ -926,6 +1066,7 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
         wk.sub_leaf(ds, off, cls);
     });
   }
+  K7_TICK(14, tw);
 
   // bits [B, M] (one word), or [B, ceil(nl / 32), M]
   const int out_words = NW == 1 ? 1 : (nl + 31) >> 5;
@@ -936,7 +1077,317 @@ masked_scl_chunk_kernel(const int* __restrict__ spc_tab, const float* __restrict
   });
 }
 
-template <int L, class Fam>
+// ---- one path (L = 1) ---------------------------------------------------
+//
+// With one path every prune keeps the first of its C candidates in (value
+// desc, code asc) order: the arg-max of the C values, first on ties, and
+// the perm is the identity. So a codeword's walk is SC with a path metric:
+// no candidate ranking, no slots, no forks in G or combine, no perm
+// composition. A warp a codeword walks the chunk as large_sc_chunk.cu (K6)
+// does: the upper levels in shared memory, the lanes over a node's
+// positions, a __syncwarp after each level; the codeword bits packed 32
+// positions a word; the walk's leaves (span-32 nodes, or the sub-blocks)
+// on one lane, in registers. Unlike K6 nothing is skipped: a frozen bit's
+// metric term reads its LLR. The arithmetic is K7's: f the sign-XOR form,
+// g and the hard decisions of the family, each candidate value formed as
+// the capacity kernels form it, every metric sum sequential in span order.
+// The metric lives in lane 0's register.
+template <class Fam>
+struct OnePath {
+  const float* X0;     // level 0, [M]: staged in shared memory, or the input
+  float* X1;           // levels d >= 1, [M >> d] each
+  unsigned* Wx;        // [M / 32] codeword bits (bit i & 31 of word i >> 5)
+  const unsigned* Fm;  // [M / 32] frozen mask bits
+  const uint8_t* Cls;  // [M / sub] class codes
+  const int* spc;      // SPC_TABLE (shared)
+  int m, D, lane;
+  float mreg;          // the path metric (lane 0)
+
+  __device__ const float* lvl(int d) const { return d == 0 ? X0 : X1 + (m - (m >> (d - 1))); }
+  __device__ float* out(int d) const { return X1 + (m - (m >> (d - 1))); }
+  __device__ int xbit(int pos) const { return (Wx[pos >> 5] >> (pos & 31)) & 1; }
+
+  // f from level q into level q + 1
+  __device__ void F(int q) {
+    const int h = (m >> q) >> 1;
+    const float* Xq = lvl(q);
+    float* Y = out(q + 1);
+    for (int i = lane; i < h; i += 32) Y[i] = f_bits(Xq[i], Xq[i + h]);
+    __syncwarp();
+  }
+
+  // g from level q into level q + 1 for the node at offset off
+  __device__ void G(int q, int off) {
+    const int h = (m >> q) >> 1;
+    const float* Xq = lvl(q);
+    float* Y = out(q + 1);
+    for (int i = lane; i < h; i += 32) Y[i] = Fam::g(Xq[i], Xq[i + h], xbit(off + i));
+    __syncwarp();
+  }
+
+  // the node at level q, offset off: left bits ^= right bits
+  __device__ void combine(int q, int off) {
+    const int h = (m >> q) >> 1;
+    if (h >= 32) {
+      for (int w = lane; w < (h >> 5); w += 32) Wx[(off >> 5) + w] ^= Wx[((off + h) >> 5) + w];
+    } else if (lane == 0) {  // both halves in one word
+      const unsigned word = Wx[off >> 5], lo = ((1u << h) - 1u) << (off & 31);
+      Wx[off >> 5] = word ^ ((word >> h) & lo);
+    }
+    __syncwarp();
+  }
+
+  // a bit leaf: keep (0) or flip (1), the flip of a frozen bit at kNeg
+  __device__ static int bit(float y, int fz, float& mt) {
+    const float v0 = mt + (fz ? fminf(y, 0.f) : 0.f);
+    const float v1 = mt + (fz ? kNeg : -fabsf(y));
+    const int take = v1 > v0;
+    mt = take ? v1 : v0;
+    return fz ? 0 : Fam::hard(y) ^ take;
+  }
+
+  // SC with a path metric of a span-S node held in registers: frz bit i =
+  // leaf i frozen -> x (codeword bits, bit i = position i)
+  template <int S>
+  __device__ static void sc(const float (&y)[S], unsigned frz, float& mt, unsigned& x) {
+    if constexpr (S == 1) {
+      x = static_cast<unsigned>(bit(y[0], frz & 1u, mt));
+    } else {
+      constexpr int H = S / 2;
+      float a[H];
+#pragma unroll
+      for (int i = 0; i < H; ++i) a[i] = f_bits(y[i], y[i + H]);
+      unsigned xl, xr;
+      sc<H>(a, frz, mt, xl);
+#pragma unroll
+      for (int i = 0; i < H; ++i) a[i] = Fam::g(y[i], y[i + H], (xl >> i) & 1u);
+      sc<H>(a, frz >> H, mt, xr);
+      x = (xl ^ xr) | (xr << H);
+    }
+  }
+
+  // the span-S node (S <= 32) at level d, offset off, on lane 0
+  template <int S>
+  __device__ void reg_node(int d, int off) {
+    if (lane == 0) {
+      const float* Xd = lvl(d);
+      float y[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) y[i] = Xd[i];
+      const int sh = off & 31;
+      unsigned x;
+      sc<S>(y, Fm[off >> 5] >> sh, mreg, x);
+      const unsigned full = S == 32 ? kAll : ((1u << S) - 1u) << sh;
+      Wx[off >> 5] = (Wx[off >> 5] & ~full) | (x << sh);
+    }
+    __syncwarp();
+  }
+
+  // the per-bit walk of the node at level d0 (span 2^lg), offset off0
+  __device__ void walk_bits(int d0, int lg, int off0) {
+    switch (lg) {
+      case 1: reg_node<2>(d0, off0); return;
+      case 2: reg_node<4>(d0, off0); return;
+      case 3: reg_node<8>(d0, off0); return;
+      case 4: reg_node<16>(d0, off0); return;
+      case 5: reg_node<32>(d0, off0); return;
+      default: walk(d0, lg - 5, 5, off0, [&](int, int off) { reg_node<32>(d0 + lg - 5, off); });
+    }
+  }
+
+  // The SSCL leaf rule of a pure sub-block of class cls at level d, offset
+  // off, on lane 0: the candidates' values as the capacity kernels form
+  // them, the first maximal one taken, its bits written
+  __device__ void sub_leaf(int d, int off, int cls) {
+    if (lane == 0) {
+      const int len = (m >> d);
+      const float* Xd = lvl(d);
+      float v[8];
+      int nc = 1, par = 0;
+      unsigned long long best[4] = {~0ull, ~0ull, ~0ull, ~0ull};  // (|x|, i) ascending
+      const float mt = mreg;
+      if (cls == C_RATE0 || cls == C_REP) {
+        float z = 0.f, o = 0.f;
+        for (int i = 0; i < len; ++i) {
+          const float x = Xd[i];
+          z = z + fminf(x, 0.f);
+          o = o + fmaxf(x, 0.f);
+        }
+        v[0] = mt + z;
+        v[1] = mt + -o;
+        nc = cls == C_REP ? 2 : 0;
+        if (cls == C_RATE0) mreg = mt + z;
+      } else {
+        const int K = cls == C_RATE1 ? 2 : 4;
+        for (int i = 0; i < len; ++i) {
+          const float y = Xd[i];
+          par ^= Fam::hard(y);
+          unsigned long long key =
+              (static_cast<unsigned long long>(__float_as_uint(fabsf(y))) << 32) |
+              static_cast<unsigned>(i);
+          for (int k = 0; k < K; ++k) {
+            if (key < best[k]) {
+              const unsigned long long t = best[k];
+              best[k] = key;
+              key = t;
+            }
+          }
+        }
+        const float m0 = __uint_as_float(static_cast<unsigned>(best[0] >> 32));
+        if (cls == C_RATE1) {
+          const float m1 = __uint_as_float(static_cast<unsigned>(best[1] >> 32));
+          v[0] = mt + 0.f;
+          v[1] = mt + -m0;
+          v[2] = mt + -m1;
+          v[3] = mt + (-m0 - m1);
+          nc = 4;
+        } else {
+          for (int c = 0; c < 8; ++c) {
+            const int tm = spc[24 + c];
+            float tc = 0.f;
+            for (int j = 0; j < 3; ++j)
+              if ((tm >> j) & 1)
+                tc = tc + __uint_as_float(static_cast<unsigned>(best[1 + j] >> 32));
+            const float even_d = (spc[16 + c] ? -m0 : -0.f * m0) - tc;
+            const float odd_d = -m0 - tc;
+            v[c] = mt + (par ? odd_d : even_d);
+          }
+          nc = 8;
+        }
+      }
+      int c = 0;  // the first maximal candidate
+      for (int u = 1; u < nc; ++u)
+        if (v[u] > v[c]) c = u;
+      if (nc) mreg = v[c];
+      int fm = 0;
+      if (cls == C_RATE1) fm = (c == 1 || c == 3) | ((c == 2 || c == 3) << 1);
+      if (cls == C_SPC) fm = spc[(par ? 8 : 0) + c];
+      int at[4];
+      for (int k = 0; k < 4; ++k)
+        at[k] = (fm >> k) & 1 ? static_cast<int>(best[k] & 0xffffffffu) : -1;
+      for (int w0 = 0; w0 < len; w0 += 32) {
+        const int n = len - w0 < 32 ? len - w0 : 32;
+        unsigned word = 0;
+        for (int q = 0; q < n; ++q) {
+          const int i = w0 + q;
+          int b = 0;
+          if (cls == C_REP) {
+            b = c != 0;
+          } else if (cls != C_RATE0) {
+            b = Fam::hard(Xd[i]) ^ (i == at[0] || i == at[1] || i == at[2] || i == at[3]);
+          }
+          word |= static_cast<unsigned>(b) << q;
+        }
+        const int pos = off + w0, sh = pos & 31;
+        const unsigned full = n == 32 ? kAll : ((1u << n) - 1u) << sh;
+        Wx[pos >> 5] = (Wx[pos >> 5] & ~full) | (word << sh);
+      }
+    }
+    __syncwarp();
+  }
+
+  // the post-order walk of Walker::walk
+  template <class Leaf>
+  __device__ void walk(int d0, int lgn, int lgl, int off0, Leaf leaf) {
+    const int dl = d0 + lgn, n = 1 << lgn;
+    for (int k = 0; k < n; ++k) {
+      const int top = k == 0 ? d0 + 1 : dl - (__ffs(k) - 1);
+      for (int d = top; d <= dl; ++d) {
+        const int up = dl - d + 1;
+        if ((k >> (dl - d)) & 1)
+          G(d - 1, off0 + (((k >> up) << up) << lgl));
+        else
+          F(d - 1);
+      }
+      leaf(k, off0 + (k << lgl));
+      const int climb = __ffs(~k) - 1;
+      for (int j = 1; j <= climb && j <= lgn; ++j)
+        combine(dl - j, off0 + (((k >> j) << j) << lgl));
+    }
+  }
+};
+
+// Dynamic shared memory of the one-path kernel: the LLR levels (2M f32, or
+// M from level 1 when level 0 is read from device memory), the codeword
+// bits and the mask bits (M / 32 words each), the class codes
+size_t one_path_bytes(int m, int sub, bool direct) {
+  const size_t words = (size_t)(m + 31) / 32;
+  return (size_t)(direct ? 1 : 2) * m * sizeof(float) + 2 * words * sizeof(unsigned) +
+         (sub ? m / sub : 0);
+}
+
+template <class Fam>
+__global__ void __launch_bounds__(32)
+masked_scl_one_kernel(const int* __restrict__ spc_tab, const float* __restrict__ llr,
+                      const uint8_t* __restrict__ mask, const float* __restrict__ met_in,
+                      const int* __restrict__ sub_cls, int sub, int* __restrict__ bits_out,
+                      int* __restrict__ perm_out, float* __restrict__ met_out, int m,
+                      int direct) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int spc[32];
+  const int b = blockIdx.x, lane = threadIdx.x, tid = lane;  // tid: the probes'
+  (void)tid;
+  const int n_words = (m + 31) >> 5;
+  float* X = reinterpret_cast<float*>(smem);  // level 0 then the levels below, or those only
+  unsigned* Wx = reinterpret_cast<unsigned*>(X + (direct ? 1 : 2) * m);
+  unsigned* Fm = Wx + n_words;
+  uint8_t* Cls = reinterpret_cast<uint8_t*>(Fm + n_words);
+  K7_CLOCK(tk);
+  const float* in = llr + (size_t)b * m;
+  if (!direct)
+    for (int i = lane; i < m; i += 32) X[i] = in[i];
+  for (int w = 0; w < n_words; ++w) {
+    const int pos = 32 * w + lane;
+    const unsigned word = __ballot_sync(kAll, pos < m && mask[pos] != 0);
+    if (lane == 0) {
+      Fm[w] = word;
+      Wx[w] = 0u;
+    }
+  }
+  const int n_sub = sub ? m / sub : 0;
+  for (int i = lane; i < n_sub; i += 32) Cls[i] = static_cast<uint8_t>(sub_cls[i]);
+  spc[lane] = spc_tab[lane];
+  __syncwarp();
+  K7_TICK(0, tk);
+  OnePath<Fam> wk{direct ? in : X, direct ? X : X + m, Wx, Fm, Cls, spc, m, log2i(m), lane,
+                  lane == 0 ? met_in[b] : 0.f};
+  if (sub == 0) {
+    wk.walk_bits(0, wk.D, 0);
+  } else {
+    const int lgs = log2i(sub), ds = wk.D - lgs;
+    wk.walk(0, ds, lgs, 0, [&](int k, int off) {
+      const int cls = Cls[k];
+      if (cls == C_MIXED)
+        wk.walk_bits(ds, lgs, off);
+      else
+        wk.sub_leaf(ds, off, cls);
+    });
+  }
+  K7_TICK(14, tk);
+  for (int i = lane; i < m; i += 32) bits_out[(size_t)b * m + i] = (Wx[i >> 5] >> (i & 31)) & 1;
+  if (lane == 0) {
+    perm_out[b] = 0;
+    met_out[b] = wk.mreg;
+  }
+}
+
+template <class Fam>
+int launch_one(const int* spc_tab, const float* llr, const uint8_t* mask, const float* met,
+               const int* sub_cls, int sub, int* bits, int* perm, float* met_out, int m,
+               int batch, cudaStream_t stream) {
+  const bool direct = one_path_bytes(m, sub, false) > kMaxDynamic;
+  const size_t smem = one_path_bytes(m, sub, direct);
+  if (smem > kMaxDynamic) return -2;
+  auto kernel = masked_scl_one_kernel<Fam>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch, 32, smem, stream>>>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out,
+                                      m, static_cast<int>(direct));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, class Fam, int NL = 0>
 int launch(const int* spc_tab, const float* llr, const uint8_t* mask, const float* met,
            const int* sub_cls, int sub, int* bits, int* perm, float* met_out, int m,
            int list_size, int batch, cudaStream_t stream) {
@@ -944,7 +1395,7 @@ int launch(const int* spc_tab, const float* llr, const uint8_t* mask, const floa
   const bool direct = dynamic_bytes<L>(list_size, m, sub, false) > kMaxDynamic;
   const size_t smem = dynamic_bytes<L>(list_size, m, sub, direct);
   if (smem > kMaxDynamic) return -2;
-  auto kernel = masked_scl_chunk_kernel<L, Fam>;
+  auto kernel = masked_scl_chunk_kernel<L, Fam, NL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -958,13 +1409,23 @@ template <class Fam>
 int dispatch(const int* spc_tab, const float* llr, const uint8_t* mask, const float* met,
              const int* sub_cls, int sub, int* bits, int* perm, float* met_out,
              int list_size, int m, int batch, cudaStream_t stream) {
-#define K7_LAUNCH(CAP)                                                                    \
-  launch<CAP, Fam>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, \
-                          list_size, batch, stream)
-  if (list_size <= 4) return K7_LAUNCH(4);
-  if (list_size <= 32) return K7_LAUNCH(32);
-  if (list_size <= 64) return K7_LAUNCH(64);
-  return K7_LAUNCH(128);
+#define K7_LAUNCH(CAP, NL)                                                              \
+  launch<CAP, Fam, NL>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m, \
+                       list_size, batch, stream)
+  // capacity 4 at each of its list sizes with the size a constant of the
+  // build: its run-time size cost 37% of a call against large_scl_chunk.cu's
+  // fixed L = 4 kernel on the same calls (chip_profile.py small_lists_ab)
+  switch (list_size) {
+    case 1:
+      return launch_one<Fam>(spc_tab, llr, mask, met, sub_cls, sub, bits, perm, met_out, m,
+                             batch, stream);
+    case 2: return K7_LAUNCH(4, 2);
+    case 3: return K7_LAUNCH(4, 3);
+    case 4: return K7_LAUNCH(4, 4);
+  }
+  if (list_size <= 32) return K7_LAUNCH(32, 0);
+  if (list_size <= 64) return K7_LAUNCH(64, 0);
+  return K7_LAUNCH(128, 0);
 #undef K7_LAUNCH
 }
 

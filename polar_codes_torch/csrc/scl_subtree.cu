@@ -14,8 +14,10 @@
 // picks), with the same interface and results.
 //
 // Interface, in the TPU kernel's layouts:
-//   llr [w_in, span, B] (state type), metrics [B, w_in] f32, family,
-//   list size L (1 <= L <= 128 here)
+//   llr [w_in, span, B] (state type) at any strides (elements: sl over
+//   paths, si over positions, sb over codewords; the large-N glue hands its
+//   batch-first [B, L, S] leaves over as views), metrics [B, w_in] f32,
+//   family, list size L (1 <= L <= 128 here)
 //     -> bits [W, span, B] i32, W = ceil(L / 32) words (bit l % 32 of word
 //        l / 32 = path l's decision; W = 1 is the TPU kernel's bitplane
 //        form [span, B], W > 1 stands for its unpacked-path family),
@@ -43,12 +45,17 @@
 // yields the perm that G and COMBINE apply. ENUM leaves read their
 // codeword table as one bitmask per candidate at enum_masks[aux]; the SPC
 // flip tables come in spc_tab. One kernel per family and list capacity (a
-// power of two from 2 to 128; L = 1 runs in capacity 2) serves every
-// subtree of every code at every list size up to that capacity: the list
-// size is a launch argument, the prune keeps exactly that many paths, and
-// the slots above it never become live. The list sizes 2, 4, 8, 16 and 32 have a kernel each whose
-// list size is a constant of the build (the capacity's kernel is ~4%
-// slower at L = 8). Nothing is generated per code.
+// power of two from 2 to 128) serves every subtree of every code at every
+// list size up to that capacity: the list size is a launch argument, the
+// prune keeps exactly that many paths, and the slots above it never become
+// live. The list sizes 2, 4, 8, 16 and 32 have a kernel each whose list
+// size is a constant of the build (the capacity's kernel is ~4% slower at L
+// = 8). L = 1 has a one-path instantiation (capacity 1, kOne): a leaf keeps
+// the first maximal of its C candidates, found by a butterfly of (value,
+// code) pairs over the warp (lane c forms candidate c, its sums sequential
+// on its lane); there is no prune, the perm is the identity, G reads no
+// perm, a combine is an XOR of words, and each lane writes its positions'
+// bits. Nothing is generated per code.
 //
 // Mapping: one team decodes one codeword. Capacities 2 to 32: a warp,
 // warp-synchronous (__syncwarp, shuffles and ballots between ops), one
@@ -64,19 +71,19 @@
 // packed bit words [W][span], the open nodes' perms P[level][L], the path
 // metrics, the candidate values, the leaf scratch and the SPC table (the
 // block's perms and the merge's lists a byte a path); device memory is
-// read once (the input level 0, by the first F and G, or staged into the
-// level region when the subtree is one leaf) and written once (bits,
-// perm, metrics). Per codeword that is sizeof(Shared<L>) + 4 W span + L
-// span sizeof(state) bytes, L the capacity: 20 KB at L = 8, span 512 in
-// f32, 12 KB in int16 or bf16; 47 KB at L = 64 and 94 KB at L = 128, span
-// 128 (the JAX package's span there). A one-leaf schedule whose staged
-// input would not fit (the large-N tree schedule's pure leaves: L = 32 at
-// span 2048 in f32 needs 256 KB) is not staged: its leaf reads the input
-// from device memory where it lies, element (l, i) at llr[(l span + i) B
-// + b], and needs sizeof(Shared<L>) + 4 W span bytes. A branched schedule
-// whose state exceeds the card's opt-in shared memory per block (only a
-// caller-chosen kernel_span can) is refused (-2); the wrapper sends such
-// schedules to scl_wide.cu.
+// read once (the input level 0 at its strides, by the first F and G, or
+// staged into the level region when the subtree is one leaf) and written
+// once (bits, perm, metrics). Per codeword that is sizeof(Shared<L>) + 4 W
+// span + L span sizeof(state) bytes, L the capacity: 20 KB at L = 8, span
+// 512 in f32, 12 KB in int16 or bf16; 47 KB at L = 64 and 94 KB at L =
+// 128, span 128 (the JAX package's span there). A one-leaf schedule whose
+// staged input would not fit (the large-N tree schedule's pure leaves: L =
+// 32 at span 2048 in f32 needs 256 KB) is not staged: its leaf reads the
+// input from device memory where it lies, element (l, i) of codeword b at
+// llr[l sl + i si + b sb], and needs sizeof(Shared<L>) + 4 W span bytes. A
+// branched schedule whose state exceeds the card's opt-in shared memory
+// per block (only a caller-chosen kernel_span can) is refused (-2); the
+// wrapper sends such schedules to scl_wide.cu.
 // Inside an op (a warp's lanes, or a block's threads):
 //   F, G      threads over (path, element) pairs; G reads the parent
 //             through the left child's perm (levels live in separate
@@ -130,6 +137,11 @@
 // L = 100 1.81-1.98 (6.81-7.20); the codeword's chain at L = 64 3.4M
 // cycles (6.7M), 68% of it the prunes of the SPC and ENUM leaves (8 and
 // 16 candidates a path: 15 searches a candidate before the early stop).
+// At one path (chip_profile.py small_lists_ab, the 58 pure chunks of a
+// (32768, 16384) CA-SCL-1 decode, B = 64) the 58 calls take 0.25 ms of
+// device time (capacity 2's 0.29 plus a 0.08 ms copy before), ~4.3 us a
+// call against ~45-60 us of the wrapper's host time; CA-SCL-64's 58 pure
+// chunks read in place take 2.04 ms (2.19 plus 0.94 of copies).
 // Capacities of 32 use 167 registers a thread, 16 and less 48-93, the
 // block teams 80 (64, a 72-byte spill) and 109-111 (128).
 //
@@ -146,10 +158,13 @@
 //
 // C interface (ctypes; every pointer and the stream are void*):
 //   int scl_subtree(const int *ops, int n_ops, const int *enum_masks,
-//                   const int *spc_tab, const void *llr, const float *met,
+//                   const int *spc_tab, const void *llr, long long llr_sl,
+//                   long long llr_si, long long llr_sb, const float *met,
 //                   int *bits, int *perm, float *met_out, int list_size,
 //                   int w_in, int w_out, int span, int batch, int family,
 //                   int per_block, cudaStream_t stream)
+//     llr_sl, llr_si, llr_sb: the input's strides in elements (a
+//     contiguous [w_in, span, B] tensor: span B, B, 1).
 //     bits holds W = ceil(list_size / 32) words per position ([W, span,
 //     B]). per_block: codewords (warps) per block of the warp kernels
 //     (capacities 2 to 32), 1, 2 or 4; 0 picks from the batch; the block
@@ -207,6 +222,7 @@ constexpr int kMaxPerBlock = 4;
 constexpr int kLoads = 8;  // device-memory loads a thread keeps in flight
 constexpr int kMaxDevices = 16;
 constexpr unsigned kAll = 0xffffffffu;
+constexpr int kNoCode = 0x7fffffff;
 enum { OP_F = 0, OP_G = 1, OP_COMBINE = 2, OP_LEAF = 3 };
 enum { K_RATE0 = 0, K_RATE1 = 1, K_REP = 2, K_SPC = 3, K_ENUM = 4 };
 
@@ -354,16 +370,18 @@ struct Team {
   static constexpr int NWARPS = NT / 32;
   static constexpr int NW = kWords<L>;  // packed words a position
   static constexpr int kPer = L * kMaxCand / NT;  // candidates a thread ranks at most
-  static constexpr int kLgL = L == 2 ? 1 : L == 4 ? 2 : L == 8 ? 3 : L == 16 ? 4 : 5;
+  static constexpr int kLgL = L == 1 ? 0 : L == 2 ? 1 : L == 4 ? 2 : L == 8 ? 3 : L == 16 ? 4 : 5;
+  static constexpr bool kOne = L == 1;  // one path: no prune, the perm the identity
   static constexpr int kPerBallot = L >= 32 ? 1 : 32 / L;  // positions per ballot (a warp)
   static constexpr unsigned kMask = L >= 32 ? kAll : (1u << L) - 1u;
 
   Shared<L>& s;
   int* W;          // [NW][span] packed bit words (word k of position i at W[k span + i])
   S* X;            // levels d >= 1, or the staged input of a one-leaf subtree
-  const S* in;     // the input level 0: element (l, i) at in[(l * span + i) * batch]
+  const S* in;     // the input level 0: element (l, i) at in[l * sl + i * si]
   const int* masks;
-  int span, batch, tid, lane, warp, nl_arg;
+  long long sl, si;  // the input's strides (elements) over paths and positions
+  int span, tid, lane, warp, nl_arg;
 
   // the list size
   __device__ int nl() const { return kExact ? L : nl_arg; }
@@ -397,15 +415,15 @@ struct Team {
   }
 
   // A leaf's input: path l of the span-len leaf at Xd (shared memory), or
-  // with D the subtree's input in device memory (the leaf is the whole
-  // subtree, len == span), and its element i as f32.
+  // with D the subtree's input in device memory at its strides (the leaf
+  // is the whole subtree, len == span), and its element i as f32.
   template <bool D>
   __device__ const S* path(const S* Xd, int len, int l) const {
-    return D ? in + (size_t)l * len * batch : Xd + l * len;
+    return D ? in + l * sl : Xd + l * len;
   }
   template <bool D>
   __device__ float at(const S* x, int i) const {
-    return Fam::load(D ? x[(size_t)i * batch] : x[i]);
+    return Fam::load(D ? x[i * si] : x[i]);
   }
 
   // f from level d (span len) into level d + 1, for paths l < w: threads
@@ -421,9 +439,9 @@ struct Team {
           const int t = t0 + NT * q, l = t >> lh, i = t & (h - 1);
           a[q] = c[q] = 0.f;
           if (t < n) {
-            const size_t o = (size_t)(l * len + i) * batch;
+            const long long o = l * sl + i * si;
             a[q] = Fam::load(in[o]);
-            c[q] = Fam::load(in[o + (size_t)h * batch]);
+            c[q] = Fam::load(in[o + h * si]);
           }
         }
 #pragma unroll
@@ -456,9 +474,9 @@ struct Team {
           const int t = t0 + NT * q, l = t >> lh, i = t & (h - 1);
           a[q] = c[q] = 0.f;
           if (t < n) {
-            const size_t o = (size_t)(p[l] * len + i) * batch;
+            const long long o = (kOne ? l : p[l]) * sl + i * si;
             a[q] = Fam::load(in[o]);
-            c[q] = Fam::load(in[o + (size_t)h * batch]);
+            c[q] = Fam::load(in[o + h * si]);
           }
         }
 #pragma unroll
@@ -472,11 +490,11 @@ struct Team {
 #pragma unroll 4
       for (int t = tid; t < n; t += NT) {
         const int l = t >> lh, i = t & (h - 1);
-        const S* x = Xd + p[l] * len + i;
+        const S* x = Xd + (kOne ? l : p[l]) * len + i;
         Y[t] = Fam::store(Fam::g(Fam::load(x[0]), Fam::load(x[h]), bit_of(off + i, l)));
       }
     }
-    each_path(w, [&](int l) { s.P[d][l] = p[l]; });
+    if constexpr (!kOne) each_path(w, [&](int l) { s.P[d][l] = p[l]; });
     sync();
   }
 
@@ -484,6 +502,11 @@ struct Team {
   // child's perm, XOR the right bits; perms composed
   __device__ void combine(int d, int len, int off, int w) {
     const int h = len >> 1;
+    if constexpr (kOne) {  // no fork, no perm to compose
+      for (int i = lane; i < h; i += 32) W[off + i] ^= W[off + h + i];
+      sync();
+      return;
+    }
     const auto* p = s.P[d + 1];  // right child's perm
     if constexpr (NW == 1) {  // lanes over positions, the perm in registers
       int pj[L];
@@ -859,6 +882,54 @@ struct Team {
     return decide(t, kind, kind == K_REP || kind == K_ENUM ? 0 : Fam::hard(at<D>(xs, i)), i);
   }
 
+  // One path: lane c < nc computes candidate c's value (its sums on its own
+  // lane, sequential over the span), the warp takes the first maximal one
+  // by a butterfly of (value, code) pairs (the rank-0 candidate of the
+  // prune: value desc, code asc), and each lane writes its positions'
+  // decision bits; the perm stays the identity.
+  template <bool D>
+  __device__ void one_leaf(const S* Xd, int len, int off, int kind, int aux, int nc) {
+    K1_CLOCK(tp);
+    const S* x = path<D>(Xd, len, 0);
+    const float mt = s.M[0];
+    float v = 0.f;
+    int c = lane < nc ? lane : kNoCode;
+    if (c != kNoCode) v = mt + delta<D>(kind, x, len, 0, c, aux);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kAll, v, o);
+      const int oc = __shfl_xor_sync(kAll, c, o);
+      if (oc != kNoCode && (c == kNoCode || ov > v || (ov == v && oc < c))) {
+        v = ov;
+        c = oc;
+      }
+    }
+    K1_TICK(10, tp);
+    Slot t;
+    t.c = c;
+    if (kind == K_RATE1 && len == 1) {
+      t.fm = c == 1;
+      t.i0 = 0;
+    } else if (kind == K_RATE1) {
+      t.fm = (c == 1 || c == 3) | ((c == 2 || c == 3) << 1);
+      t.i0 = s.is[0][0];
+      t.i1 = s.is[1][0];
+    } else if (kind == K_SPC) {
+      t.fm = s.spc[(s.par[0] ? 8 : 0) + c];
+      t.i0 = s.is[0][0];
+      t.i1 = s.is[1][0];
+      t.i2 = s.is[2][0];
+      t.i3 = s.is[3][0];
+    } else if (kind == K_ENUM) {
+      t.emask = masks[aux + c];
+    }
+    for (int i = lane; i < len; i += 32) W[off + i] = slot_bit<D>(t, kind, x, i);
+    K1_TICK(11, tp);
+    sync();  // every lane has read s.M and the leaf scratch
+    if (lane == 0) s.M[0] = v;
+    sync();
+  }
+
   // LEAF: candidates, prune, decision bits, the survivors' metrics and perm;
   // D: the input in device memory (a one-leaf schedule that is not staged)
   template <bool D>
@@ -894,6 +965,10 @@ struct Team {
       sync();
     }
     K1_TICK(8, tp);
+    if constexpr (kOne) {
+      one_leaf<D>(Xd, len, off, kind, aux, nc);
+      return;
+    }
     const int T = w * nc;
     for (int t = tid; t < T; t += NT) {
       const int l = t / nc, c = t - l * nc;
@@ -954,6 +1029,7 @@ template <int L, class Fam, bool kExact>
 __global__ void __launch_bounds__(L > 32 ? 2 * L : 32 * kMaxPerBlock)
 scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict__ enum_masks,
                    const int* __restrict__ spc_tab, const typename Fam::State* __restrict__ llr,
+                   long long llr_sl, long long llr_si, long long llr_sb,
                    const float* __restrict__ met_in, int* __restrict__ bits,
                    int* __restrict__ perm_out, float* __restrict__ met_out, int list_size,
                    int w_in, int w_out, int span, int batch, int per_team, int direct) {
@@ -969,7 +1045,8 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
   int* W = reinterpret_cast<int*>(mine + sizeof(Shared<L>));
   S* X = reinterpret_cast<S*>(W + kWords<L> * span);
   K1_CLOCK(tk);
-  Tm tm{s, W, X, llr + b, enum_masks, span, batch, tid, tid & 31, tid >> 5, list_size};
+  const S* in = llr + b * llr_sb;
+  Tm tm{s, W, X, in, enum_masks, llr_sl, llr_si, span, tid, tid & 31, tid >> 5, list_size};
 
   tm.each_path(w_in, [&](int l) { s.M[l] = met_in[(size_t)b * w_in + l]; });
   if (tid < 32) s.spc[tid] = spc_tab[tid];
@@ -977,12 +1054,14 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
     if (tid == 0) s.bad = 0;
   }
   if (ops[0] == OP_LEAF && !direct) {  // a one-leaf subtree reads its input from shared memory
-    const int n = w_in * span;
+    const int n = w_in * span, lgs = log2i(span);
     for (int t0 = tid; t0 < n; t0 += NT * kLoads) {
       S v[kLoads];
 #pragma unroll
-      for (int q = 0; q < kLoads; ++q)
-        if (t0 + NT * q < n) v[q] = llr[(size_t)(t0 + NT * q) * batch + b];
+      for (int q = 0; q < kLoads; ++q) {
+        const int t = t0 + NT * q;
+        if (t < n) v[q] = in[(t >> lgs) * llr_sl + (t & (span - 1)) * llr_si];
+      }
 #pragma unroll
       for (int q = 0; q < kLoads; ++q)
         if (t0 + NT * q < n) X[t0 + NT * q] = v[q];
@@ -1021,7 +1100,7 @@ scl_subtree_kernel(const int* __restrict__ ops, int n_ops, const int* __restrict
   const int out_words = kWords<L> == 1 ? 1 : (tm.nl() + 31) >> 5;
   for (int i = tid; i < out_words * span; i += NT) bits[(size_t)i * batch + b] = W[i];
   tm.each_path(w_out, [&](int l) {
-    perm_out[(size_t)b * w_out + l] = s.P[0][l];
+    perm_out[(size_t)b * w_out + l] = Tm::kOne ? 0 : s.P[0][l];
     met_out[(size_t)b * w_out + l] = s.M[l];
   });
 }
@@ -1037,7 +1116,8 @@ int smem_limit() {
 
 template <int L, class Fam, bool kExact>
 int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
-           const void* llr, const float* met, int* bits, int* perm, float* met_out,
+           const void* llr, long long sl, long long si, long long sb, const float* met,
+           int* bits, int* perm, float* met_out,
            int list_size, int w_in, int w_out, int span, int batch, int per_block,
            cudaStream_t stream) {
   using S = typename Fam::State;
@@ -1063,32 +1143,35 @@ int launch(const int* ops, int n_ops, const int* enum_masks, const int* spc_tab,
     if (dev < kMaxDevices) raised[dev] = static_cast<int>(smem);
   }
   kernel<<<(batch + cw - 1) / cw, NT * cw, smem, stream>>>(
-      ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), met, bits, perm, met_out,
+      ops, n_ops, enum_masks, spc_tab, static_cast<const S*>(llr), sl, si, sb, met, bits, perm,
+      met_out,
       list_size, w_in, w_out, span, batch, static_cast<int>(per_team), static_cast<int>(direct));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The list capacity that serves list_size: the next power of two from 2
-// to 128 (0 outside 1..128; a list of one path runs in capacity 2).
+// The list capacity that serves list_size: the next power of two up to
+// 128 (0 outside 1..128; a list of one path runs in the one-path kernel).
 int capacity(int list_size) {
   if (list_size < 1 || list_size > 128) return 0;
-  int cap = 2;
+  int cap = 1;
   while (cap < list_size) cap <<= 1;
   return cap;
 }
 
 template <class Fam>
 int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x,
-             const float* mi, int* bt, int* pr, float* mo, int list_size, int w_in,
-             int w_out, int span, int batch, int pb, cudaStream_t st) {
-#define K1_LAUNCH(CAP, EXACT)                                                              \
-  launch<CAP, Fam, EXACT>(o, n_ops, e, sp, x, mi, bt, pr, mo, list_size, w_in, w_out, span, \
-                          batch, pb, st)
+             long long sl, long long si, long long sb, const float* mi, int* bt, int* pr,
+             float* mo, int list_size, int w_in, int w_out, int span, int batch, int pb,
+             cudaStream_t st) {
+#define K1_LAUNCH(CAP, EXACT)                                                             \
+  launch<CAP, Fam, EXACT>(o, n_ops, e, sp, x, sl, si, sb, mi, bt, pr, mo, list_size, w_in, \
+                          w_out, span, batch, pb, st)
   // the list sizes of 32 paths or fewer that fill their capacity keep the
   // list size a constant of their build (~4% faster at L = 8 than the run-
   // time list size, chip_profile.py k1_ab); every other size runs in its
   // capacity's instantiation with the list size at run time
   switch (list_size) {
+    case 1: return K1_LAUNCH(1, true);
     case 2: return K1_LAUNCH(2, true);
     case 4: return K1_LAUNCH(4, true);
     case 8: return K1_LAUNCH(8, true);
@@ -1116,6 +1199,7 @@ int bytes_at(int span, int n_ops) {
 template <class Fam>
 int bytes_of(int list_size, int span, int n_ops) {
   switch (capacity(list_size)) {
+    case 1: return bytes_at<1, Fam>(span, n_ops);
     case 2: return bytes_at<2, Fam>(span, n_ops);
     case 4: return bytes_at<4, Fam>(span, n_ops);
     case 8: return bytes_at<8, Fam>(span, n_ops);
@@ -1134,7 +1218,8 @@ bool bad_span(int span) {
 }  // namespace
 
 extern "C" int scl_subtree(const void* ops, int n_ops, const void* enum_masks,
-                           const void* spc_tab, const void* llr, const void* met, void* bits,
+                           const void* spc_tab, const void* llr, long long llr_sl,
+                           long long llr_si, long long llr_sb, const void* met, void* bits,
                            void* perm, void* met_out, int list_size, int w_in, int w_out,
                            int span, int batch, int family, int per_block, void* stream) {
   if (bad_span(span)) return -1;
@@ -1148,9 +1233,9 @@ extern "C" int scl_subtree(const void* ops, int n_ops, const void* enum_masks,
   auto mo = static_cast<float*>(met_out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (family) {
-    case 0: return dispatch<FloatFamily>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
-    case 1: return dispatch<CharFamily>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
-    case 2: return dispatch<Bf16Family>(o, n_ops, e, sp, llr, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
+    case 0: return dispatch<FloatFamily>(o, n_ops, e, sp, llr, llr_sl, llr_si, llr_sb, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
+    case 1: return dispatch<CharFamily>(o, n_ops, e, sp, llr, llr_sl, llr_si, llr_sb, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
+    case 2: return dispatch<Bf16Family>(o, n_ops, e, sp, llr, llr_sl, llr_si, llr_sb, mi, bt, pr, mo, list_size, w_in, w_out, span, batch, per_block, st);
     default: return -1;
   }
 }

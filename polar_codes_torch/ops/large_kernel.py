@@ -353,10 +353,11 @@ def _scl_consts(dev: torch.device):
 
 def _bind_scl(lib):
     fn = lib.masked_scl_chunk
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # first use of this library
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return fn
 
 

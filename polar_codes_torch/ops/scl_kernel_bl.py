@@ -502,7 +502,8 @@ def scl_subtree_plain(sched: SubtreeSchedule, llr: torch.Tensor,
 def _bind(lib):
     fn = lib.scl_subtree
     if fn.argtypes is None:  # first use of this library
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.scl_subtree_smem.argtypes = [ctypes.c_int] * 4
@@ -510,6 +511,11 @@ def _bind(lib):
         lib.scl_subtree_smem_limit.argtypes = []
         lib.scl_subtree_smem_limit.restype = ctypes.c_int
     return fn
+
+
+# shared_bytes of the wrapper's library by (L, span, family code, n_ops,
+# device): what a decode's calls ask again and again
+_SHARED_BYTES: Dict[Tuple[int, int, int, int, Optional[int]], int] = {}
 
 
 def shared_bytes(lib, sched: SubtreeSchedule, fam) -> int:
@@ -535,17 +541,17 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     of every tree level below the subtree's root, the packed bit words,
     the perms) in shared memory, PER_BLOCK codewords a block (0: chosen
     from the batch), in the instantiation of the next power of two up to
-    MAX_LIST (L = 1 in capacity 2: the large-N decoders' one-leaf
-    schedules at one path; SCLDecoder decodes L = 1 through Fast-SSC); a
-    one-leaf schedule whose input does not fit there as well is decoded
-    from device memory. Every other schedule (L > MAX_LIST, or a branched
-    span whose L * span values of state exceed shared memory) runs in
+    MAX_LIST (L = 1 in a one-path instantiation: the large-N decoders'
+    one-leaf schedules at one path; SCLDecoder decodes L = 1 through
+    Fast-SSC); a one-leaf schedule whose input does not fit there as well
+    is decoded from device memory. Every other schedule (L > MAX_LIST, or
+    a branched span whose L * span values of state exceed shared memory) runs in
     csrc/scl_wide.cu: a block a codeword, the levels in a device-memory
     scratch, the bookkeeping in shared memory (launch_wide), reading llr at
     its own strides (the large-N glue's leaves are views of batch-first
-    [B, L, S] tensors, each codeword's paths side by side); the
-    shared-memory kernel takes a contiguous copy. A scratch larger than the
-    card's memory raises MemoryError."""
+    [B, L, S] tensors, each codeword's paths side by side), as the
+    shared-memory kernel does too. A scratch larger than the card's memory
+    raises MemoryError."""
     if llr.device.type == "cpu":
         return scl_subtree_plain(sched, llr, metrics)
     if llr.device.type != "cuda" or metrics.device != llr.device:
@@ -568,7 +574,11 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
             f"the kernels cover L >= 1 and at most {MAX_LEVELS} tree levels, got "
             f"L={sched.list_size}, {sched.levels} levels")
     lib = _build.load("scl_subtree")
-    if shared_bytes(lib, sched, fam) < 0:
+    key = (sched.list_size, sched.span, fam.code, sched.ops.shape[0], llr.device.index)
+    need = _SHARED_BYTES.get(key)
+    if need is None:
+        need = _SHARED_BYTES[key] = shared_bytes(lib, sched, fam)
+    if need < 0:
         out = launch_wide(_build.load("scl_wide"), sched, llr, metrics)
         WIDE_LAUNCHES[fam.name] += 1
     else:
@@ -579,10 +589,9 @@ def scl_subtree(sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
 
 
 def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor):
-    """Launch K1 from the loaded library `lib` on checked CUDA tensors (llr
-    made contiguous first)."""
+    """Launch K1 from the loaded library `lib` on checked CUDA tensors; llr
+    [w_in, span, B] at any strides (read in place)."""
     fn = _bind(lib)
-    llr = llr.contiguous()
     fam = FAMILIES[llr.dtype]
     dev = llr.device
     ops, masks, spc = sched.device_consts(dev)
@@ -593,9 +602,9 @@ def launch(lib, sched: SubtreeSchedule, llr: torch.Tensor, metrics: torch.Tensor
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32, device=dev)
     met = torch.empty((n_batch, sched.w_out), dtype=torch.float32, device=dev)
     err = fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(),
-             llr.data_ptr(), metrics.data_ptr(), bits.data_ptr(), perm.data_ptr(),
-             met.data_ptr(), sched.list_size, sched.w_in, sched.w_out, sched.span,
-             n_batch, fam.code, PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+             llr.data_ptr(), *llr.stride(), metrics.data_ptr(), bits.data_ptr(),
+             perm.data_ptr(), met.data_ptr(), sched.list_size, sched.w_in, sched.w_out,
+             sched.span, n_batch, fam.code, PER_BLOCK, _stream_of(dev))
     if err:
         raise RuntimeError(f"scl_subtree launch failed: CUDA error {err}")
     return bits, perm, met

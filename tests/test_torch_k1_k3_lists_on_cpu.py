@@ -114,6 +114,7 @@ def _run_k1(k1, sched, llr, met, per_block):
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32)
     m_out = torch.empty((n_batch, sched.w_out), dtype=torch.float32)
     assert fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(), llr.data_ptr(),
+              *llr.stride(),
               met.data_ptr(), bits.data_ptr(), perm.data_ptr(), m_out.data_ptr(),
               sched.list_size, sched.w_in, sched.w_out, sched.span, n_batch, fam.code,
               per_block, None) == 0
@@ -159,6 +160,30 @@ def test_k1_source_on_cpu_one_leaf_any_list(k1, n_list, family):
             want = kbl.scl_subtree_plain(sched, llr, met)
             where = f"L {n_list} {node.kind.value} span {node.length}, {kind}"
             assert got[0].shape == want[0].shape, where
+            assert torch.equal(got[0], want[0]), where + ": bits"
+            assert torch.equal(got[1], want[1]), where + ": perm"
+            assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
+                where + ": metrics")
+
+
+@pytest.mark.parametrize("n_list,family", [(1, "float32"), (1, "char"), (1, "bfloat16"),
+                                            (64, "float32")])
+def test_k1_source_on_cpu_one_leaf_views(k1, n_list, family):
+    """The one-leaf schedules the large-N decoders build (w_in = L), every
+    leaf kind, fed the glue's [L, S, B] view of a batch-first [B, L, S]
+    tensor and a contiguous copy of it: the kernel reads the view at its
+    strides (L = 1 in the one-path instantiation, 64 in capacity 64's
+    block); both equal the plain version."""
+    rng = np.random.default_rng(5 * n_list + len(family))
+    dtype = DTYPES[family]
+    for node in _nodes()[:6]:
+        sched = kbl.build_schedule(node, n_list, n_list)
+        llr, met = _inputs(rng, sched, 3, dtype, "ints")
+        view = llr.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        want = kbl.scl_subtree_plain(sched, view, met)
+        for x in (view, view.contiguous()):
+            got = _run_k1(k1, sched, x, met, 0)
+            where = f"L {n_list} {node.kind.value} span {node.length}, {x.stride()}"
             assert torch.equal(got[0], want[0]), where + ": bits"
             assert torch.equal(got[1], want[1]), where + ": perm"
             assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
@@ -242,8 +267,8 @@ def test_k1_merge_ranks_ties_across_lists(k1, source, n_list):
 
 
 def test_k1_list_capacity_and_smem(k1):
-    """A list size takes the next power of two's state (L = 1 capacity
-    2's); L = 64 and 128 fit the card's shared memory at the JAX package's
+    """A list size takes the next power of two's state (L = 1 the one-path
+    instantiation's, smaller than capacity 2's); L = 64 and 128 fit the card's shared memory at the JAX package's
     default span (128); a list beyond the shared-memory kernel's largest,
     and a branched span of 512 at L = 128, go to the device-memory kernel
     (csrc/scl_wide.cu), whose plan keeps only the levels in device
@@ -255,7 +280,7 @@ def test_k1_list_capacity_and_smem(k1):
     assert lib.scl_subtree_smem(64, 128, f32, 3) < 50 * 1024  # 32 KiB of levels, the rest lists
     assert lib.scl_subtree_smem(128, 128, f32, 3) < 100 * 1024
     assert lib.scl_subtree_smem(kbl.MAX_LIST + 1, 128, f32, 3) == -1
-    assert lib.scl_subtree_smem(1, 128, f32, 3) == lib.scl_subtree_smem(2, 128, f32, 3)
+    assert 0 < lib.scl_subtree_smem(1, 128, f32, 3) < lib.scl_subtree_smem(2, 128, f32, 3)
     assert lib.scl_subtree_smem(0, 128, f32, 3) == -1
     fam = kbl.family(torch.float32)
     node = build_tree(512, range(256))

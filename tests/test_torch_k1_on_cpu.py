@@ -97,14 +97,21 @@ def _run(k1, sched, llr, met, per_block):
     perm = torch.empty((n_batch, sched.w_out), dtype=torch.int32)
     m_out = torch.empty((n_batch, sched.w_out), dtype=torch.float32)
     assert fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(), llr.data_ptr(),
+              *llr.stride(),
               met.data_ptr(), bits.data_ptr(), perm.data_ptr(), m_out.data_ptr(),
               sched.list_size, sched.w_in, sched.w_out, sched.span, n_batch, fam.code,
               per_block, None) == 0
     return bits, perm, m_out
 
 
+def _glue_view(llr):
+    """The same values as the large-N glue hands them over: an [L, S, B] view
+    of a batch-first [B, L, S] tensor."""
+    return llr.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+
+
 def _check(k1, nodes, family, n_list, n_batch, per_block, seed, live_one=False,
-           widths=(1, None)):
+           widths=(1, None), view=False):
     rng = np.random.default_rng(seed)
     dtype = DTYPES[family]
     for node in nodes:
@@ -112,6 +119,8 @@ def _check(k1, nodes, family, n_list, n_batch, per_block, seed, live_one=False,
             sched = kbl.build_schedule(node, w_in, n_list)
             for kind in ("ints", "gauss"):
                 llr, met = _inputs(rng, sched, n_batch, dtype, kind, live_one)
+                if view:
+                    llr = _glue_view(llr)
                 got = _run(k1, sched, llr, met, per_block)
                 want = kbl.scl_subtree_plain(sched, llr, met)
                 where = f"{node.kind.value} span {node.length}, w_in {w_in}, {kind}"
@@ -132,6 +141,19 @@ def test_k1_source_on_cpu_leaves(k1, family, n_list):
 def test_k1_source_on_cpu_one_leaf_span256(k1, family, n_list):
     _check(k1, _chunk_leaves(), family, n_list, 2, 0, seed=10 * n_list + len(family),
            live_one=True, widths=(None,))
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("family", DTYPES)
+def test_k1_source_on_cpu_one_path(k1, family, view):
+    """The one-path instantiation (L = 1): the one-leaf span-256 schedules
+    of a large-N decoder's pure chunks, a leaf of each kind (ENUM too) and
+    the branched subtrees, fed a contiguous [1, S, B] tensor or the glue's
+    view of a batch-first [B, 1, S] one (read in place at its strides)."""
+    _check(k1, _chunk_leaves() + _leaves(), family, 1, 3, 0, seed=3 + len(family),
+           widths=(None,), view=view)
+    if not view:
+        _check(k1, _codes(), family, 1, 3, 4, seed=4 + len(family), widths=(None,))
 
 
 def _long_leaves(span):
@@ -195,5 +217,6 @@ def test_k1_refuses_state_beyond_shared_memory(k1):
     met = torch.zeros((1, 8))
     out = torch.empty(8192, dtype=torch.int32)
     assert fn(ops.data_ptr(), ops.shape[0], masks.data_ptr(), spc.data_ptr(), llr.data_ptr(),
+              *llr.stride(),
               met.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 8, 8, 8,
               8192, 1, 0, 0, None) == -2

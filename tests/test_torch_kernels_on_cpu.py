@@ -94,8 +94,9 @@ _CLASS_MASK = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1, 1, 1, 0, 1, 0, 0, 0,
                         1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0], np.uint8)
 
 
-def _k7_call(k7, family, llr, mask_np, met, sub, what):
-    """One call of K7's CPU build against its plain version."""
+def _k7_call(k7, family, llr, mask_np, met, sub, what, exact=False):
+    """One call of K7's CPU build against its plain version (exact: float32
+    metrics bit for bit too)."""
     from polar_codes_torch.models.large import _classify_chunks
 
     n_batch, n_list, m_len = llr.shape
@@ -118,6 +119,8 @@ def _k7_call(k7, family, llr, mask_np, met, sub, what):
     assert torch.equal(perm, pp), what
     if family == "char":
         assert torch.equal(m_out, pm), what
+    elif exact:
+        assert torch.equal(m_out.view(torch.int32), pm.view(torch.int32)), what
     else:
         torch.testing.assert_close(m_out, pm, rtol=1e-4, atol=1e-4)
 
@@ -134,9 +137,9 @@ def _check_k7(k7, family, n_list, mask_np, sub, n_batch, rng):
         _k7_call(k7, family, llr, mask_np, torch.as_tensor(met), sub, kind)
 
 
-# L = 1 and 3 run in the capacity-2 and -4 kernels with the list size at
-# run time, L = 33 and 64 in capacity 64's block with two words a position,
-# L = 100 in capacity 128's with four; the CPU runner puts a barrier at
+# L = 1 runs in the one-path kernel and L = 3 in capacity 4's kernel built
+# for three paths, L = 33 and 64 in capacity 64's block with two words a
+# position, L = 100 in capacity 128's with four; the CPU runner puts a barrier at
 # every warp sync and cannot show a race (chip_smoke.py phase 40 holds the
 # nvcc build on the card)
 @pytest.mark.parametrize("sub", [0, 4])
@@ -145,6 +148,41 @@ def _check_k7(k7, family, n_list, mask_np, sub, n_batch, rng):
 def test_k7_source_on_cpu_matches_plain(k7, family, n_list, sub):
     rng = np.random.default_rng(100 * n_list + sub + len(family))
     _check_k7(k7, family, n_list, _CLASS_MASK, sub, 2, rng)
+
+
+def _signed_ints(rng, shape):
+    """Integer LLRs in [-2, 2], each zero of a random sign."""
+    x = rng.integers(-2, 3, shape).astype(np.float32)
+    zero = x == 0
+    x[zero] = rng.choice(np.float32([-0.0, 0.0]), int(zero.sum()))
+    return x
+
+
+# L = 1: the one-path kernel; 2-4: capacity 4 built for each size (the
+# lists library called directly: the wrapper sends 2 and 4 to
+# large_scl_chunk.cu where their pyramid fits); 12: capacity 32, a bit's
+# candidates sorted over the warp in one register a lane
+@pytest.mark.parametrize("n_list", [1, 2, 3, 4, 12])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_k7_small_lists_on_cpu(family, n_list):
+    """The kernels below 32 paths against masked_scl_chunk_plain, bits,
+    perms and metrics bit for bit: integer LLRs in [-2, 2] with zeros of
+    either sign, a row of alternating +-1 (every rep and SPC candidate of
+    a sub-block ties), all frozen and every sub-block class, with and
+    without sub-blocks of 4; metrics: one live path, all live, every path
+    at _NEG (the one path too), 0 to L - 1 live at random slots."""
+    lists = lk._bind_scl(_lib("large_scl_lists"))
+    rng = np.random.default_rng(31 * n_list + len(family))
+    for name, mask_np in (("classes", _CLASS_MASK), ("all frozen", np.ones(32, np.uint8))):
+        for sub in (0, 4):
+            llr = _signed_ints(rng, (4, n_list, mask_np.size))
+            llr[1] = np.where(np.arange(mask_np.size) % 2 == 0, 1.0, -1.0)
+            met = rng.integers(-3, 1, (4, n_list)).astype(np.float32)
+            met[0, 1:] = lk._NEG
+            met[2] = lk._NEG
+            met[3, rng.permutation(n_list)[rng.integers(0, n_list):]] = lk._NEG
+            _k7_call(lambda *_: lists, family, torch.as_tensor(llr), mask_np,
+                     torch.as_tensor(met), sub, f"{name}, sub {sub}", exact=True)
 
 
 # the merge's paths: a row in rank order with a _NEG tail (each bit's keep
