@@ -59,12 +59,6 @@ timed alone (CUDA events) per decode; then K3's root call of the (1024,
 512) code at B = 2048 in each family, alone and within a burst; a list
 size or family the tree refuses is printed as refused, so a copy of this
 script times an older tree too.
-Last, `k1_ab SRC.cu ...`: K1 built from each named source file (the same
-C interface: an older tree's `csrc/scl_subtree.cu`, or a variant) and
-timed in one process on the same calls, in rounds that alternate the
-order: the two calls of a float32 CA-SCL-8 decode at B = 2048 and 181 and
-the eight of a CA-SCL-32 decode at B = 2048, each call within a burst of
-BURST; with each build's registers and spills for L = 8 and 32.
 
 Last, `large_lists`: (32768, 16384) CRC16 CA-SCL-64 (chunk 256,
 sub-block 16, B = 128, 2 dB) on both schedules, each profiled and split
@@ -90,9 +84,21 @@ outputs equal this tree's. Then the CA-SCL-64 (B = 128) and CA-SCL-256
 (B = 32) decodes on both schedules and the (1024, 512) CA-SCL-256 one (B
 = 256, K1 from device memory) with each tree's pair of libraries.
 
-    python3 chip_profile.py [paths] [scl] [large] [k1_ops] [scan_ops] [k3_ops] [tree]
-                            [depthfirst] [lists] [large_lists] [k1_ab SRC.cu ...]
+Last, `k1_warp_ab [OLD/scl_subtree.cu ...]`: K1's warp
+capacities at the run-time list sizes 3, 6, 12 and 24 and the exact 4, 8,
+16 and 32 (float32, B = 2048; char and bf16 at L = 12; L = 12 at B = 181),
+this tree's csrc/scl_subtree.cu against older ones in one process, in
+alternating rounds: a decode's calls back to back and their device time
+under the profiler, the registers of every instantiation, and whole
+decodes (SCLDecoder at L = 3, 12, 24, AdaptiveDecoder(list_schedule=(3,
+12)), one sim.cli listlength point at L = 3-24). `k1_ops` covers the same
+calls, from this tree's source and from an OLD/scl_subtree.cu named
+after it, with the prunes each codeword runs by candidates a lane holds.
+
+    python3 chip_profile.py [paths] [scl] [large] [k1_ops [OLD/scl_subtree.cu]] [scan_ops]
+                            [k3_ops] [tree] [depthfirst] [lists] [large_lists]
                             [k7_ab SRC.cu ...] [k7_lists_ab OLD.cu OLD.cu]
+                            [k1_warp_ab [OLD/scl_subtree.cu ...]]
 
 runs the named parts (all without arguments).
 
@@ -214,7 +220,7 @@ def main():
     if "large" in parts:
         large_paths(card, torch, dev, gen)
     if "k1_ops" in parts:
-        k1_ops(card, torch, dev, frozen, llr / AMPL)
+        k1_ops(card, torch, dev, frozen, llr / AMPL, quant, sources)
     if "scan_ops" in parts:
         scan_ops(card, torch, scan, llr)
     if "k3_ops" in parts:
@@ -225,8 +231,6 @@ def main():
         depthfirst_path(card, torch, dev, gen, frozen)
     if "lists" in parts:
         list_sizes(card, torch, dev, frozen, llr / AMPL)
-    if "k1_ab" in parts:
-        k1_ab(card, torch, dev, frozen, llr / AMPL, sources)
     if "large_lists" in parts:
         large_lists(card, torch, dev, gen)
     if "k7_ab" in parts:
@@ -235,6 +239,8 @@ def main():
         k7_lists_ab(card, torch, dev, gen, sources)
     if "k1_lists_ab" in parts:
         k1_lists_ab(card, torch, dev, gen, sources)
+    if "k1_warp_ab" in parts:
+        k1_warp_ab(card, torch, dev, frozen, llr / AMPL, sources)
     if "k1_wide_ops" in parts:
         k1_wide_ops(card, torch, dev, gen, sources)
     if "k7_ops" in parts:
@@ -328,75 +334,6 @@ def list_sizes(card, torch, dev, frozen, llr):
                           "ms": time_cuda(fn, reps=CALLS),
                           "burst_ms": time_cuda(lambda: [fn() for _ in range(BURST)],
                                                 reps=CALLS) / BURST, "card": card}), flush=True)
-
-
-def k1_ab(card, torch, dev, frozen, llr, sources, rounds=4):
-    """K1 from each source in `sources`, timed on the same calls in rounds
-    of alternating order; every build's outputs equal the first's."""
-    import ctypes
-    import hashlib
-    import re
-    from pathlib import Path
-
-    from polar_codes_torch.models.detectors import CRC16
-    from polar_codes_torch.models.scl import SCLDecoder
-    from polar_codes_torch.ops import _build, scl_kernel_bl
-    from polar_codes_torch.utils.timing import time_cuda
-
-    nvcc = _build.nvcc_path()
-    flags = (*_build.NVCC_FLAGS, "-Xptxas", "-v")
-    builds = []
-    for src in sources:
-        path = Path(src).resolve()
-        key = hashlib.sha256(path.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
-        out = _build.BUILD / f"libscl_subtree_ab-{key}.so"
-        proc = subprocess.Popen([nvcc, *flags, "-o", str(out), str(path)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        builds.append((src, out, proc))
-    libs = []
-    for src, out, proc in builds:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {src}:\n{log}")
-        report = {}
-        for entry in log.split("Compiling entry function")[1:]:
-            kind = re.search(r"scl_subtree_kernelILi(\d+)ENS_\d+(\w+?)FamilyE", entry)
-            regs = re.search(r"Used (\d+) registers", entry)
-            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", entry)
-            if kind and kind.group(1) in ("8", "32") and regs and spill:
-                report[f"L{kind.group(1)} {kind.group(2)}"] = (int(regs.group(1)),
-                                                            int(spill.group(1)),
-                                                            int(spill.group(2)))
-        print(json.dumps({"k1_ab_source": src, "ptxas": report}), flush=True)
-        libs.append(ctypes.CDLL(str(out)))
-
-    def calls_of(n_list, n_batch):
-        calls = []
-        dec = SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), device=dev,
-                         subtree_fn=lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a))
-        dec.decode_packed(llr[:n_batch])
-        return calls
-
-    sets = {"L8_b2048": calls_of(8, BATCH), "L8_b181": calls_of(8, 181),
-            "L32_b2048": calls_of(32, BATCH)}
-    for name, calls in sets.items():
-        want = [scl_kernel_bl.launch(libs[0], *c) for c in calls]
-        for lib, (src, _, _) in zip(libs[1:], builds[1:]):
-            for c, w in zip(calls, want):
-                got = scl_kernel_bl.launch(lib, *c)
-                if not all(torch.equal(a, b) for a, b in zip(got, w)):
-                    raise SystemExit(f"k1_ab: {src} differs from {sources[0]} on {name}")
-    times = {src: {name: [] for name in sets} for src in sources}
-    for rnd in range(rounds):
-        order = list(zip(sources, libs))
-        for src, lib in (order if rnd % 2 == 0 else order[::-1]):
-            for name, calls in sets.items():
-                ms = time_cuda(lambda: [scl_kernel_bl.launch(lib, *c)
-                                        for _ in range(BURST) for c in calls], reps=CALLS)
-                times[src][name].append(ms / BURST)
-    for src in sources:
-        print(json.dumps({"k1_ab": src, "ms_per_decode_in_burst": times[src],
-                          "card": card}), flush=True)
 
 
 def k7_ab(card, torch, dev, gen, sources, rounds=4):
@@ -881,6 +818,155 @@ def k1_lists_ab(card, torch, dev, gen, sources, rounds=4):
                               "decode_ms": row, "card": card}), flush=True)
 
 
+def warm(fn, torch, seconds=0.3):
+    """Call fn for `seconds` of the host clock, then synchronise: the card's
+    clocks come up from idle before a timed window."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+    torch.cuda.synchronize()
+
+
+def k1_warp_ab(card, torch, dev, frozen, llr, sources, rounds=4):
+    """K1's warp capacities (4 to 32 paths): this tree's csrc/scl_subtree.cu
+    against each older scl_subtree.cu in `sources` (none: this tree alone),
+    each built with ptxas's register report (every capacity, family and
+    exact/run-time instantiation), in one process, on the calls of
+    k1_warp_sets, in rounds of alternating order. Per set and build: ms of
+    a decode's calls back to back (CALLS bursts of BURST decodes) and
+    their device ms under the profiler (device_ms), beside the calls
+    (host-bound sets show a burst far above the device time), and the sum
+    of each call timed alone (CUDA events); each window after warm(). Every
+    build's outputs equal this tree's. Then, with each build as the
+    wrapper's library, whole decodes at B = 2048: SCLDecoder (CRC16) at L
+    = 3, 12 and 24 and AdaptiveDecoder(list_schedule=(3, 12)) (CRC32 LLRs,
+    CUDA events), and one point of sim.cli listlength -n 1024 --l-min 3
+    --l-max 24 at 2 dB, one batch a list size (the host clock)."""
+    import contextlib
+    import ctypes
+    import hashlib
+    import io
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from polar_codes_torch.dsp import Awgn, Bpsk
+    from polar_codes_torch.models.adaptive import AdaptiveDecoder
+    from polar_codes_torch.models.detectors import CRC16, CRC32
+    from polar_codes_torch.models.encoder import PolarEncoder
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import _build
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+    from polar_codes_torch.sim import cli
+    from polar_codes_torch.utils.timing import time_cuda
+
+    nvcc = _build.nvcc_path()
+    flags = (*_build.NVCC_FLAGS, "-Xptxas", "-v")
+    labels = ["new"] + [f"old{i}" if len(sources) > 1 else "old" for i in range(len(sources))]
+    paths = [_build.CSRC / "scl_subtree.cu"] + [Path(s).resolve() for s in sources]
+    procs, t0 = [], time.perf_counter()
+    for label, path in zip(labels, paths):
+        key = hashlib.sha256(path.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
+        out = _build.BUILD / f"libscl_subtree_ab-{key}.so"
+        log = _build.BUILD / f"libscl_subtree_ab-{key}.log"
+        procs.append((label, path, out, log, subprocess.Popen(
+            [nvcc, *flags, "-o", str(out), str(path)], stdout=log.open("w"),
+            stderr=subprocess.STDOUT)))
+    seconds = {}
+    while len(seconds) < len(procs):  # each build's own seconds (they run side by side)
+        for label, _, _, _, proc in procs:
+            if label not in seconds and proc.poll() is not None:
+                seconds[label] = time.perf_counter() - t0
+        time.sleep(0.2)
+    libs = {}
+    for label, path, out, log, proc in procs:
+        log = log.read_text()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {path}:\n{log}")
+        regs = {}
+        for entry in log.split("Compiling entry function")[1:]:
+            kind = re.search(r"scl_subtree_kernelILi(\d+)ENS_\d+(\w+?)FamilyELb([01])E", entry)
+            used = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            if kind and used:
+                regs[f"L{kind.group(1)} {kind.group(2)} "
+                     f"{'exact' if kind.group(3) == '1' else 'run-time'}"] = [
+                    int(used.group(1)), int(spill.group(1)) if spill else 0]
+        print(json.dumps({"k1_warp_ab_source": str(path), "arm": label,
+                          "nvcc_s": seconds[label], "registers_and_spill_bytes": regs}),
+              flush=True)
+        libs[label] = ctypes.CDLL(str(out))
+
+    sets = k1_warp_sets(torch, dev, frozen, llr, torch.clamp(
+        torch.round(llr * AMPL), -127, 127).to(torch.int8))
+    for name, calls in sets.items():
+        want = [kbl.launch(libs["new"], *c) for c in calls]
+        for label in labels[1:]:
+            for c, w in zip(calls, want):
+                if not all(torch.equal(a, b) for a, b in zip(kbl.launch(libs[label], *c), w)):
+                    raise SystemExit(f"k1_warp_ab: {label} differs from this tree on {name}")
+    burst = {name: {label: [] for label in labels} for name in sets}
+    device = {name: {label: [] for label in labels} for name in sets}
+    alone = {name: {label: [] for label in labels} for name in sets}
+    for rnd in range(rounds):
+        for name, calls in sets.items():
+            for label in labels if rnd % 2 == 0 else labels[::-1]:
+                lib = libs[label]
+                fn = lambda: [kbl.launch(lib, *c) for c in calls]  # noqa: E731
+                warm(fn, torch)
+                burst[name][label].append(
+                    time_cuda(lambda: [fn() for _ in range(BURST)], reps=CALLS) / BURST)
+                alone[name][label].append(sum(
+                    time_cuda(lambda c=c: kbl.launch(lib, *c), warmup=1, reps=CALLS)
+                    for c in calls))
+                warm(fn, torch)
+                device[name][label].append(device_ms(fn, torch)[0])
+    for name, calls in sets.items():
+        print(json.dumps({"k1_warp_ab": name, "calls": len(calls),
+                          "batch": calls[0][1].shape[-1], "burst_ms_per_decode": burst[name],
+                          "device_ms_per_decode": device[name],
+                          "alone_ms_per_decode": alone[name], **prune_sizes(calls),
+                          "card": card}), flush=True)
+
+    det16, det32 = CRC16(), CRC32()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    chan = Awgn()
+    chan.set_esn0_linear(10.0 ** (EBN0_DB / 10.0) * K_LEN / N_LEN)
+    info = torch.randint(0, 2, (BATCH, K_LEN), generator=gen, device=dev, dtype=torch.uint8)
+    x32 = Bpsk().demodulate(chan.transmit(Bpsk().modulate(
+        PolarEncoder(N_LEN, frozen, detector=det32, device=dev).encode(info)), gen))
+    decoders = {f"scl{n}": (SCLDecoder(N_LEN, frozen, list_size=n, detector=det16, device=dev),
+                            llr) for n in (3, 12, 24)}
+    decoders["adaptive_3_12"] = (AdaptiveDecoder(N_LEN, frozen, list_schedule=(3, 12),
+                                                 device=dev), x32)
+    times = {name: {label: [] for label in labels} for name in [*decoders, "listlength_3_24"]}
+    tmp = tempfile.mkdtemp(prefix="k1_warp_ab_")
+    argv = ["listlength", "-n", str(N_LEN), "-r", "0.5", "--l-min", "3", "--l-max", "24",
+            "--snr-count", "1", "--snr-min", str(EBN0_DB), "--snr-max", str(EBN0_DB),
+            "--batch", str(BATCH), "-w", str(BATCH * N_LEN), "-o", f"{tmp}/ll"]
+    try:
+        for rnd in range(rounds):
+            for label in labels if rnd % 2 == 0 else labels[::-1]:
+                _build._LIBS["scl_subtree"] = libs[label]
+                for name, (dec, x) in decoders.items():
+                    times[name][label].append(
+                        time_cuda(lambda: dec.decode(x), warmup=1, reps=3))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    if cli.main(argv) != 0:
+                        raise SystemExit("k1_warp_ab: sim.cli listlength failed")
+                torch.cuda.synchronize()
+                times["listlength_3_24"][label].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        _build._LIBS["scl_subtree"] = libs["new"]
+        subprocess.run(["rm", "-rf", tmp], check=False)
+    for name, row in times.items():
+        print(json.dumps({"k1_warp_ab_decode": name, "batch": BATCH, "ms": row,
+                          "clock": "host" if name.startswith("listlength") else "cuda events",
+                          "card": card}), flush=True)
+
+
 def large_paths(card, torch, dev, gen):
     """Profile the large-N decodes, float32 and int8, and split each into
     its layers."""
@@ -1112,6 +1198,12 @@ K1_SLOTS = {0: "F", 1: "G", 2: "combine", 3: "leaf rate0", 4: "leaf rate1", 5: "
 def profile_build(name, macro, src=None):
     """csrc/<name>.cu (or the source file `src`) built with -D<macro> (its
     clock64 probes) into build/lib<name>_profile-<hash>.so, loaded."""
+    return profile_builds(name, macro, [src])[0]
+
+
+def profile_builds(name, macro, srcs):
+    """profile_build of each source in `srcs` (None: csrc/<name>.cu), one
+    nvcc process a source, all started together."""
     import ctypes
     import hashlib
     from pathlib import Path
@@ -1119,29 +1211,92 @@ def profile_build(name, macro, src=None):
     from polar_codes_torch.ops import _build
 
     nvcc = _build.nvcc_path()
-    src = _build.CSRC / f"{name}.cu" if src is None else Path(src).resolve()
     flags = (*_build.NVCC_FLAGS, f"-D{macro}")
-    key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
-    out = _build.BUILD / f"lib{name}_profile-{key}.so"
-    if not out.exists():
-        _build.BUILD.mkdir(parents=True, exist_ok=True)
-        run = subprocess.run([nvcc, *flags, "-o", str(out), str(src)], capture_output=True,
-                             text=True)
-        if run.returncode:
-            raise SystemExit(f"nvcc -D{macro} failed:\n{run.stdout}{run.stderr}")
-    return ctypes.CDLL(str(out))
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    outs, procs = [], []
+    for src in srcs:
+        src = _build.CSRC / f"{name}.cu" if src is None else Path(src).resolve()
+        key = hashlib.sha256(src.read_bytes() + repr((flags, nvcc)).encode()).hexdigest()[:16]
+        out = _build.BUILD / f"lib{name}_profile-{key}.so"
+        outs.append(out)
+        if not out.exists():
+            procs.append(subprocess.Popen([nvcc, *flags, "-o", str(out), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+    for proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc -D{macro} failed:\n{log}")
+    return [ctypes.CDLL(str(out)) for out in outs]
 
 
-def k1_ops(card, torch, dev, frozen, llr):
+# the warp capacities' list sizes: run-time sizes, then the exact capacities
+K1_WARP_LISTS = (3, 6, 12, 24, 4, 8, 16, 32)
+# buckets of candidates a lane holds in a warp prune (per = ceil(T / 32))
+PER_BUCKETS = ((1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 32))
+
+
+def k1_warp_sets(torch, dev, frozen, llr, quant):
+    """{name: calls [(sched, x, m)]}: the K1 calls of (1024, 512) CRC16
+    CA-SCL decodes (decode_packed) at B = 2048, float32 at each L in
+    K1_WARP_LISTS, char (the int8 LLRs `quant`) and bf16 at L = 12, and
+    float32 at L = 12 on the first 181 rows (an adaptive rerun's size)."""
+    from polar_codes_torch.models.detectors import CRC16
+    from polar_codes_torch.models.scl import SCLDecoder
+    from polar_codes_torch.ops import scl_kernel_bl
+
+    def calls_of(n_list, x, dtype=torch.float32):
+        calls = []
+        SCLDecoder(N_LEN, frozen, list_size=n_list, detector=CRC16(), dtype=dtype,
+                   device=dev,
+                   subtree_fn=lambda *a: calls.append(a) or scl_kernel_bl.scl_subtree(*a)
+                   ).decode_packed(x)
+        return calls
+
+    sets = {f"L{n}_float32_b{BATCH}": calls_of(n, llr) for n in K1_WARP_LISTS}
+    sets[f"L12_char_b{BATCH}"] = calls_of(12, quant, torch.int8)
+    sets[f"L12_bf16_b{BATCH}"] = calls_of(12, llr, torch.bfloat16)
+    sets["L12_float32_b181"] = calls_of(12, llr[:181])
+    return sets
+
+
+def prune_sizes(calls):
+    """The prunes a codeword of a decode's K1 calls runs, by the candidates
+    a warp lane holds (per = ceil(T / 32), T = w x C > L; the schedule
+    fixes w, so the host counts them), and the largest T."""
+    from polar_codes_torch.ops import scl_kernel_bl as kbl
+
+    counts = {(f"{a}" if a == b else f"{a}-{b}"): 0 for a, b in PER_BUCKETS}
+    t_max = 0
+    for sched, *_ in calls:
+        w, nl = sched.w_in, sched.list_size
+        for op, _, _, _, kind, _, nc, _ in sched.ops.tolist():
+            if op != kbl.OP_LEAF or kind == 0:  # rate-0 leaves keep their paths
+                continue
+            t = w * nc
+            if t > nl:
+                per = -(-t // 32)
+                for (a, b), name in zip(PER_BUCKETS, counts):
+                    if a <= per <= b:
+                        counts[name] += 1
+                t_max = max(t_max, t)
+            w = min(t, nl)
+    return {"prunes_by_per": counts, "t_max": t_max}
+
+
+def k1_ops(card, torch, dev, frozen, llr, quant, sources):
     """Where a K1 call's time goes, per codeword: K1 built with -DK1_PROFILE
     (clock64 probes, summed once a codeword; csrc/scl_subtree.cu) on the
     two calls of one float32 CA-SCL-8 decode at B = 181 and 2048, on the
     large-N pure chunks' one-leaf span-256 schedules at B = 128, and on
     the eight calls of a CA-SCL-64 (B = 1024) and a CA-SCL-128 (B = 256)
-    decode, summed over the decode. Prints cycles and ops per codeword by
-    op kind and leaf phase ("F" and "G" include their level-0 calls, the
-    leaf kinds include their phases, "schedule" is the whole call after
-    the launch)."""
+    decode, summed over the decode; then, with the int8 LLRs `quant`, on
+    the warp capacities' decodes of k1_warp_sets (each with its prunes by
+    candidates a lane, prune_sizes), from this tree's source and from each
+    older scl_subtree.cu in `sources` (a source without the probes is
+    skipped). Prints cycles and ops per codeword by op kind and leaf phase
+    ("F" and "G" include their level-0 calls, the leaf kinds include their
+    phases, "schedule" is the whole call after the launch)."""
     import ctypes
 
     from polar_codes_torch.models.detectors import CRC16
@@ -1150,8 +1305,11 @@ def k1_ops(card, torch, dev, frozen, llr):
     from polar_codes_torch.ops import scl_kernel_bl
     from polar_codes_torch.ops.large_kernel import _sub_leaf
 
-    lib = profile_build("scl_subtree", "K1_PROFILE")
-    lib.scl_subtree_profile.argtypes = [ctypes.c_void_p]
+    srcs = [None] + [src for src in sources if src.endswith("scl_subtree.cu")]
+    builds = list(zip(["this tree", *srcs[1:]], profile_builds("scl_subtree", "K1_PROFILE",
+                                                                srcs)))
+    for _, lib in builds:
+        lib.scl_subtree_profile.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_ulonglong * 64)()
 
     calls = []
@@ -1173,21 +1331,24 @@ def k1_ops(card, torch, dev, frozen, llr):
                    subtree_fn=lambda *a, _c=big: _c.append(a) or scl_kernel_bl.scl_subtree(*a)
                    ).decode_packed(llr[:n_batch])
         runs.append((f"N={N_LEN} CA-SCL-{n_list}, its {len(big)} calls", big))
-    for name, group in runs:
-        for _ in range(2):  # the second pass counted
+    for name, calls in k1_warp_sets(torch, dev, frozen, llr, quant).items():
+        runs.append((f"N={N_LEN} CA-SCL {name}, its {len(calls)} calls", calls))
+    for source, lib in builds:
+        for name, group in runs:
+            for _ in range(2):  # the second pass counted
+                lib.scl_subtree_profile(buf)
+                for sched, x, m in group:
+                    scl_kernel_bl.launch(lib, sched, x, m)
+                torch.cuda.synchronize()
             lib.scl_subtree_profile(buf)
-            for sched, x, m in group:
-                scl_kernel_bl.launch(lib, sched, x, m)
-            torch.cuda.synchronize()
-        lib.scl_subtree_profile(buf)
-        n_batch = group[0][1].shape[-1]
-        print(json.dumps({
-            "k1_ops": name, "batch": n_batch,
-            "cycles_per_codeword": {v: buf[k] / n_batch for k, v in K1_SLOTS.items()
-                                    if buf[k + 32]},
-            "ops_per_codeword": {v: buf[k + 32] / n_batch for k, v in K1_SLOTS.items()
-                                 if buf[k + 32]},
-            "card": card}), flush=True)
+            n_batch = group[0][1].shape[-1]
+            print(json.dumps({
+                "k1_ops": name, "source": source, "batch": n_batch,
+                "cycles_per_codeword": {v: buf[k] / n_batch for k, v in K1_SLOTS.items()
+                                        if buf[k + 32]},
+                "ops_per_codeword": {v: buf[k + 32] / n_batch for k, v in K1_SLOTS.items()
+                                     if buf[k + 32]},
+                **prune_sizes(group), "card": card}), flush=True)
 
 
 K1W_SLOTS = {**K1_SLOTS, 11: "leaf: decision bits and survivors", 13: "leaf: sums"}
@@ -1812,7 +1973,8 @@ def device_ms(fn, torch, tries=3):
 
 def k3_ops(card, torch, dev, gen, ad, enc, llr, quant):
     """K3's root call of the adaptive fast pass (N = 1024, the path's int8
-    LLRs; float32: the LLRs x10 unquantised) at B = 181 and 2048, and K2 on
+    LLRs; float32: the LLRs x10 unquantised; bfloat16: those rounded to
+    bf16) at B = 181 and 2048, and K2 on
     the encoder's u-domain rows at B = 1024: milliseconds of a call alone
     (CUDA events around one call, the host's wrapper and launch included),
     within BURST back-to-back calls, and on the device (torch.profiler).
@@ -1839,6 +2001,7 @@ def k3_ops(card, torch, dev, gen, ad, enc, llr, quant):
     for n_batch in K3_BATCHES:
         inputs[("float32", n_batch)] = llr[:n_batch].T.contiguous()
         inputs[("int8", n_batch)] = quant[:n_batch].T.contiguous()
+        inputs[("bfloat16", n_batch)] = llr[:n_batch].T.contiguous().to(torch.bfloat16)
     for (family, n_batch), x in inputs.items():
         fn = lambda x=x: fk.fastssc_subtree(sched, x, True)  # noqa: E731
         dev_ms, kernels = device_ms(fn, torch)

@@ -178,13 +178,14 @@ paths W = L / 32 packed words), SCLDecoder at L = 64 and 128, the
 simulator's `listlength`, AdaptiveDecoder(list_schedule=(3, 12)); K3's bf16
 family under FastSSCDecoder(dtype=bfloat16) and
 AdaptiveDecoder(fast_dtype=bfloat16):
- 36. K1 against its plain version at L = 3, 5, 12, 24, 64, 128, B in (1,
-     181, 2048), and at L = 33, 65, 100 (a warp split at tid = L in the
-     block kernels) at B in (1, 181), every family: every subtree call of
-     an N = 1024 CA-SCL decode on integer LLRs in [-2, 2], and one-leaf
-     schedules of every kind (ENUM with 8 and 16 candidates) with rows of
-     one live path; bits, perms and metrics equal; K1's calls at L = 3 and
-     12 timed at B = 2048
+ 36. K1 against its plain version at L = 3, 4, 5, 6, 12, 16, 24, 31, 32,
+     64, 128, B in (1, 181, 2048), and at L = 33, 65, 100 (a warp split at
+     tid = L in the block kernels) at B in (1, 181), every family: every
+     subtree call of an N = 1024 CA-SCL decode on integer LLRs in [-2, 2],
+     and one-leaf schedules of every kind (ENUM with 8 and 16 candidates)
+     with rows of one live path; bits, perms and metrics equal; K1's calls
+     at L = 3, 12 and 24 timed at B = 2048 beside their bounds and the
+     exact capacities' 4, 16 and 32
  37. (1024, 512) CA-SCL-64 CRC16 at B = 1024, 1.5 dB, in float32, int8 and
      bf16, and CA-SCL-128 at B = 256: decisions and packed words equal to
      the plain route, metrics within 1e-4, every CRC failure a wrong
@@ -656,7 +657,7 @@ def main():
          "plain_ms": k1_plain_ms, **bound(k1_bytes, k1_ops), "library_ms": None},
     ] + slice2["kernels"] + slice3["kernels"] + slice4["kernels"] + s11["entries"] + [
         {"name": f"scl_subtree[float32,L={n_list}]", "route": "cuda",
-         "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_NEW_DESIGN,
+         "source": "polar_codes_torch/csrc/scl_subtree.cu", "redesigned": K1_WARP_DESIGN,
          "replaces": "polar_codes_tpu/ops/scl_kernel_bl.py:876",
          "launches": s11["ad_counts"]["scl_subtree_by_list"][n_list],
          "launches_by_path": {"adaptive_l3_l12": s11["ad_counts"]["scl_subtree_by_list"][n_list]},
@@ -2771,8 +2772,14 @@ def run_slice10(card):
 # ---- slice 11: every list size, K3 bf16 -----------------------------------
 
 SEED11 = 20261025
-K1_NEW_LISTS = (3, 5, 12, 24, 33, 64, 65, 100, 128)
+K1_NEW_LISTS = (3, 4, 5, 6, 12, 16, 24, 31, 32, 33, 64, 65, 100, 128)
 K1_SPLIT_LISTS = (33, 65, 100)  # a warp split at tid = L: B in K1_BATCHES[:2] only
+K1_TIMED_LISTS = (3, 4, 12, 16, 24, 32)  # the warp run-time sizes beside the exact capacities
+K1_WARP_DESIGN = ("the capacity's instantiation at any list size below it, a warp a codeword; "
+                  "the prune above 64 candidates a threshold select (warp counts find the "
+                  "L-th largest 32-bit key one bit a round below the bits it must share, "
+                  "ties at it in code order, the L survivors ranked among themselves), up "
+                  "to 64 a rank of each candidate against all")
 K1_NEW_DESIGN = ("the capacity's instantiation at any list size below it; up to 32 paths "
                  "a warp a codeword, above 32 W packed words and a block of 2 x capacity "
                  "threads a codeword, the prune a merge of lists in rank order")
@@ -2797,10 +2804,12 @@ def run_k1_lists(card):
     LLRs in [-2, 2] (ties, signed zeros), and at B = 181 one-leaf
     schedules of every kind (ENUM with 8 and 16 candidates) entered at
     w_in = L with every other row holding one live path; bits, perms and
-    metrics equal. Then K1's calls of the float32 decodes at L = 3 and 12
-    timed at B = 2048, beside their plain versions. Returns {"err": the
-    largest difference per family (0), "calls": number held, "timed": {L:
-    (ms, plain ms, bytes, operations) per decode}}."""
+    metrics equal. Then K1's calls of the float32 decodes at L in
+    K1_TIMED_LISTS (the warp run-time sizes 3, 12 and 24 beside the exact
+    capacities 4, 16 and 32) timed at B = 2048, beside their plain versions
+    and bounds. Returns {"err": the largest difference per family (0),
+    "calls": number held, "timed": {L: (ms, plain ms, bytes, operations)
+    per decode}}."""
     import numpy as np
     import torch
 
@@ -2849,7 +2858,7 @@ def run_k1_lists(card):
                     hold(f"K1 {kbl.family(x.dtype).name} L={n_list} B={n_batch} span "
                          f"{sched.span} at {sched.node.offset}, w {sched.w_in}", sched, x, m,
                          want)
-                if n_batch == B2 and dtype == torch.float32 and n_list in (3, 12):
+                if n_batch == B2 and dtype == torch.float32 and n_list in K1_TIMED_LISTS:
                     timed[n_list] = _time_k1(calls, n_batch)
                 if n_batch != 181:
                     continue
@@ -2869,7 +2878,8 @@ def run_k1_lists(card):
                          x1, m1, kbl.scl_subtree_plain(one, x1, m1))
     torch.cuda.synchronize()
     emit({"k1_lists_checked_calls": checked, "lists": K1_NEW_LISTS, "max_abs_err": err,
-          "timed_b2048": {str(k): v[:2] for k, v in timed.items()}, "card": card})
+          "timed_b2048": {str(k): {"ms": v[0], "plain_ms": v[1], **bound(*v[2:])}
+                          for k, v in timed.items()}, "card": card})
     print(f"K1: {checked} calls equal to the plain version at L in {K1_NEW_LISTS}, "
           f"B in {K1_BATCHES}, every family")
     return {"err": err, "calls": checked, "timed": timed}

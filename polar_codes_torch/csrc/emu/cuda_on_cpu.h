@@ -187,6 +187,13 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
     return r;
   });
 }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu_exchange(v, [](const uint64_t* s) {
+    unsigned r = static_cast<uint32_t>(s[0]);
+    for (int i = 1; i < 32; ++i) r = std::max(r, static_cast<unsigned>(s[i]));
+    return r;
+  });
+}
 inline int __reduce_add_sync(unsigned, int v) {
   return emu_exchange(static_cast<uint32_t>(v), [](const uint64_t* s) {
     uint32_t r = 0;

@@ -102,11 +102,19 @@
 //             along as an XOR. Each candidate's value on its own thread
 //             (path l, candidate c at code l*C + c), every metric sum
 //             sequential over the span on one thread. The prune: a warp
-//             ranks each candidate against all T values, a lane holding
-//             its candidates in registers; a block merges the C lists (list
-//             c: candidates (l, c) in path order): each list's order is
-//             checked (a warp OR of "v_l < v_{l+1}", one shared atomic a
-//             warp), a list in rank order taken as it is, a list out of
+//             ranks each candidate against all T values up to T = 64 (a
+//             lane holding its candidates in registers); above, a lane
+//             holds the order-preserving 32-bit keys of its ceil(T / 32)
+//             candidates and the warp finds the L-th largest key thr one
+//             bit a round (a __reduce_add_sync count of the keys at or
+//             above a trial value), from below the high bits that the
+//             largest key shares with the least of the lanes' largest;
+//             the keys above thr and the first of those at thr by code
+//             survive, written in code order by ballots, and each of the
+//             L takes as slot its rank among them; a block merges the C
+//             lists (list c: candidates (l, c) in path order): each list's
+//             order is checked (a warp OR of "v_l < v_{l+1}", one shared
+//             atomic a warp), a list in rank order taken as it is, a list out of
 //             order ranked in runs of 32 paths and its runs merged by
 //             binary search, and a candidate's rank is its place in its own
 //             list plus a binary search of each other list, the searches
@@ -142,15 +150,23 @@
 // device time (capacity 2's 0.29 plus a 0.08 ms copy before), ~4.3 us a
 // call against ~45-60 us of the wrapper's host time; CA-SCL-64's 58 pure
 // chunks read in place take 2.04 ms (2.19 plus 0.94 of copies).
-// Capacities of 32 use 167 registers a thread, 16 and less 48-93, the
-// block teams 80 (64, a 72-byte spill) and 109-111 (128).
+// The warp teams above 64 candidates (chip_profile.py k1_warp_ab and
+// k1_ops, the rank they replaced in the same process; a decode's calls,
+// (1024, 512) CRC16, B = 2048, device ms): L = 12 0.86 (1.06), 24 1.47
+// (3.08), exact 16 0.95-0.97 (1.20), 32 1.70 (3.88), L = 3 0.28 (0.29);
+// the codeword's chain at L = 24 1.41M cycles (3.44M), its prunes 20%
+// (66%), the weakest magnitudes 18%, F and G at level 0 21%.
+// Capacities of 32 use 96 registers a thread (152-167 with the rank), 16
+// and less 56-64 (16: a 32-40-byte spill), the block teams 96 (64) and
+// 111 (128).
 //
 // Numerics: every sum is sequential over the span in f32, in the order of
 // the plain torch version (ops/scl_kernel_bl.py), and the build disables
 // FMA contraction, so kernel and plain version agree bit for bit in each
 // family. The prune ranks the candidates by (value descending, flat code
-// l*C + c ascending; float compares, so -0.0 ties +0.0); a candidate's slot
-// is its rank, the first L survive, each taken once, and while w*C <= L
+// l*C + c ascending; float compares, so -0.0 ties +0.0, and the select's
+// key gives both zeros one key); a candidate's slot is its rank, the
+// first L survive, each taken once, and while w*C <= L
 // every candidate survives in l-major slots. On finite values that is the
 // plain version's iterative extraction order exactly.
 // `weakest` takes the (|x|, index)-smallest entries, which is the plain
@@ -682,8 +698,8 @@ struct Team {
   // s.pv (slot -> code, value): a candidate's slot is its rank under
   // (value desc, code asc), each candidate taken once; while T <= nl every
   // candidate keeps its code as its slot. A warp ranks each candidate
-  // against all T values, a lane holding its candidates in registers; a
-  // block merges lists (merge). Returns the new width.
+  // against all T values up to T = 64 (rank), above it selects by a
+  // threshold (select); a block merges lists (merge). Returns the new width.
   __device__ int prune(int T, int w, int nc) {
     const int nl = this->nl();
     if (T <= nl) {
@@ -694,20 +710,98 @@ struct Team {
     } else if constexpr (kBlock) {
       merge(w, log2i(nc));
     } else {
-      const int per = (T + 31) >> 5;
+      const int per = (T + 31) >> 5;  // candidates a lane holds
       if (per == 1)
         rank<1>(T);
       else if (per == 2)
         rank<2>(T);
-      else if (per <= 4)
-        rank<4>(T);
       else if (per <= 8)
-        rank<(L < 8 ? L : 8)>(T);
+        select<(L < 8 ? L : 8)>(T);
+      else if (per <= 16)
+        select<(L < 16 ? L : 16)>(T);
       else
-        rank<L>(T);
+        select<L>(T);
     }
     sync();
     return T < nl ? T : nl;
+  }
+
+  // A value's order-preserving key: a larger value has a larger key, -0.0
+  // and +0.0 share one (float compares tie them), and every number's key
+  // is above 0, which marks no candidate.
+  __device__ static unsigned key_of(float v) {
+    unsigned u = __float_as_uint(v);
+    u = u == 0x80000000u ? 0u : u;
+    return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+  }
+
+  // Top-nl of T > nl candidates, lane holding the keys of candidates lane
+  // + 32 r (r < R), by a threshold select: thr, the nl-th largest key, lies
+  // between the largest key and the least of the lanes' largest (32 >= nl
+  // keys reach that), so it shares their common high bits; warp counts of
+  // the keys at or above a trial value find its other bits, one a round.
+  // The survivors, the keys above thr and the first (by code) of those at
+  // thr up to nl, are written in code order into s.pc / s.pv by ballots;
+  // each survivor's slot is then its rank among the nl.
+  template <int R>
+  __device__ void select(int T) {
+    const int nl = this->nl();
+    unsigned k[R];
+    unsigned top = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = lane + 32 * r;
+      k[r] = t < T ? key_of(s.V[t]) : 0u;
+      top = max(top, k[r]);
+    }
+    const unsigned hi = __reduce_max_sync(kAll, top), lo = __reduce_min_sync(kAll, top);
+    unsigned thr = hi;
+    if (hi != lo) {
+      int b = 31 - __clz(static_cast<int>(hi ^ lo));
+      thr = b == 31 ? 0u : hi & ~((2u << b) - 1u);
+      for (; b >= 0; --b) {
+        const unsigned c = thr | (1u << b);
+        int n = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) n += k[r] >= c;
+        thr = __reduce_add_sync(kAll, n) >= nl ? c : thr;
+      }
+    }
+    int above = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) above += k[r] > thr;
+    const int need = nl - __reduce_add_sync(kAll, above);  // ties at thr that survive
+    const unsigned below = (1u << lane) - 1u;
+    int ties = 0, kept = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const unsigned eq = __ballot_sync(kAll, k[r] == thr);
+      const bool keep = k[r] > thr || (k[r] == thr && ties + __popc(eq & below) < need);
+      const unsigned kb = __ballot_sync(kAll, keep);
+      if (keep) {
+        const int at = kept + __popc(kb & below), t = lane + 32 * r;
+        s.pc[at] = t;
+        s.pv[at] = s.V[t];
+      }
+      ties += __popc(eq);
+      kept += __popc(kb);
+    }
+    __syncwarp();
+    int c = 0, n = 0;
+    float v = 0.f;
+    if (lane < nl) {  // survivors lie in code order: a lower place has the lower code
+      c = s.pc[lane];
+      v = s.pv[lane];
+      for (int u = 0; u < nl; ++u) {
+        const float o = s.pv[u];
+        n += (o > v) | ((o == v) & (u < lane));
+      }
+    }
+    __syncwarp();
+    if (lane < nl) {
+      s.pc[n] = c;
+      s.pv[n] = v;
+    }
   }
 
   // The ranks of candidates lane + 32 r (r < R), each counting the
@@ -845,8 +939,8 @@ struct Team {
     Slot t;
     if (j < w2) {
       const int code = s.pc[j];
-      t.src = code / nc;
-      t.c = code - t.src * nc;
+      t.src = code >> log2i(nc);
+      t.c = code & (nc - 1);
       if (kind == K_RATE1 && len == 1) {
         t.fm = t.c == 1;
         t.i0 = 0;
@@ -969,9 +1063,9 @@ struct Team {
       one_leaf<D>(Xd, len, off, kind, aux, nc);
       return;
     }
-    const int T = w * nc;
+    const int T = w * nc, lgc = log2i(nc);  // nc: a power of two
     for (int t = tid; t < T; t += NT) {
-      const int l = t / nc, c = t - l * nc;
+      const int l = t >> lgc, c = t & (nc - 1);
       s.V[t] = s.M[l] + delta<D>(kind, path<D>(Xd, len, l), len, l, c, aux);
     }
     sync();
@@ -1018,7 +1112,7 @@ struct Team {
     K1_TICK(11, tp);
     each_path(w2, [&](int l) {
       s.M[l] = s.pv[l];
-      s.P[d][l] = s.pc[l] / nc;
+      s.P[d][l] = s.pc[l] >> lgc;
     });
     sync();
     w = w2;
@@ -1168,8 +1262,8 @@ int dispatch(const int* o, int n_ops, const int* e, const int* sp, const void* x
                           w_out, span, batch, pb, st)
   // the list sizes of 32 paths or fewer that fill their capacity keep the
   // list size a constant of their build (~4% faster at L = 8 than the run-
-  // time list size, chip_profile.py k1_ab); every other size runs in its
-  // capacity's instantiation with the list size at run time
+  // time list size, the two timed in one process); every other size runs
+  // in its capacity's instantiation with the list size at run time
   switch (list_size) {
     case 1: return K1_LAUNCH(1, true);
     case 2: return K1_LAUNCH(2, true);

@@ -121,7 +121,7 @@ def _run_k1(k1, sched, llr, met, per_block):
     return bits, perm, m_out
 
 
-@pytest.mark.parametrize("n_list", [3, 64])
+@pytest.mark.parametrize("n_list", [3, 6, 12, 24, 64])
 @pytest.mark.parametrize("family", DTYPES)
 def test_k1_source_on_cpu_any_list(k1, family, n_list):
     rng = np.random.default_rng(n_list + len(family))
@@ -264,6 +264,58 @@ def test_k1_merge_ranks_ties_across_lists(k1, source, n_list):
         assert torch.equal(got[1], want[1]), where + ": perm"
         assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
             where + ": metrics")
+
+
+def _prune_rows(rng, w_in, span):
+    """Four rows of LLRs [w_in, span, 4] and metrics [4, w_in] for a leaf's
+    prune: every candidate 0 (LLRs and metrics of either zero's sign), so
+    code order alone decides and the threshold's key is shared on both
+    sides of slot L; integer metrics in runs of three with LLRs in {-1,
+    -0.0, +0.0, 1}, so that values tie across paths at the threshold; one
+    live path beside -1e30; Gaussian values."""
+    llr = np.empty((w_in, span, 4), np.float32)
+    met = np.zeros((4, w_in), np.float32)
+    llr[..., 0] = rng.choice(np.float32([-0.0, 0.0]), (w_in, span))
+    met[0] = rng.choice(np.float32([-0.0, 0.0]), w_in)
+    llr[..., 1] = rng.choice(np.float32([-1.0, -0.0, 0.0, 1.0]), (w_in, span))
+    met[1] = -np.floor(np.arange(w_in) / 3.0)
+    llr[..., 2] = rng.standard_normal((w_in, span))
+    met[2, 1:] = NEG
+    llr[..., 3] = rng.standard_normal((w_in, span)) * 2.0 + 0.5
+    met[3] = rng.standard_normal(w_in) * 3.0
+    return llr, met
+
+
+@pytest.mark.parametrize("n_list", [6, 12, 24, 32])
+def test_k1_warp_prune_select_on_cpu(k1, n_list):
+    """The warp teams' prune: up to 64 candidates a lane ranks them against
+    all T, above 64 a threshold select (warp counts find the L-th largest
+    key, ties at it taken in code order, the survivors ranked among
+    themselves). REP (2 candidates a path), SPC (8) and ENUM (16) leaves
+    entered at the fewest paths that give T > L, at the fewest that give T
+    > 64 and at L (T = 16 L at most), in float32 and bf16, on the rows of
+    _prune_rows; bits, perms and metrics equal to the plain version."""
+    rng = np.random.default_rng(31 * n_list)
+    selects = 0
+    for node in (_leaf(NodeKind.REP, 8, range(7)), _leaf(NodeKind.SPC, 16, [0]),
+                 _leaf(NodeKind.ENUM, 16, [0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 13])):
+        nc = kbl.n_candidates(node)
+        for w_in in sorted({-(-(n_list + 1) // nc), -(-65 // nc), n_list}):
+            if w_in > n_list:
+                continue
+            selects += w_in * nc > 64
+            llr, met = _prune_rows(rng, w_in, node.length)
+            sched = kbl.build_schedule(node, w_in, n_list)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, m = torch.as_tensor(llr).to(dtype), torch.as_tensor(met)
+                got = _run_k1(k1, sched, x, m, 2)
+                want = kbl.scl_subtree_plain(sched, x, m)
+                where = f"L {n_list} {node.kind.value} w_in {w_in} (T {w_in * nc}), {dtype}"
+                assert torch.equal(got[0], want[0]), where + ": bits"
+                assert torch.equal(got[1], want[1]), where + ": perm"
+                assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), (
+                    where + ": metrics")
+    assert selects >= 2
 
 
 def test_k1_list_capacity_and_smem(k1):
